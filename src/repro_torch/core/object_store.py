@@ -1,0 +1,112 @@
+"""S3-like object store abstraction.
+
+Manu persists binlogs, sealed segments, and index files in object storage
+(S3 / MinIO / local FS).  We expose the minimal S3 verb surface —
+put/get/list/delete/exists with ETags — behind one interface, with two
+implementations:
+
+* ``MemoryObjectStore`` — in-process dict.  (``repro``'s directory-backed
+  ``FileObjectStore`` is not ported yet.)
+
+Values are opaque ``bytes``.  Higher layers (binlog, index files, train
+checkpoints) serialize with numpy ``.npz`` / msgpack-like headers on top.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import threading
+from dataclasses import dataclass
+from typing import Iterator
+
+
+@dataclass(frozen=True)
+class ObjectMeta:
+    key: str
+    size: int
+    etag: str
+
+
+class ObjectStore:
+    """Abstract S3-like store."""
+
+    def put(self, key: str, data: bytes) -> ObjectMeta:
+        raise NotImplementedError
+
+    def get(self, key: str) -> bytes:
+        raise NotImplementedError
+
+    def exists(self, key: str) -> bool:
+        raise NotImplementedError
+
+    def delete(self, key: str) -> bool:
+        """Remove ``key``; True iff an object was actually deleted.
+
+        Implementations keep reclamation counters (``delete_count``,
+        ``bytes_deleted``) covering only *real* removals, so GC benches and
+        tests can assert reclaimed bytes.
+        """
+        raise NotImplementedError
+
+    def list(self, prefix: str = "") -> Iterator[ObjectMeta]:
+        raise NotImplementedError
+
+    # -- convenience -------------------------------------------------------
+    def get_or_none(self, key: str) -> bytes | None:
+        return self.get(key) if self.exists(key) else None
+
+    def copy(self, src: str, dst: str) -> ObjectMeta:
+        return self.put(dst, self.get(src))
+
+
+def _etag(data: bytes) -> str:
+    return hashlib.md5(data).hexdigest()
+
+
+class MemoryObjectStore(ObjectStore):
+    def __init__(self) -> None:
+        self._objects: dict[str, bytes] = {}
+        self._lock = threading.RLock()
+        self.put_count = 0
+        self.get_count = 0
+        self.delete_count = 0
+        self.bytes_written = 0
+        self.bytes_read = 0
+        self.bytes_deleted = 0
+
+    def put(self, key: str, data: bytes) -> ObjectMeta:
+        if not isinstance(data, (bytes, bytearray)):
+            raise TypeError(f"object value must be bytes, got {type(data)}")
+        with self._lock:
+            self._objects[key] = bytes(data)
+            self.put_count += 1
+            self.bytes_written += len(data)
+            return ObjectMeta(key, len(data), _etag(data))
+
+    def get(self, key: str) -> bytes:
+        with self._lock:
+            if key not in self._objects:
+                raise KeyError(f"object not found: {key}")
+            data = self._objects[key]
+            self.get_count += 1
+            self.bytes_read += len(data)
+            return data
+
+    def exists(self, key: str) -> bool:
+        with self._lock:
+            return key in self._objects
+
+    def delete(self, key: str) -> bool:
+        with self._lock:
+            data = self._objects.pop(key, None)
+            if data is None:
+                return False
+            self.delete_count += 1
+            self.bytes_deleted += len(data)
+            return True
+
+    def list(self, prefix: str = "") -> Iterator[ObjectMeta]:
+        with self._lock:
+            keys = sorted(k for k in self._objects if k.startswith(prefix))
+            metas = [ObjectMeta(k, len(self._objects[k]), _etag(self._objects[k])) for k in keys]
+        yield from metas

@@ -1,0 +1,299 @@
+"""Segments with MVCC visibility (mirrors ``repro.core.segment``).
+
+The pk, vector and timestamp columns, the cached cosine unit columns and
+the visibility masks are device tensors; tombstone maps stay host Python
+dicts, as in the reference.  Scalar extras (attribute columns) stay numpy
+arrays on the host, where filter expressions are evaluated; 2-D extras
+(further vector fields) get a cached device copy when they are scanned.
+
+A tombstone ``(pk, dts)`` kills exactly the row versions with
+``row_ts < dts``, so an upsert's delete half leaves its own insert half
+visible.  Primary keys are integers: string pks are not ported yet.
+"""
+
+from __future__ import annotations
+
+import threading
+from enum import Enum
+from typing import Any
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+
+DEFAULT_SLICE_ROWS = 10_000
+#: Every collection owns one implicit partition; unplaced writes land here.
+DEFAULT_PARTITION = "_default"
+
+
+def add_tombstone(dd: dict, pk, ts: int) -> bool:
+    """Record one (pk, delete-ts) tombstone; returns False on duplicates."""
+    cur = dd.get(pk)
+    if cur is None:
+        dd[pk] = int(ts)
+        return True
+    if isinstance(cur, list):
+        if ts in cur:
+            return False
+        cur.append(int(ts))
+        cur.sort()
+        return True
+    if cur == ts:
+        return False
+    dd[pk] = sorted((cur, int(ts)))
+    return True
+
+
+def flatten_tombstones(dd: dict, device) -> "tuple[torch.Tensor, torch.Tensor]":
+    """Flatten a pk -> (ts | [ts, ...]) map into aligned (pks, dts) int64
+    tensors on ``device`` -- the shape ``ops.eff_tombstones`` consumes."""
+    pks: list = []
+    dts: list = []
+    for pk, v in dd.items():
+        if isinstance(v, list):
+            pks.extend([pk] * len(v))
+            dts.extend(v)
+        else:
+            pks.append(pk)
+            dts.append(v)
+    return (
+        torch.tensor(pks, dtype=torch.int64).to(device),
+        torch.tensor(dts, dtype=torch.int64).to(device),
+    )
+
+
+def _int_pks(pks) -> np.ndarray:
+    arr = np.asarray(pks)
+    if arr.size and arr.dtype.kind not in "iu":
+        raise TypeError(f"repro_torch segments take integer pks, got dtype {arr.dtype}")
+    return arr.astype(np.int64, copy=False)
+
+
+class SegmentState(Enum):
+    GROWING = "growing"
+    SEALED = "sealed"
+    DROPPED = "dropped"
+
+
+class Segment:
+    """Columnar segment on one device with MVCC visibility."""
+
+    def __init__(
+        self,
+        segment_id: int,
+        collection: str,
+        shard: int,
+        dim: int,
+        slice_rows: int = DEFAULT_SLICE_ROWS,
+        extra_fields: tuple[str, ...] = (),
+        partition: str = DEFAULT_PARTITION,
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        self.segment_id = segment_id
+        self.collection = collection
+        self.shard = shard
+        self.partition = partition
+        self.dim = dim
+        self.slice_rows = slice_rows
+        self.state = SegmentState.GROWING
+        self.extra_fields = tuple(extra_fields)
+
+        self._pks: list[torch.Tensor] = []
+        self._vectors: list[torch.Tensor] = []
+        self._timestamps: list[torch.Tensor] = []
+        self._extras: dict[str, list[np.ndarray]] = {f: [] for f in self.extra_fields}
+        self._num_rows = 0
+        # Materialized columns and cached unit / device-extra columns;
+        # invalidated on append.
+        self._mat: dict[str, Any] | None = None
+        self._unit: dict[str, torch.Tensor] = {}
+        self._dev_extra: dict[str, torch.Tensor] = {}
+        # Tombstones: pk -> delete ts (or a sorted list of them).
+        self._deleted: dict[Any, Any] = {}
+        self._del_flat: tuple[torch.Tensor, torch.Tensor] | None = None
+        self._lock = threading.RLock()
+        self.checkpoint_pos: int = 0
+
+    # -------------------------------------------------------------- writes
+    def append(self, pks, vectors, timestamps, extras: dict | None = None) -> None:
+        """Append rows; ``pks``/``vectors``/``timestamps`` may be numpy
+        arrays or tensors on any device (they are copied to this one)."""
+        with self._lock:
+            if self.state is not SegmentState.GROWING:
+                raise RuntimeError(f"segment {self.segment_id} is {self.state}, not growing")
+            if not torch.is_tensor(pks):
+                pks = torch.from_numpy(_int_pks(pks))
+            vec = vectors if torch.is_tensor(vectors) else torch.from_numpy(np.asarray(vectors))
+            if vec.dim() != 2 or vec.shape[1] != self.dim:
+                raise ValueError(f"expected (n,{self.dim}) vectors, got {tuple(vec.shape)}")
+            ts = timestamps if torch.is_tensor(timestamps) else torch.from_numpy(
+                np.asarray(timestamps, np.int64)
+            )
+            n = len(pks)
+            if not (len(vec) == len(ts) == n):
+                raise ValueError("pks/vectors/timestamps length mismatch")
+            self._pks.append(pks.to(self.device, torch.int64))
+            self._vectors.append(vec.to(self.device, torch.float32).contiguous())
+            self._timestamps.append(ts.to(self.device, torch.int64))
+            for name in self.extra_fields:
+                src = (extras or {}).get(name)
+                if src is None:
+                    raise ValueError(f"missing extra field '{name}'")
+                self._extras[name].append(np.asarray(src))
+            self._num_rows += n
+            self._mat = None
+            self._unit.clear()
+            self._dev_extra.clear()
+
+    def delete(self, pks, ts: int) -> int:
+        """Tombstone primary keys as of ``ts`` (row versions with
+        ``row_ts < ts`` die for queries pinned at or after ``ts``).
+        Returns the number of tombstones recorded."""
+        with self._lock:
+            want = torch.from_numpy(_int_pks(np.atleast_1d(np.asarray(pks)))).to(self.device)
+            if want.numel() == 0 or self._num_rows == 0:
+                return 0
+            have = torch.sort(self.pks()).values
+            from ..kernels import ops
+
+            hit = want[ops.isin_sorted(want, have)].tolist()
+            hits = sum(1 for pk in hit if add_tombstone(self._deleted, pk, ts))
+            if hits:
+                self._del_flat = None
+            return hits
+
+    def seal(self) -> None:
+        with self._lock:
+            self.state = SegmentState.SEALED
+
+    # --------------------------------------------------------------- reads
+    def _materialize(self) -> dict[str, Any]:
+        with self._lock:
+            if self._mat is None:
+                dev = self.device
+                cols: dict[str, Any] = {
+                    "pk": torch.cat(self._pks) if self._pks
+                    else torch.empty(0, dtype=torch.int64, device=dev),
+                    "vector": torch.cat(self._vectors) if self._vectors
+                    else torch.empty((0, self.dim), dtype=torch.float32, device=dev),
+                    "ts": torch.cat(self._timestamps) if self._timestamps
+                    else torch.empty(0, dtype=torch.int64, device=dev),
+                }
+                for name in self.extra_fields:
+                    chunks = self._extras[name]
+                    cols[name] = np.concatenate(chunks) if chunks else np.empty(0)
+                # Later appends rebuild from the single materialized chunk.
+                self._pks, self._vectors, self._timestamps = (
+                    [cols["pk"]], [cols["vector"]], [cols["ts"]]
+                )
+                self._mat = cols
+            return self._mat
+
+    @property
+    def num_rows(self) -> int:
+        return self._num_rows
+
+    def pks(self) -> torch.Tensor:
+        return self._materialize()["pk"]
+
+    def vectors(self) -> torch.Tensor:
+        return self._materialize()["vector"]
+
+    def timestamps(self) -> torch.Tensor:
+        return self._materialize()["ts"]
+
+    def extra(self, name: str) -> np.ndarray:
+        """A stored extras column as the host numpy array."""
+        return self._materialize()[name]
+
+    def vector_column(self, name: str = "vector") -> torch.Tensor:
+        """A vector column on the device ("vector" or a 2-D extra)."""
+        if name == "vector":
+            return self.vectors()
+        with self._lock:
+            cached = self._dev_extra.get(name)
+            if cached is None:
+                cached = torch.from_numpy(
+                    np.ascontiguousarray(self.extra(name), np.float32)
+                ).to(self.device)
+                self._dev_extra[name] = cached
+            return cached
+
+    def unit_column(self, name: str = "vector") -> torch.Tensor:
+        """Row-normalized copy of a vector column, cached until the next
+        append (cosine brute scans reuse it)."""
+        with self._lock:
+            cached = self._unit.get(name)
+            if cached is None:
+                col = self.vector_column(name)
+                norms = torch.linalg.vector_norm(col, dim=1, keepdim=True)
+                cached = (col / norms.clamp_min(1e-12)).contiguous()
+                self._unit[name] = cached
+            return cached
+
+    def _tombstones_flat(self):
+        with self._lock:
+            if not self._deleted:
+                return None
+            if self._del_flat is None:
+                self._del_flat = flatten_tombstones(self._deleted, self.device)
+            return self._del_flat
+
+    def visible_mask(self, ts: int) -> torch.Tensor:
+        """MVCC visibility at query timestamp ``ts`` as a device bool mask:
+        rows written at or before ``ts`` and not killed by a tombstone in
+        ``(row_ts, ts]``."""
+        from ..kernels import ops
+
+        cols = self._materialize()
+        mask = cols["ts"] <= ts
+        flat = self._tombstones_flat()
+        if flat is not None:
+            eff = ops.eff_tombstones(flat[0], flat[1], ts)
+            if eff is not None:
+                mask &= ~ops.tombstone_mask(cols["pk"], cols["ts"], eff[0], eff[1])
+        return mask
+
+    def delete_bitmap(self) -> torch.Tensor:
+        """Rows currently dead (killed at any timestamp)."""
+        return ~self.visible_mask(np.iinfo(np.int64).max)
+
+    def min_ts(self) -> int:
+        ts = self.timestamps()
+        return int(ts.min()) if len(ts) else 0
+
+    def max_ts(self) -> int:
+        ts = self.timestamps()
+        return int(ts.max()) if len(ts) else 0
+
+    # -------------------------------------------------------------- slices
+    def full_slices(self) -> list[int]:
+        """Indices of completed slices (candidates for temporary indexes)."""
+        return list(range(self._num_rows // self.slice_rows))
+
+
+def segment_from_columns(
+    columns: "dict[str, np.ndarray]",
+    segment_id: int = 0,
+    collection: str = "c",
+    shard: int = 0,
+    partition: str = DEFAULT_PARTITION,
+    slice_rows: int = DEFAULT_SLICE_ROWS,
+    sealed: bool = True,
+    device="cuda",
+) -> Segment:
+    """Build a segment straight from columns ``pk``, ``vector``, ``ts`` and
+    any extras (tests and benchmarks)."""
+    vec = columns["vector"]
+    extras = {k: v for k, v in columns.items() if k not in ("pk", "vector", "ts")}
+    seg = Segment(
+        segment_id, collection, shard, int(vec.shape[1]), slice_rows=slice_rows,
+        extra_fields=tuple(sorted(extras)), partition=partition, device=device,
+    )
+    if len(columns["pk"]):
+        seg.append(columns["pk"], vec, columns["ts"], extras)
+    if sealed:
+        seg.seal()
+    return seg

@@ -1,0 +1,32 @@
+"""Index factory keyed by kind string (mirrors ``repro.index.registry``)."""
+
+from __future__ import annotations
+
+from .base import IndexSpec, VectorIndex
+from .flat import FlatIndex
+
+INDEX_KINDS: dict[str, type[VectorIndex]] = {FlatIndex.KIND: FlatIndex}
+
+#: Kinds the reference builds that the port does not have yet, with the
+#: ROADMAP item that ports them.
+NOT_PORTED = {
+    "sq": "Queue 2 kernel 3 (sq_l2_topk) and Queue 1 item 7",
+    "pq": "Queue 2 kernel 4 (pq_adc_topk) and Queue 1 item 7",
+    "opq": "Queue 2 kernel 4 (pq_adc_topk) and Queue 1 item 7",
+    "ivf_flat": "Queue 1 item 7 (IVF family, kmeans_assign)",
+    "ivf_sq": "Queue 1 item 7 (IVF family, kmeans_assign)",
+    "ivf_pq": "Queue 1 item 7 (IVF family, kmeans_assign)",
+    "hnsw": "Queue 1 item 7 (HNSW)",
+    "bucket": "Queue 1 item 7 (bucket index)",
+}
+
+
+def create_index(spec: IndexSpec, device="cuda") -> VectorIndex:
+    cls = INDEX_KINDS.get(spec.kind)
+    if cls is None:
+        if spec.kind in NOT_PORTED:
+            raise NotImplementedError(
+                f"index kind '{spec.kind}' is not ported yet: ROADMAP {NOT_PORTED[spec.kind]}"
+            )
+        raise KeyError(f"unknown index kind '{spec.kind}'; have {sorted(INDEX_KINDS)}")
+    return cls(metric=spec.metric, device=device, **spec.normalized_params())

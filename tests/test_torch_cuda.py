@@ -1,0 +1,135 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: they build the kernels with nvcc and skip where no GPU is
+visible.  Run them on a GPU machine with
+``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro_torch.kernels import l2_topk as l2_mod  # noqa: E402
+from repro_torch.kernels import merge_topk as merge_mod  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.testing import SCORE_TOL, assert_scan_close  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _segments(rng, sizes, d, dev, invalid_frac=0.2, all_invalid=()):
+    bases, valids = [], []
+    for s, n in enumerate(sizes):
+        bases.append(torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dev))
+        if s in all_invalid:
+            valids.append(torch.zeros(n, dtype=torch.bool, device=dev))
+        elif s % 2:
+            valids.append(None)
+        else:
+            valids.append(torch.from_numpy(rng.random(n) >= invalid_frac).to(dev))
+    return bases, valids
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("k", [1, 100, 1024])
+@pytest.mark.parametrize("nq,d", [(1, 768), (37, 96)])
+def test_l2_topk_matches_plain(dev, metric, k, nq, d):
+    rng = np.random.default_rng(k + nq)
+    bases, valids = _segments(rng, [0, 1, 700, 5000, 3000, 65], d, dev, all_invalid=(4,))
+    q = torch.from_numpy(rng.standard_normal((nq, d)).astype(np.float32)).to(dev)
+    before = l2_mod.l2_topk.launches
+    got = l2_mod.l2_topk(q, bases, valids, k, metric)
+    torch.cuda.synchronize()
+    assert l2_mod.l2_topk.launches == before + 1
+    want = l2_mod.l2_topk_plain(q, bases, valids, k, metric)
+    assert_scan_close(got, want, q, bases, valids, k, metric, *SCORE_TOL[metric])
+
+
+def test_l2_topk_rejects_k_above_limit(dev):
+    q = torch.zeros((1, 8), device=dev)
+    with pytest.raises(ValueError):
+        l2_mod.l2_topk(q, [torch.zeros((4, 8), device=dev)], [None], l2_mod.MAX_K + 1)
+
+
+def _pools(rng, nq, m, dev):
+    s = rng.standard_normal((nq, m)).astype(np.float32)
+    s[:, ::7] = np.round(s[:, ::7])  # exact ties
+    s[:, 3::11] = -0.0
+    s[:, 5::13] = np.inf
+    s[:, 6::17] = np.nan
+    s[:, 8::19] = -np.inf
+    p = rng.integers(-2, m // 3, size=(nq, m)).astype(np.int64)  # duplicates
+    p[:, ::23] += 2**40  # pks beyond int32
+    return torch.from_numpy(s).to(dev), torch.from_numpy(p).to(dev)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("k,m", [(1, 7), (100, 500), (1024, 8192)])
+def test_merge_topk_matches_plain(dev, metric, k, m):
+    rng = np.random.default_rng(k)
+    s, p = _pools(rng, 33, m, dev)
+    before = merge_mod.merge_topk.launches
+    gv, gp = merge_mod.merge_topk(s, p, k, metric)
+    torch.cuda.synchronize()
+    assert merge_mod.merge_topk.launches == before + 1
+    wv, wp = merge_mod.merge_topk_plain(s, p, k, metric)
+    assert torch.equal(gp, wp)
+    assert torch.equal(torch.isnan(gv), torch.isnan(wv))
+    torch.testing.assert_close(gv, wv, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("k", [100, 1024])
+def test_wide_merge_is_chunked_kernel_launches(dev, k):
+    """A pool wider than one launch takes merges in kernel launches only:
+    three chunks, then their top-k lists, equal to the plain merge."""
+    rng = np.random.default_rng(k + 1)
+    s, p = _pools(rng, 9, 2 * merge_mod.MAX_M + 300, dev)
+    before = merge_mod.merge_topk.launches
+    gv, gp = ops.merge_topk(s, p, k, "l2")
+    torch.cuda.synchronize()
+    assert merge_mod.merge_topk.launches == before + 4
+    wv, wp = merge_mod.merge_topk_plain(s, p, k, "l2")
+    assert torch.equal(gp, wp) and torch.equal(gv, wv)
+
+
+def test_query_node_on_card_matches_cpu(dev):
+    """The same two-segment node on both devices gives the same answer."""
+    from repro_torch.core.collection import Metric
+    from repro_torch.core.consistency import GuaranteeTs
+    from repro_torch.core.log import LogBroker
+    from repro_torch.core.object_store import MemoryObjectStore
+    from repro_torch.core.query_node import QueryNode, SealedHandle
+    from repro_torch.core.segment import segment_from_columns
+
+    rng = np.random.default_rng(5)
+    cols = [
+        {
+            "pk": np.arange(s * 1000, s * 1000 + 300),
+            "vector": rng.standard_normal((300, 64)).astype(np.float32),
+            "ts": np.arange(10, 310, dtype=np.int64),
+        }
+        for s in range(2)
+    ]
+    q = rng.standard_normal((9, 64)).astype(np.float32)
+    out = {}
+    for device in ("cpu", "cuda"):
+        node = QueryNode("qn", LogBroker(), MemoryObjectStore(), device=device)
+        for s, c in enumerate(cols):
+            node.sealed[("c", s)] = SealedHandle(segment_from_columns(c, s, "c", device=device))
+        node.delta_deletes["c"] = {5: 200, 1007: 200}
+        g = GuaranteeTs(query_ts=250, staleness_ms=float("inf"))
+        out[device] = [node.search("c", q, 20, m, g) for m in (Metric.L2, Metric.IP, Metric.COSINE)]
+    for metric, (cs, cp), (gs, gp) in zip(("l2", "ip", "cosine"), out["cpu"], out["cuda"]):
+        rtol, atol = SCORE_TOL[metric]
+        torch.testing.assert_close(gs.cpu(), cs, rtol=rtol, atol=atol)
+        assert torch.equal(gp.cpu(), cp)
