@@ -3,24 +3,41 @@
 
     python3 chip_smoke.py            (from the root of a checkout)
 
-1. Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``.
-2. Kernel phase: each kernel against its plain PyTorch version on the card
-   (L2 and IP, k in {1, 100, 1024}, ragged and all-invalid segments,
-   duplicate, negative and >int32 pks, inf/NaN/-0.0 scores, merge pools
-   wider than one launch takes).  Scores are held to
-   ``repro_torch.testing.SCORE_TOL``, set from the measured float32 error;
-   the main-path check also shows that a TF32 product would fail it.
-3. Main path at VectorDBBench's Performance768D1M scale (1M x 768, top-100;
+1. Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (one nvcc per source, all started together).
+2. Kernel phase: each of the six kernels against its plain PyTorch version
+   on the card.  ``l2_topk``: L2 and IP, k in {1, 100, 1024}, ragged and
+   all-invalid segments.  ``merge_topk``: duplicate, negative and >int32
+   pks, inf/NaN/-0.0 scores, pools wider than one launch (bit-exact).
+   ``kmeans_assign``: N in {1, 700, 100,000} x C in {1, 16, 128, 256,
+   1,000} x D in {16, 768} and duplicate centroids (earliest wins).
+   ``sq_encode``: bit-exact, with exact .5 boundaries and a constant
+   column.  ``sq_l2_topk``: L2/IP, k in {1, 100, 1024}, nq in {1, 100},
+   ragged and all-invalid.  ``pq_adc_topk``: m in {8, 48}, ksub 256, masks,
+   k in {1, 100, 1024}, bit-exact scores.  Scores are held to
+   ``repro_torch.testing.SCORE_TOL``, set from the measured float32 error.
+3. FLAT path at VectorDBBench's Performance768D1M scale (1M x 768, top-100;
    synthetic data from --seed): an L2 and a cosine collection, each as
    seven 131,072-row sealed segments written to and loaded from the binlog
    (three FLAT-indexed through ``load_index``) plus 82,496 rows ingested as
-   INSERT log entries into a growing segment; 1% of pks deleted; segments
-   split across two QueryNodes on the card; requests at nq=1 and nq=100
-   pinned before and after the delete, each through both nodes and a
-   global ``merge_topk``, checked against an exact brute-force top-k over
-   the visible rows (plain torch).  Both kernels' launch counters must move.
-4. Prints phase times, request latencies, one JSON line of kernel
-   measurements, the card's name and power limit, and as the last line
+   INSERT log entries into a growing segment (interim index off); 1% of pks
+   deleted; two QueryNodes and a global ``merge_topk``, checked against an
+   exact brute-force top-k over the visible rows (plain torch).
+4. Indexed path at the same scale on a seeded Gaussian mixture: seven
+   sealed segments built by the port's ``IndexNode`` from
+   ``index_build_task`` messages (IVF-FLAT x2, IVF-SQ x2, IVF-PQ, SQ, PQ;
+   Milvus's IVF defaults nlist 128 / nprobe 8, PQ m 48), loaded by two
+   QueryNodes from the object store; 82,496 WAL rows with the system's
+   default ``slice_rows`` = 2,048, so 40 interim IVF-FLAT slice indexes are
+   built; 1% deletes.  Every answer must equal an oracle computed here in
+   plain torch from the loaded index state (probe by a full sort of the
+   centroid distances, score the probed rows, sort stably, merge); an
+   IVF-FLAT built twice from one seed must save the same bytes.  Recall@100
+   against exact brute force is printed, not gated.
+5. Each path runs with every launch counter at 0 and fails unless each of
+   its kernels was launched.  Prints phase and build times, request
+   latencies, profiled requests, one JSON line of kernel measurements, the
+   card's name and power limit, and as the last line
    ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
 """
 
@@ -51,6 +68,26 @@ PEAK_BYTES_S, PEAK_F32_FLOPS = 3.35e12, 67e12
 # Log timestamps: sealed rows, WAL inserts, deletes, and the two pins.
 TS_SEALED, TS_GROW, TS_DELETE = 1_000, 2_000, 3_000
 TS_BEFORE, TS_AFTER = 2_500, 3_500
+# Indexed path: segment -> (index kind, build params).  nlist 128 / nprobe 8
+# are Milvus's documented IVF defaults; m 48 divides 768.
+IVF_PARAMS = {"nlist": 128, "nprobe": 8}
+INDEXED_SEGMENTS = {
+    0: ("ivf_flat", IVF_PARAMS),
+    1: ("ivf_flat", IVF_PARAMS),
+    2: ("ivf_sq", IVF_PARAMS),
+    3: ("ivf_sq", IVF_PARAMS),
+    4: ("ivf_pq", {**IVF_PARAMS, "m": 48, "ksub": 256}),
+    5: ("sq", {}),
+    6: ("pq", {"m": 48, "ksub": 256}),
+}
+# The indexed collection's Gaussian mixture: N_CENTERS unit-normal centers,
+# each row a center plus NOISE * unit-normal noise.
+N_CENTERS, NOISE = 1_024, 0.5
+SLICE_ROWS = 2_048  # the system's default (src/repro/core/query_node.py:38)
+KMEANS_SAMPLE = 100_000  # rows an IVF build's Lloyd steps run on (index/kmeans.py)
+# kmeans_assign's kernel-phase grid: rows x centroids (x D in {16, DIM}).
+ASSIGN_ROWS, ASSIGN_CENTROIDS = (1, 700, KMEANS_SAMPLE), (1, 16, 128, 256, 1_000)
+KERNEL_NAMES = ("l2_topk", "merge_topk", "kmeans_assign", "sq_encode", "sq_l2_topk", "pq_adc_topk")
 
 
 def log(msg: str) -> None:
@@ -206,6 +243,552 @@ def build_collection(torch, store, gen, dev, name: str, metric):
     return x
 
 
+def index_kernel_phase(torch, km_mod, sq_mod, pq_mod, testing, dev, gen) -> dict:
+    """The four index kernels against their plain versions; returns max
+    |err| per kernel.  Assignments must agree except at distance near-ties
+    and their distances within ``SCORE_TOL``; SQ codes and PQ table sums
+    must be bit-exact."""
+    err = {"kmeans_assign": 0.0, "sq_encode": 0.0, "sq_l2_topk": 0.0, "pq_adc_topk": 0.0}
+    tol = testing.SCORE_TOL
+    n_assign = 0
+    for d in (16, DIM):
+        xs = {n: torch.randn((n, d), generator=gen, device=dev) for n in ASSIGN_ROWS}
+        for c in ASSIGN_CENTROIDS:
+            cent = torch.randn((c, d), generator=gen, device=dev)
+            for x in xs.values():
+                got = km_mod.kmeans_assign(x, cent)
+                want = km_mod.kmeans_assign_plain(x, cent)
+                torch.cuda.synchronize()
+                testing.assert_assign_close(got, want, x, cent, *tol["l2"])
+                err["kmeans_assign"] = max(err["kmeans_assign"], (got[1] - want[1]).abs().max().item())
+                n_assign += 1
+        # The same centroids again in later tiles: the earliest copy wins.
+        base = torch.randn((100, d), generator=gen, device=dev)
+        cent = torch.cat([base, base, base]).contiguous()
+        x = xs[ASSIGN_ROWS[-1]]
+        got = km_mod.kmeans_assign(x, cent)
+        want = km_mod.kmeans_assign_plain(x, cent)
+        torch.cuda.synchronize()
+        if not bool((got[0] < 100).all()):
+            raise AssertionError("kmeans_assign: a later duplicate centroid won a tie")
+        testing.assert_assign_close(got, want, x, cent, *tol["l2"])
+        n_assign += 1
+        del xs
+
+    x = torch.randn((SEG_ROWS, DIM), generator=gen, device=dev)
+    vmin, vmax = x.min(0).values, x.max(0).values
+    vmin[0], vmax[0] = 0.0, 255.0  # scale exactly 1: column 0 sits on .5 boundaries
+    x[:, 0] = torch.arange(SEG_ROWS, device=dev).remainder(256).float() + 0.5
+    x[:, 1] = 0.25  # a constant column, vmin == vmax
+    vmin[1] = vmax[1] = 0.25
+    codes = sq_mod.sq_encode(x, vmin, vmax)
+    if not torch.equal(codes, sq_mod.sq_encode_plain(x, vmin, vmax)):
+        raise AssertionError("sq_encode differs from its plain version")
+    even = torch.arange(SEG_ROWS, device=dev).remainder(256)
+    if not torch.equal(codes[:, 0].long(), (even + even.remainder(2)).clamp(max=255)):
+        raise AssertionError("sq_encode does not round .5 to even")
+
+    n_sq = 0
+    for n, frac in ((700, 0.3), (SEG_ROWS, 0.01), (5_000, 1.0)):
+        xs = torch.randn((n, DIM), generator=gen, device=dev)
+        lo, hi = xs.min(0).values, xs.max(0).values
+        c = sq_mod.sq_encode(xs, lo, hi)
+        decoded = sq_mod.sq_decode_plain(c, lo, hi)
+        valid = torch.rand(n, generator=gen, device=dev) >= frac  # 5,000 rows: all invalid
+        for nq in (1, 100):
+            q = torch.randn((nq, DIM), generator=gen, device=dev)
+            for metric in ("l2", "ip"):
+                for k in (1, 100, 1024):
+                    got = sq_mod.sq_l2_topk(q, c, lo, hi, valid, k, metric)
+                    want = sq_mod.sq_l2_topk_plain(q, c, lo, hi, valid, k, metric)
+                    torch.cuda.synchronize()
+                    testing.assert_scan_close(got, want, q, [decoded], [valid], k, metric, *tol[metric])
+                    fin = torch.isfinite(want[0])
+                    if fin.any():
+                        e = (got[0][fin] - want[0][fin]).abs().max().item()
+                        err["sq_l2_topk"] = max(err["sq_l2_topk"], e)
+                    n_sq += 1
+
+    n_pq = 0
+    for m in (8, 48):
+        c = torch.randint(0, 256, (SEG_ROWS, m), generator=gen, device=dev, dtype=torch.int32)
+        c[:64] = c[0]  # exact ties
+        valid = torch.rand(SEG_ROWS, generator=gen, device=dev) > 0.1
+        for nq in (1, 100):
+            luts = torch.randn((nq, m, 256), generator=gen, device=dev)
+            for k in (1, 100, 1024):
+                for codes in (c.to(torch.uint8), c):
+                    got = pq_mod.pq_adc_topk(luts, codes, k, valid)
+                    want = pq_mod.pq_adc_topk_plain(luts, codes, k, valid)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                        raise AssertionError(f"pq_adc_topk differs from its plain version (m={m}, k={k})")
+                    n_pq += 1
+    log(f"kernel phase: kmeans_assign {n_assign} cases agree (rtol, atol {tol['l2']}, "
+        f"near-ties exempt, earliest duplicate wins); sq_encode bit-exact (.5 boundaries, "
+        f"constant column); sq_l2_topk {n_sq} cases agree; pq_adc_topk {n_pq} cases "
+        f"bit-exact; max |err| {err}")
+    return err
+
+
+class Ticks:
+    """The coord channel's timestamp oracle: increasing integers that sit
+    between the build tasks and the deletes on the log."""
+
+    def __init__(self, start: int):
+        self.ts = start
+
+    def next(self) -> int:
+        self.ts += 1
+        return self.ts
+
+
+def mixture(torch, gen, dev, n: int, centers):
+    """Seeded Gaussian-mixture rows: a random center plus noise."""
+    pick = torch.randint(0, len(centers), (n,), generator=gen, device=dev)
+    return centers[pick] + NOISE * torch.randn((n, centers.shape[1]), generator=gen, device=dev)
+
+
+def l2_scores(q, x):
+    return ((q * q).sum(1, keepdim=True) - 2.0 * (q @ x.T)) + (x * x).sum(1)[None, :]
+
+
+def sq_decoded(torch, codes, vmin, vmax):
+    scale = torch.clamp_min(vmax - vmin, 1e-12) / 255.0
+    return codes.float() * scale[None, :] + vmin[None, :]
+
+
+def lut_tables(torch, q, codebooks):
+    """L2 ADC tables [nq, m, ksub], the plain per-subspace expression."""
+    m, _ksub, dsub = codebooks.shape
+    qs = q.reshape(len(q), m, dsub)
+    dots = torch.einsum("nmd,mkd->nmk", qs, codebooks)
+    return ((qs * qs).sum(-1)[:, :, None] - 2.0 * dots) + (codebooks * codebooks).sum(-1)[None]
+
+
+def lut_sums(torch, lut, codes):
+    """[nq, n] table sums over m = 0..M-1 in order."""
+    codes = codes.long()
+    out = torch.zeros((lut.shape[0], codes.shape[0]), dtype=lut.dtype, device=lut.device)
+    for j in range(codes.shape[1]):
+        out += lut[:, j, :].index_select(1, codes[:, j])
+    return out
+
+
+def oracle_unit(torch, index, q, valid):
+    """[nq, n] float64 L2 scores of one loaded index over its own rows
+    (original order), +inf where the index does not score the row for that
+    query: the probed lists' rows for IVF (probe by a full stable sort of
+    the centroid distances), every valid row otherwise.  float64 makes these
+    the exact values of the index's semantics (SQ rows decode in float32,
+    as the index defines them), which the port's float32 answers are held
+    to within ``SCORE_TOL``."""
+    inf = float("inf")
+    kind = index.KIND
+    q = q.double()
+    if kind == "sq":
+        s = l2_scores(q, sq_decoded(torch, index.codes, index.vmin, index.vmax).double())
+    elif kind == "pq":
+        s = lut_sums(torch, lut_tables(torch, q, index.codebooks.double()), index.codes)
+    else:
+        c = index.centroids.double()
+        nprobe = min(int(index.params["nprobe"]), len(c))
+        probes = torch.sort(l2_scores(q, c), dim=1, stable=True).indices[:, :nprobe]
+        probed = torch.zeros((len(q), len(c)), dtype=torch.bool, device=q.device)
+        probed.scatter_(1, probes, True)
+        counts = (index.list_offsets[1:] - index.list_offsets[:-1]).to(q.device)
+        row_list = torch.repeat_interleave(torch.arange(len(c), device=q.device), counts)
+        if kind == "ivf_flat":
+            s = l2_scores(q, index.storage.double())
+        elif kind == "ivf_sq":
+            s = l2_scores(q, sq_decoded(torch, index.codes, index.vmin, index.vmax).double())
+        else:  # ivf_pq: residual tables per (query, probed list)
+            s = torch.full((len(q), index.num_rows), inf, dtype=torch.float64, device=q.device)
+            offsets = index.list_offsets.tolist()
+            for lst in range(len(c)):
+                lo, hi = offsets[lst], offsets[lst + 1]
+                qsel = torch.nonzero(probed[:, lst]).squeeze(1)
+                if hi <= lo or qsel.numel() == 0:
+                    continue
+                lut = lut_tables(torch, q[qsel] - c[lst][None, :], index.codebooks.double())
+                cols = torch.arange(lo, hi, device=q.device)
+                s[qsel[:, None], cols[None, :]] = lut_sums(torch, lut, index.codes[lo:hi])
+        s = torch.where(probed[:, row_list], s, inf)
+        unperm = torch.empty_like(s)
+        unperm[:, index.row_ids] = s
+        s = unperm
+    return torch.where(valid[None, :], s, inf)
+
+
+def recall_at(got_i, exact_i) -> float:
+    """Share of each query's exact top-k ids that the answer holds."""
+    return (got_i[:, :, None] == exact_i[:, None, :]).any(2).float().mean().item()
+
+
+def check_indexed_answer(torch, label, got, want, all_scores, col_of_pk, rtol, atol) -> int:
+    """``got`` against the oracle's top-k: scores within the tolerance slot
+    by slot; a pk that differs must score (by the oracle) within the
+    tolerance of the oracle's score at that slot.  Returns the number of
+    near-tie swaps."""
+    got_s, got_p = got
+    want_s, want_p = want
+    if got_s.shape != want_s.shape or got_p.dtype != torch.int64:
+        raise AssertionError(f"{label}: malformed result")
+    if not torch.equal(got_p >= 0, want_p >= 0):
+        raise AssertionError(f"{label}: empty-slot pattern differs from the oracle")
+    live = want_p >= 0
+    torch.testing.assert_close(got_s[live].double(), want_s[live], rtol=rtol, atol=atol)
+    diff = (got_p != want_p) & live
+    if diff.any():
+        qi, slot = torch.nonzero(diff, as_tuple=True)
+        torch.testing.assert_close(
+            all_scores[qi, col_of_pk[got_p[qi, slot]]], want_s[qi, slot], rtol=rtol, atol=atol
+        )  # a pk the oracle never scored reads +inf and fails here
+    return int(diff.sum())
+
+
+def indexed_path(torch, mods, gen, dev, phases, counts):
+    """Index builds on the IndexNode, two QueryNodes loading them, interim
+    slice indexes over the WAL tail, requests pinned before and after 1%
+    deletes.  Every launch counter starts at 0 with the builds."""
+    wal, Metric, GuaranteeTs, AnnsQuery, NodeSearchRequest = (
+        mods["wal"], mods["Metric"], mods["GuaranteeTs"], mods["AnnsQuery"], mods["NodeSearchRequest"]
+    )
+    from repro_torch.core.binlog import write_segment_binlog
+    from repro_torch.core.index_node import IndexNode
+    from repro_torch.core.meta_store import MetaStore
+    from repro_torch.core.object_store import MemoryObjectStore
+    from repro_torch.core.query_node import QueryNode
+    from repro_torch.core.segment import segment_from_columns
+
+    name = "vdb_ivf"
+    t0 = time.perf_counter()
+    store = MemoryObjectStore()
+    centers = torch.randn((N_CENTERS, DIM), generator=gen, device=dev)
+    x = mixture(torch, gen, dev, N_ROWS, centers)
+    queries = {nq: mixture(torch, gen, dev, nq, centers) for nq in (1, 100)}
+    pks = torch.arange(N_ROWS, dtype=torch.int64, device=dev)
+    for s in range(N_SEALED):
+        lo, hi = s * SEG_ROWS, (s + 1) * SEG_ROWS
+        seg = segment_from_columns(
+            {"pk": pks[lo:hi], "vector": x[lo:hi],
+             "ts": torch.full((SEG_ROWS,), TS_SEALED, dtype=torch.int64, device=dev)},
+            segment_id=s, collection=name, device=dev,
+        )
+        write_segment_binlog(store, seg)
+        del seg
+    torch.cuda.synchronize()
+    phases["ivf_data_and_binlog_s"] = time.perf_counter() - t0
+
+    # ---- the path: builds, loads, WAL ingest with slice indexes, requests
+    counts.reset()
+    t0 = time.perf_counter()
+    broker = wal.LogBroker()
+    broker.create_channel("coord")
+    ticks = Ticks(TS_SEALED + 100)
+    inode = IndexNode("in-1", broker, store, MetaStore(), ticks, device=dev)
+    builds = {}
+    for s, (kind, params) in INDEXED_SEGMENTS.items():
+        broker.publish("coord", wal.LogEntry(ticks.next(), wal.EntryType.COORD, {
+            "msg": "index_build_task", "collection": name, "segment_id": s,
+            "index_kind": kind, "metric": "l2", "params": params,
+        }))
+        before = counts.read()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if not inode.step():
+            raise AssertionError(f"the index node did not build segment {s}")
+        torch.cuda.synchronize()
+        after = counts.read()
+        builds[s] = {
+            "kind": kind, "s": time.perf_counter() - t1,
+            "launches": {k: after[k] - before[k] for k in after if after[k] > before[k]},
+        }
+        log(f"build segment {s} {kind} {params}: {builds[s]['s']:.3f} s, launches {builds[s]['launches']}")
+    phases["ivf_index_builds_s"] = time.perf_counter() - t0
+    built = [e.payload for e in broker.read("coord", 0) if e.payload.get("msg") == "index_built"]
+    if len(built) != N_SEALED or inode.metrics.counter_value(
+        "index_builds_total", labels={"kind": "ivf_flat"}
+    ) != 2:
+        raise AssertionError("the index node did not announce every build")
+
+    t0 = time.perf_counter()
+    nodes = {
+        nid: QueryNode(nid, broker, store, slice_rows=SLICE_ROWS, device=dev)
+        for nid in ("qn-c", "qn-d")
+    }
+    for p in built:
+        node = nodes["qn-c" if p["segment_id"] in NODE_A else "qn-d"]
+        node.load_sealed(p["collection"], p["segment_id"])
+        node.load_index(p["collection"], p["segment_id"], p["index_kind"], p["index_key"])
+    torch.cuda.synchronize()
+    phases["ivf_load_indexes_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    tail = N_SEALED * SEG_ROWS
+    ch = wal.dml_channel(name, 0)
+    broker.create_channel(ch)
+    nodes["qn-d"].subscribe(ch)
+    x_tail = x[tail:].cpu().numpy()
+    for j, lo in enumerate(range(0, len(x_tail), INSERT_BATCH)):
+        hi = min(lo + INSERT_BATCH, len(x_tail))
+        broker.publish(ch, wal.LogEntry(TS_GROW + j, wal.EntryType.INSERT, {
+            "collection": name, "segment_id": N_SEALED, "shard": 0,
+            "pk": np.arange(tail + lo, tail + hi), "vector": x_tail[lo:hi],
+        }))
+    for node in nodes.values():
+        node.step()
+    torch.cuda.synchronize()
+    phases["ivf_ingest_and_slice_indexes_s"] = time.perf_counter() - t0
+    grow = nodes["qn-d"].growing[(name, N_SEALED)]
+    n_slices = (N_ROWS - tail) // SLICE_ROWS
+    if grow.num_rows != N_ROWS - tail or sorted(grow.slice_indexes) != list(range(n_slices)):
+        raise AssertionError("the growing segment did not take every insert or build every slice index")
+    doomed = torch.randperm(N_ROWS, generator=gen, device=dev)[: int(N_ROWS * DELETE_FRAC)]
+    pk = doomed.cpu().numpy()
+    broker.publish(ch, wal.LogEntry(TS_DELETE, wal.EntryType.DELETE, {"collection": name, "pk": pk}))
+    broker.publish("coord", wal.LogEntry(TS_DELETE, wal.EntryType.COORD,
+                                         {"msg": "tombstones", "collection": name, "pk": pk}))
+    for node in nodes.values():
+        node.step()
+
+    def request(q, ts):
+        parts = [
+            node.search_request(NodeSearchRequest(
+                collection=name, k=K, metric=Metric.L2,
+                guarantee=GuaranteeTs(query_ts=ts, staleness_ms=float("inf")),
+                anns=[AnnsQuery("vector", q)],
+            ))[0]
+            for node in nodes.values()
+        ]
+        return mods["ops"].merge_topk(torch.cat([p[0] for p in parts], 1),
+                                      torch.cat([p[1] for p in parts], 1), K, metric="l2")
+
+    reps = {1: 20, 100: 5}
+    latency, results = {}, {}
+    t0 = time.perf_counter()
+    for nq, q in queries.items():
+        for pin, ts in (("before", TS_BEFORE), ("after", TS_AFTER)):
+            times = []
+            for _ in range(reps[nq] + 1):  # first call is the warm-up
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                out = request(q, ts)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+            latency[f"{name} nq={nq} {pin}"] = times
+            results[(nq, pin)] = out
+    phases["ivf_requests_s"] = time.perf_counter() - t0
+    launches = counts.read()
+    n_requests = sum(reps[nq] + 1 for nq in queries) * 2
+    log(f"indexed path launches: {launches} ({n_requests} requests, {N_SEALED} builds, "
+        f"{n_slices} slice indexes)")
+    for kname, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{kname} was not launched on the indexed path")
+    return {
+        "name": name, "x": x, "queries": queries, "nodes": nodes, "store": store,
+        "built": built, "builds": builds, "doomed": doomed, "request": request,
+        "latency": latency, "results": results, "launches": launches,
+        "n_requests": n_requests, "n_slices": n_slices, "tail": tail,
+    }
+
+
+def check_indexed(torch, run, testing, dev, phases) -> None:
+    """Every indexed answer against the oracle; recall@100 per kind against
+    exact brute force; an IVF-FLAT built twice from one seed."""
+    from repro_torch.core.binlog import read_binlog_column
+    from repro_torch.index.ivf import IVFFlatIndex
+
+    t0 = time.perf_counter()
+    rtol, atol = testing.SCORE_TOL["l2"]
+    name, x, nodes, tail = run["name"], run["x"], run["nodes"], run["tail"]
+    handles = {}
+    for node in nodes.values():
+        for (coll, sid), h in node.sealed.items():
+            if coll == name:
+                handles[sid] = h
+    grow = nodes["qn-d"].growing[(name, N_SEALED)]
+    gpks = grow.pks()
+    covered = run["n_slices"] * SLICE_ROWS
+    for (nq, pin), got in run["results"].items():
+        q = run["queries"][nq]
+        parts, pk_parts, kinds = [], [], []
+        for sid in sorted(handles):
+            h = handles[sid]
+            pks = h.segment.pks()
+            valid = torch.ones(len(pks), dtype=torch.bool, device=dev)
+            if pin == "after":
+                valid &= ~torch.isin(pks, run["doomed"])
+            parts.append(oracle_unit(torch, h.index, q, valid))
+            pk_parts.append(pks)
+            kinds.append(h.index.KIND)
+        gvalid = torch.ones(grow.num_rows, dtype=torch.bool, device=dev)
+        if pin == "after":
+            gvalid &= ~torch.isin(gpks, run["doomed"])
+        for s_idx, idx in sorted(grow.slice_indexes.items()):
+            lo, hi = grow.slice_bounds(s_idx)
+            parts.append(oracle_unit(torch, idx, q, gvalid[lo:hi]))
+            pk_parts.append(gpks[lo:hi])
+            kinds.append("interim ivf_flat")
+        tail_scores = l2_scores(q.double(), grow.vectors()[covered:].double())
+        parts.append(torch.where(gvalid[covered:][None, :], tail_scores, float("inf")))
+        pk_parts.append(gpks[covered:])
+        kinds.append("brute tail")
+        bounds = torch.tensor([0] + [len(p) for p in pk_parts], device=dev).cumsum(0)
+        all_scores = torch.cat(parts, 1)
+        all_pks = torch.cat(pk_parts)
+        del parts
+        vals, order = torch.sort(all_scores, dim=1, stable=True)
+        want_s = vals[:, :K]
+        want_p = torch.where(torch.isfinite(want_s), all_pks[order[:, :K]], -1)
+        del vals, order
+        col_of_pk = torch.full((N_ROWS,), -1, dtype=torch.int64, device=dev)
+        col_of_pk[all_pks] = torch.arange(len(all_pks), device=dev)
+        label = f"{name} nq={nq} {pin}"
+        if pin == "after" and torch.isin(got[1], run["doomed"]).any():
+            raise AssertionError(f"{label}: a deleted pk was returned")
+        swaps = check_indexed_answer(torch, label, got, (want_s, want_p), all_scores, col_of_pk,
+                                     rtol, atol)
+        # The answer's own score error per index kind, against float64.
+        qi, slot = torch.nonzero(got[1] >= 0, as_tuple=True)
+        cols = col_of_pk[got[1][qi, slot]]
+        err = (got[0][qi, slot].double() - all_scores[qi, cols]).abs()
+        unit = torch.searchsorted(bounds, cols, right=True) - 1
+        by_kind = {}
+        for u, kind in enumerate(kinds):
+            e = err[unit == u]
+            if e.numel():
+                by_kind[kind] = max(by_kind.get(kind, 0.0), e.max().item())
+        live = want_p >= 0
+        exact = torch.topk(
+            torch.where(
+                torch.isin(torch.arange(N_ROWS, device=dev), run["doomed"])[None, :] & (pin == "after"),
+                float("inf"), l2_scores(q, x),
+            ), K, dim=1, largest=False,
+        ).indices
+        recall = recall_at(got[1], exact)
+        log(f"check {label}: equals the oracle (rtol={rtol}, atol={atol}; max |err| "
+            f"{(got[0][live].double() - want_s[live]).abs().max().item():.3g} against float64; "
+            f"{swaps} near-tie swaps); "
+            f"recall@{K} vs exact brute force {recall:.4f}; answer score error by kind "
+            + json.dumps({k: float(f"{v:.3g}") for k, v in by_kind.items()}))
+        del all_scores, all_pks, col_of_pk
+    phases["ivf_verify_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    q = run["queries"][100]
+    per_kind = {}
+    for sid, h in sorted(handles.items()):
+        xs = x[sid * SEG_ROWS:(sid + 1) * SEG_ROWS]
+        exact = torch.topk(l2_scores(q, xs), K, dim=1, largest=False).indices
+        _s, got_i = h.index.search(q, K)
+        per_kind.setdefault(h.index.KIND, []).append(recall_at(got_i, exact))
+    slice_recall = []
+    for s_idx, idx in sorted(grow.slice_indexes.items())[:8]:
+        lo, hi = grow.slice_bounds(s_idx)
+        exact = torch.topk(l2_scores(q, grow.vectors()[lo:hi]), K, dim=1, largest=False).indices
+        _s, got_i = idx.search(q, K)
+        slice_recall.append(recall_at(got_i, exact))
+    per_kind["interim ivf_flat (first 8 slices)"] = slice_recall
+    log("recall@100 per index kind (nq=100, each index alone vs exact brute force over its rows): "
+        + "; ".join(f"{k} {[round(r, 4) for r in v]}" for k, v in per_kind.items()))
+
+    seg0 = torch.from_numpy(read_binlog_column(run["store"], name, 0, "vector")).to(dev)
+    again = IVFFlatIndex(nlist=IVF_PARAMS["nlist"], nprobe=IVF_PARAMS["nprobe"], device=dev)
+    again.build(seg0)
+    key = next(p["index_key"] for p in run["built"] if p["segment_id"] == 0)
+    if again.save() != run["store"].get(key):
+        raise AssertionError("segment 0's IVF-FLAT built twice from one seed saved different bytes")
+    log("determinism: segment 0's IVF-FLAT rebuilt from the binlog saves the index node's bytes exactly")
+    phases["ivf_recall_and_rebuild_s"] = time.perf_counter() - t0
+
+
+def index_kernel_times(torch, run, km_mod, sq_mod, pq_mod, dev) -> dict:
+    """The four index kernels at the indexed path's shapes: kernel, plain
+    version and (where one PyTorch call computes the same function) the
+    library call, with the bound from this run's shapes."""
+    handles = {}
+    for node in run["nodes"].values():
+        for (coll, sid), h in node.sealed.items():
+            if coll == run["name"]:
+                handles[sid] = h
+    x = run["x"]
+    out = {}
+
+    def bound(n_bytes, n_ops):
+        t_b, t_o = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_FLOPS
+        return {"bound_ms": max(t_b, t_o) * 1e3, "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+    # kmeans_assign: one Lloyd step of an IVF build (100,000 sampled rows,
+    # 128 centroids, D = 768).
+    xs = x[:KMEANS_SAMPLE].contiguous()
+    cent = handles[0].index.centroids.contiguous()
+    n, c = xs.shape[0], cent.shape[0]
+    out["kmeans_assign"] = {
+        "ms": cuda_ms(torch, lambda: km_mod.kmeans_assign(xs, cent), 10),
+        "plain_ms": cuda_ms(torch, lambda: km_mod.kmeans_assign_plain(xs, cent), 10),
+        "library_ms": None,
+        **bound(4 * n * DIM + 4 * c * DIM + 12 * n, 2 * n * c * DIM + 2 * (n + c) * DIM + 3 * n * c),
+        "shape": f"N={n} C={c} D={DIM}",
+    }
+    # sq_encode: segment 5's SQ build (131,072 x 768).
+    x5 = x[5 * SEG_ROWS:6 * SEG_ROWS].contiguous()
+    lo, hi = x5.min(0).values, x5.max(0).values
+    out["sq_encode"] = {
+        "ms": cuda_ms(torch, lambda: sq_mod.sq_encode(x5, lo, hi), 10),
+        "plain_ms": cuda_ms(torch, lambda: sq_mod.sq_encode_plain(x5, lo, hi), 10),
+        "library_ms": None,
+        **bound(5 * SEG_ROWS * DIM + 8 * DIM, 3 * SEG_ROWS * DIM),
+        "shape": f"N={SEG_ROWS} D={DIM}",
+    }
+    sqi = handles[5].index
+    decoded = sq_mod.sq_decode_plain(sqi.codes, sqi.vmin, sqi.vmax)
+    valid = torch.ones(SEG_ROWS, dtype=torch.bool, device=dev)
+    pqi = handles[6].index
+    m, ksub = pqi.codebooks.shape[0], pqi.codebooks.shape[1]
+    for nq, q in run["queries"].items():
+        reps = 20 if nq == 1 else 10
+        out[f"sq_l2_topk nq={nq}"] = {
+            "ms": cuda_ms(torch, lambda: sq_mod.sq_l2_topk(q, sqi.codes, sqi.vmin, sqi.vmax, valid, K), reps),
+            "plain_ms": cuda_ms(
+                torch, lambda: sq_mod.sq_l2_topk_plain(q, sqi.codes, sqi.vmin, sqi.vmax, valid, K), reps
+            ),
+            "library_ms": cuda_ms(torch, lambda: torch.topk(q @ decoded.T, K, dim=1), reps),
+            **bound(
+                4 * nq * DIM + SEG_ROWS * DIM + 8 * DIM + SEG_ROWS + 12 * nq * K,
+                2 * nq * SEG_ROWS * DIM + 4 * SEG_ROWS * DIM + 2 * nq * DIM,
+            ),
+            "shape": f"nq={nq} N={SEG_ROWS} D={DIM} uint8 k={K}",
+        }
+        luts = lut_tables(torch, q, pqi.codebooks).contiguous()
+        out[f"pq_adc_topk nq={nq}"] = {
+            "ms": cuda_ms(torch, lambda: pq_mod.pq_adc_topk(luts, pqi.codes, K, valid), reps),
+            "plain_ms": cuda_ms(torch, lambda: pq_mod.pq_adc_topk_plain(luts, pqi.codes, K, valid), reps),
+            "library_ms": None,
+            **bound(4 * nq * m * ksub + SEG_ROWS * m + SEG_ROWS + 12 * nq * K, nq * SEG_ROWS * m),
+            "shape": f"nq={nq} N={SEG_ROWS} M={m} KSUB={ksub} uint8 codes k={K}",
+        }
+    for kname, row in out.items():
+        log(f"{kname}: " + json.dumps(row))
+    return out
+
+
+class LaunchCounts:
+    """The kernel wrappers' launch counters, set to 0 before a path runs
+    and read after it."""
+
+    def __init__(self, wrappers: dict):
+        self.wrappers = wrappers
+
+    def reset(self) -> None:
+        for fn in self.wrappers.values():
+            fn.launches = 0
+
+    def read(self) -> dict:
+        return {name: fn.launches for name, fn in self.wrappers.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -229,10 +812,20 @@ def main() -> int:
     from repro_torch.core.object_store import MemoryObjectStore
     from repro_torch.core.query_node import QueryNode
     from repro_torch.core.request import AnnsQuery, NodeSearchRequest
+    from repro_torch import testing
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import kmeans_assign as km_mod
     from repro_torch.kernels import l2_topk as l2_mod
     from repro_torch.kernels import merge_topk as merge_mod
+    from repro_torch.kernels import pq_adc as pq_mod
+    from repro_torch.kernels import sq_codec as sq_mod
     from repro_torch.testing import SCORE_TOL, assert_scan_close
+
+    counts = LaunchCounts({
+        "l2_topk": l2_mod.l2_topk, "merge_topk": merge_mod.merge_topk,
+        "kmeans_assign": km_mod.kmeans_assign, "sq_encode": sq_mod.sq_encode,
+        "sq_l2_topk": sq_mod.sq_l2_topk, "pq_adc_topk": pq_mod.pq_adc_topk,
+    })
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
@@ -248,6 +841,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     max_err = kernel_phase(torch, l2_mod, merge_mod, ops, assert_scan_close, SCORE_TOL, dev, gen)
+    max_err.update(index_kernel_phase(torch, km_mod, sq_mod, pq_mod, testing, dev, gen))
     phases["kernel_phase_s"] = time.perf_counter() - t0
 
     # ---------------------------------------------------------- main path
@@ -262,7 +856,8 @@ def main() -> int:
     broker = wal.LogBroker()
     broker.create_channel("coord")
     nodes = {
-        nid: QueryNode(nid, broker, store, slice_rows=SEG_ROWS, device=dev)
+        # slice_rows above any growing segment: the interim index is off here
+        nid: QueryNode(nid, broker, store, slice_rows=N_ROWS, device=dev)
         for nid in ("qn-a", "qn-b")
     }
     for name in colls:
@@ -322,8 +917,7 @@ def main() -> int:
     reps = {1: 20, 100: 5}
     latency: dict[str, list[float]] = {}
     results = {}
-    l2_mod.l2_topk.launches = 0
-    merge_mod.merge_topk.launches = 0
+    counts.reset()
     t0 = time.perf_counter()
     for name, metric in colls.items():
         for nq, q in queries.items():
@@ -338,11 +932,11 @@ def main() -> int:
                 latency[f"{name} nq={nq} {pin}"] = times
                 results[(name, nq, pin)] = out
     phases["requests_s"] = time.perf_counter() - t0
-    launches = {"l2_topk": l2_mod.l2_topk.launches, "merge_topk": merge_mod.merge_topk.launches}
-    log(f"main path launches: {launches}")
-    for kname, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{kname} was not launched on the main path")
+    flat_launches = counts.read()
+    log(f"FLAT path launches: {flat_launches}")
+    for kname in ("l2_topk", "merge_topk"):
+        if flat_launches[kname] <= 0:
+            raise AssertionError(f"{kname} was not launched on the FLAT path")
 
     # ------------------------------------------------ exact-answer check
     t0 = time.perf_counter()
@@ -392,6 +986,17 @@ def main() -> int:
                         f"vdb_l2 nq={nq} {pin}")
     phases["profile_s"] = time.perf_counter() - t0
 
+    # ------------------------------------------------------- indexed path
+    mods = {"wal": wal, "Metric": Metric, "GuaranteeTs": GuaranteeTs, "AnnsQuery": AnnsQuery,
+            "NodeSearchRequest": NodeSearchRequest, "ops": ops}
+    run = indexed_path(torch, mods, gen, dev, phases, counts)
+    check_indexed(torch, run, testing, dev, phases)
+    t0 = time.perf_counter()
+    for nq in (1, 100):
+        profile_request(torch, lambda: run["request"](run["queries"][nq], TS_AFTER),
+                        f"{run['name']} nq={nq} after")
+    phases["ivf_profile_s"] = time.perf_counter() - t0
+
     # ------------------------------------------- kernel times at path shapes
     t0 = time.perf_counter()
     x = data["vdb_l2"]
@@ -421,13 +1026,27 @@ def main() -> int:
         "bound_ms": (12 * 100 * m_pool + 12 * 100 * K) / PEAK_BYTES_S * 1e3,
     }
     log(f"merge_topk nq=100 M={m_pool} k={K}: " + json.dumps(mt))
+    it = index_kernel_times(torch, run, km_mod, sq_mod, pq_mod, dev)
     phases["kernel_timing_s"] = time.perf_counter() - t0
+    per = {k: n / run["n_requests"] for k, n in run["launches"].items()}
+    log(f"indexed path launches per request (builds and slice indexes included): {per}")
 
-    for key, times in latency.items():
+    for key, times in {**latency, **run["latency"]}.items():
         steady = times[1:]
         log(f"request {key}: first {times[0]:.3f} ms, median {statistics.median(steady):.3f} ms "
             f"over {len(steady)} (min {min(steady):.3f}, max {max(steady):.3f})")
     log("phases: " + json.dumps({k: round(v, 3) for k, v in phases.items()}))
+
+    launches = {k: flat_launches[k] + run["launches"][k] for k in KERNEL_NAMES}
+
+    def index_row(kname, key, replaces, source):
+        row = it[key]
+        return {
+            "name": kname, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces, "launches": launches[kname], "max_abs_err": max_err[kname],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        }
 
     kernels = [
         {
@@ -446,6 +1065,13 @@ def main() -> int:
             "ms": mt["ms"], "plain_ms": mt["plain_ms"], "bound_ms": mt["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
         },
+        index_row("kmeans_assign", "kmeans_assign", "src/repro/kernels/kmeans_assign.py:67",
+                  "kmeans_assign.cu"),
+        index_row("sq_encode", "sq_encode", "src/repro/kernels/sq_codec.py:49", "sq_codec.cu"),
+        index_row("sq_l2_topk", "sq_l2_topk nq=100", "src/repro/kernels/sq_codec.py:145",
+                  "sq_codec.cu"),
+        index_row("pq_adc_topk", "pq_adc_topk nq=100", "src/repro/kernels/pq_adc.py:84",
+                  "pq_adc.cu"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

@@ -7,15 +7,12 @@ and answers node-level search requests under MVCC: a query pinned at
 
 Column data, masks and results are tensors on the node's device; the plan
 and the tombstone maps are host Python.  One execution class of brute
-units runs as one ``l2_topk`` launch, the node-wise reduce as one
-``merge_topk`` launch (more where the pool is wider than the kernel takes;
-see ``ops.merge_topk``).
-
-Not ported yet: the interim IVF-FLAT index over full slices of growing
-segments (ROADMAP Queue 1 item 7).  A node whose growing segment fills a
-slice raises instead of scanning it brute-force, because the reference's
-answer there is approximate.  Run growing segments with ``slice_rows`` at
-or above the seal size (``interimIndex.enableIndex: false`` in Milvus).
+units runs as one ``l2_topk`` launch, indexed units of one spec as one
+``search_batched`` dispatch, the node-wise reduce as one ``merge_topk``
+launch (more where the pool is wider than the kernel takes; see
+``ops.merge_topk``).  Each full slice of a growing segment gets a temporary
+IVF-FLAT index (built L2); the rows past the last full slice stay in the
+brute tail.
 """
 
 from __future__ import annotations
@@ -28,6 +25,7 @@ import torch
 
 from .._device import resolve_device
 from ..index.base import VectorIndex, normalize_if_cosine
+from ..index.ivf import IVFFlatIndex
 from ..kernels import ops
 from .binlog import load_segment
 from .collection import Metric
@@ -136,6 +134,7 @@ class SearchPlan:
 
     indexed: list[ScanUnit] = field(default_factory=list)
     brute_sealed: list[ScanUnit] = field(default_factory=list)
+    growing_slice: list[ScanUnit] = field(default_factory=list)  # temp slice index
     brute_tail: list[ScanUnit] = field(default_factory=list)
     post_indexed: list[ScanUnit] = field(default_factory=list)
     post_brute: list[ScanUnit] = field(default_factory=list)
@@ -144,8 +143,9 @@ class SearchPlan:
 
     def units(self) -> "list[ScanUnit]":
         return (
-            self.indexed + self.brute_sealed + self.brute_tail
-            + self.post_indexed + self.post_brute + self.brute_filtered
+            self.indexed + self.brute_sealed + self.growing_slice
+            + self.brute_tail + self.post_indexed + self.post_brute
+            + self.brute_filtered
         )
 
 
@@ -342,16 +342,23 @@ class QueryNode:
         return False
 
     def _build_slice_indexes(self) -> bool:
-        """The reference builds a temporary IVF-FLAT per full slice of a
-        growing segment; the port has no IVF yet, so a full slice raises."""
-        for (coll, sid), seg in self.growing.items():
-            if seg.full_slices():
-                raise NotImplementedError(
-                    f"growing segment {coll}/{sid} filled a slice of {seg.slice_rows} "
-                    "rows: its interim IVF-FLAT index is not ported yet (ROADMAP Queue 1 "
-                    "item 7); run with slice_rows at or above the seal size"
-                )
-        return False
+        """Temporary IVF-FLAT per full slice of growing segments.
+
+        Built L2 (the WAL carries no collection metric); the planner only
+        uses a temp index whose metric matches the request and leaves
+        mismatched slices to the brute tail, so IP/cosine growing reads
+        stay exact."""
+        progress = False
+        for seg in self.growing.values():
+            for s in seg.full_slices():
+                if s in seg.slice_indexes:
+                    continue
+                lo, hi = seg.slice_bounds(s)
+                idx = IVFFlatIndex(metric=Metric.L2, nlist=16, nprobe=4, device=self.device)
+                idx.build(seg.vectors()[lo:hi])
+                seg.slice_indexes[s] = idx
+                progress = True
+        return progress
 
     # ---------------------------------------------------------- assignments
     def load_sealed(self, collection: str, segment_id: int, visible_from_ts: int = 0) -> None:
@@ -529,10 +536,25 @@ class QueryNode:
             vectors = brute_column(seg)
             if vectors is None:
                 continue
-            # No slice index exists (see _build_slice_indexes): every
-            # visible row is tail.
-            if bool(mask.any()):
-                plan.brute_tail.append(ScanUnit(sid, seg.pks(), mask, vectors=vectors))
+            pks = seg.pks()
+            covered = torch.zeros(seg.num_rows, dtype=torch.bool, device=self.device)
+            if column == PRIMARY_VECTOR_COLUMN:
+                for s_idx, temp in seg.slice_indexes.items():
+                    if metric is not None and temp.metric is not metric:
+                        # metric-mismatched temp index (built L2 off the
+                        # WAL): the slice stays in the brute tail, exact
+                        continue
+                    lo, hi = seg.slice_bounds(s_idx)
+                    covered[lo:hi] = True
+                    # A slice with no visible row adds only empty slots, so
+                    # it is planned without reading its mask back.
+                    plan.growing_slice.append(
+                        ScanUnit(sid, pks[lo:hi], mask[lo:hi], index=temp)
+                    )
+            # tail = rows not covered by any temp index yet
+            tail_mask = mask & ~covered
+            if bool(tail_mask.any()):
+                plan.brute_tail.append(ScanUnit(sid, pks, tail_mask, vectors=vectors))
         return plan
 
     def _plan_filtered_unit(
@@ -628,6 +650,7 @@ class QueryNode:
             for unit in units:
                 groups.setdefault(unit.index.batch_spec(), []).append(unit)
             for group in groups.values():
+                group_cls = "growing_slice" if id(group[0]) in slice_ids else cls
                 t0 = time.perf_counter()
                 s, i, splits = type(group[0].index).search_batched(
                     [u.index for u in group], queries, k_class, valids=[u.mask for u in group]
@@ -638,7 +661,7 @@ class QueryNode:
                         cs, ci = ops.post_filter_cut(cs, ci, unit.post_mask, metric=metric_str)
                     pool_s.append(cs)
                     pool_p.append(_map_pks(ci, unit.pks))
-                record_class(cls, group, t0)
+                record_class(group_cls, group, t0)
 
         def run_brute(cls: str, units: list[ScanUnit], k_class: int, post: bool) -> None:
             t0 = time.perf_counter()
@@ -654,8 +677,11 @@ class QueryNode:
                 pool_p.append(_map_pks(ci, unit.pks))
             record_class(cls, units, t0)
 
-        if plan.indexed:
-            run_indexed("indexed", plan.indexed, k, post=False)
+        # Sealed indexes and growing-slice temp indexes share the spec
+        # grouping: every unit of one index spec runs as one dispatch.
+        slice_ids = {id(u) for u in plan.growing_slice}
+        if plan.indexed or plan.growing_slice:
+            run_indexed("indexed", plan.indexed + plan.growing_slice, k, post=False)
         # Brute classes: one segmented scan per class.  Cosine scans take
         # the segments' unit columns; only the queries normalize here.
         q_brute = normalize_if_cosine(metric, queries)

@@ -115,6 +115,9 @@ class Segment:
         self._del_flat: tuple[torch.Tensor, torch.Tensor] | None = None
         self._lock = threading.RLock()
         self.checkpoint_pos: int = 0
+        # Temporary indexes over full slices of a growing segment (built by
+        # the query node once a slice is full).
+        self.slice_indexes: dict[int, Any] = {}
 
     # -------------------------------------------------------------- writes
     def append(self, pks, vectors, timestamps, extras: dict | None = None) -> None:
@@ -272,6 +275,10 @@ class Segment:
     def full_slices(self) -> list[int]:
         """Indices of completed slices (candidates for temporary indexes)."""
         return list(range(self._num_rows // self.slice_rows))
+
+    def slice_bounds(self, slice_idx: int) -> tuple[int, int]:
+        lo = slice_idx * self.slice_rows
+        return lo, min(lo + self.slice_rows, self._num_rows)
 
 
 def segment_from_columns(

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import io
 import json
+import zipfile
 from dataclasses import dataclass
 from typing import Any
 
@@ -26,6 +27,9 @@ class IndexSpec:
     kind: str
     metric: Metric = Metric.L2
     params: dict[str, Any] | None = None
+    # Schema vector field the index serves (multi-vector collections build
+    # one index per spec'd field); purely descriptive for the factory.
+    field: str = "vector"
 
     def normalized_params(self) -> dict[str, Any]:
         return dict(self.params or {})
@@ -90,7 +94,8 @@ class VectorIndex:
 
     def save(self) -> bytes:
         """The reference's ``.npz`` layout, written uncompressed (numpy's
-        loader reads both)."""
+        loader reads both).  Every member carries the same fixed zip
+        timestamp, so the bytes depend on the index state alone."""
         buf = io.BytesIO()
         meta = {
             "kind": np.bytes_(self.KIND.encode()),
@@ -98,7 +103,11 @@ class VectorIndex:
             "num_rows": np.int64(self.num_rows),
             "params_json": np.bytes_(json.dumps(self.params, default=str).encode()),
         }
-        np.savez(buf, **meta, **self._state())
+        with zipfile.ZipFile(buf, mode="w", compression=zipfile.ZIP_STORED) as zf:
+            for key, val in {**meta, **self._state()}.items():
+                info = zipfile.ZipInfo(key + ".npy", date_time=(1980, 1, 1, 0, 0, 0))
+                with zf.open(info, "w", force_zip64=True) as fid:
+                    np.lib.format.write_array(fid, np.asanyarray(val), allow_pickle=False)
         return buf.getvalue()
 
     @classmethod
@@ -128,3 +137,18 @@ def normalize_if_cosine(metric: Metric, x: torch.Tensor) -> torch.Tensor:
 
 def scan_metric(metric: Metric) -> str:
     return "l2" if metric is Metric.L2 else "ip"
+
+
+def worst_score(metric: Metric) -> float:
+    return float("inf") if metric is Metric.L2 else float("-inf")
+
+
+def host_array(t) -> np.ndarray:
+    """A state tensor as the host numpy array ``_state`` saves."""
+    return t.cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+
+
+def device_tensor(a, device, dtype=None) -> torch.Tensor:
+    """A saved state array as a contiguous tensor on ``device``."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(device=device, dtype=dtype).contiguous()

@@ -3,19 +3,18 @@
 from __future__ import annotations
 
 from .base import IndexSpec, VectorIndex
-from .flat import FlatIndex
+from .flat import FlatIndex, SQIndex
+from .ivf import IVFFlatIndex, IVFPQIndex, IVFSQIndex
+from .pq import OPQIndex, PQIndex
 
-INDEX_KINDS: dict[str, type[VectorIndex]] = {FlatIndex.KIND: FlatIndex}
+INDEX_KINDS: dict[str, type[VectorIndex]] = {
+    cls.KIND: cls
+    for cls in (FlatIndex, SQIndex, PQIndex, OPQIndex, IVFFlatIndex, IVFSQIndex, IVFPQIndex)
+}
 
 #: Kinds the reference builds that the port does not have yet, with the
 #: ROADMAP item that ports them.
 NOT_PORTED = {
-    "sq": "Queue 2 kernel 3 (sq_l2_topk) and Queue 1 item 7",
-    "pq": "Queue 2 kernel 4 (pq_adc_topk) and Queue 1 item 7",
-    "opq": "Queue 2 kernel 4 (pq_adc_topk) and Queue 1 item 7",
-    "ivf_flat": "Queue 1 item 7 (IVF family, kmeans_assign)",
-    "ivf_sq": "Queue 1 item 7 (IVF family, kmeans_assign)",
-    "ivf_pq": "Queue 1 item 7 (IVF family, kmeans_assign)",
     "hnsw": "Queue 1 item 7 (HNSW)",
     "bucket": "Queue 1 item 7 (bucket index)",
 }

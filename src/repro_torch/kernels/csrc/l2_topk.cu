@@ -10,273 +10,18 @@
 // bound by the read of the base.
 //
 // Design.  Blocks on Hopper run in no order, so the sequential carry becomes
-// two passes inside one call:
-//   1. l2_scores_kernel: one block per (query tile, 64-row base tile) over
-//      every segment of the class at once (segments are addressed through a
-//      small device table, never copied together).  A classic register-tiled
-//      f32 product (no tensor cores, no TF32) computes q.x, the row norms are
-//      accumulated from the same shared-memory tiles, and the score
-//      (|q|^2 - 2 q.x) + |x|^2 (L2) or -q.x (IP) is written with invalid rows
-//      at +inf into a [nq, N] scratch row.  Query tiles are 16 rows for
-//      nq <= 16 (the base is then read once) and 64 rows otherwise.
-//   2. topk_select_kernel: one block per (segment, query).  An 8-bit MSB
-//      radix select finds the k-th smallest key in four histogram passes, a
-//      gather pass takes every key below it plus the lowest-indexed keys
-//      equal to it, and a bitonic sort in shared memory orders the k
-//      survivors by (key, row).  Rows past the segment's live count carry
-//      (+inf L2 / -inf IP, -1), and |score| >= 1e38 maps to index -1, as in
-//      src/repro/kernels/ops.py:topk_scan.
-// k is limited to kMaxK (shared-memory candidate buffer); the wrapper raises
-// above it.
-#include <cuda_runtime.h>
-#include <math.h>
-
-#include <cub/block/block_scan.cuh>
-
-#include "topk_common.cuh"
+// two passes inside one call (scan_common.cuh): a register-tiled f32 score
+// pass over every segment of the class into a [nq, N] scratch, then a
+// per-(segment, query) radix select + bitonic sort.  Here the rows are f32.
+#include "scan_common.cuh"
 
 namespace {
 
-using repro_torch::bitonic_sort;
-using repro_torch::float_key;
-
-constexpr int kThreads = 256;  // score kernel: 16 x 16 threads
-constexpr int BN = 64;         // base rows per tile
-constexpr int BK = 16;         // depth step
-constexpr int kSelThreads = 1024;
-constexpr int kMaxK = 1024;
-
-// Packed int64 segment table, column-major over S segments:
-// rows[S] | base ptr[S] | valid ptr[S] (0 = all valid) | score column offset[S]
-// | first tile[S + 1].
-struct SegTable {
-  const long long* rows;
-  const long long* base;
-  const long long* valid;
-  const long long* col_off;
-  const long long* tile_start;
+struct F32Rows {
+  __device__ __forceinline__ float load(const void* base, long long r, int c, int d) const {
+    return reinterpret_cast<const float*>(base)[r * d + c];
+  }
 };
-
-__device__ __forceinline__ SegTable seg_table(const long long* tab, int S) {
-  SegTable t;
-  t.rows = tab;
-  t.base = tab + S;
-  t.valid = tab + 2 * S;
-  t.col_off = tab + 3 * S;
-  t.tile_start = tab + 4 * S;
-  return t;
-}
-
-// Largest s with tile_start[s] <= tile: the segment owning a tile (segments
-// without rows share their successor's start and are never chosen).
-__device__ __forceinline__ int owner_segment(const long long* tile_start, int S,
-                                             long long tile) {
-  int lo = 0, hi = S - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (tile_start[mid] <= tile) lo = mid; else hi = mid - 1;
-  }
-  return lo;
-}
-
-template <int MQ>
-__global__ void __launch_bounds__(kThreads)
-l2_scores_kernel(const float* __restrict__ q, int nq, int d,
-                 const long long* __restrict__ tab, int S,
-                 float* __restrict__ scores, long long ld, int ip) {
-  constexpr int BQ = 16 * MQ;
-  __shared__ float Qs[BK][BQ + 1];
-  __shared__ float Xs[BK][BN + 1];
-  __shared__ float qn_s[BQ];
-  __shared__ float xn_s[BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const SegTable t = seg_table(tab, S);
-  const long long tile = blockIdx.x;
-  const int s = owner_segment(t.tile_start, S, tile);
-  const long long n_s = t.rows[s];
-  const long long r0 = (tile - t.tile_start[s]) * BN;
-  const float* __restrict__ base = reinterpret_cast<const float*>(t.base[s]);
-  const unsigned char* __restrict__ valid =
-      reinterpret_cast<const unsigned char*>(t.valid[s]);
-  const int q0 = blockIdx.y * BQ;
-
-  float acc[MQ][4];
-  float qpart[MQ], xpart[4];
-#pragma unroll
-  for (int i = 0; i < MQ; ++i) {
-    qpart[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) xpart[j] = 0.f;
-
-  for (int k0 = 0; k0 < d; k0 += BK) {
-    // Thread (tx, ty) loads column k0 + tx of local rows ty + 16 j: a
-    // half-warp reads 64 contiguous bytes of one row.
-    const int c = k0 + tx;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const long long r = r0 + ty + 16 * j;
-      const float v = (r < n_s && c < d) ? base[r * d + c] : 0.f;
-      Xs[tx][ty + 16 * j] = v;
-      xpart[j] = fmaf(v, v, xpart[j]);
-    }
-#pragma unroll
-    for (int i = 0; i < MQ; ++i) {
-      const int r = q0 + ty + 16 * i;
-      const float v = (r < nq && c < d) ? q[(long long)r * d + c] : 0.f;
-      Qs[tx][ty + 16 * i] = v;
-      qpart[i] = fmaf(v, v, qpart[i]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[MQ], b[4];
-#pragma unroll
-      for (int i = 0; i < MQ; ++i) a[i] = Qs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Xs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < MQ; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // Row norms: each half-warp (fixed ty, tx = 0..15) holds the 16 column
-  // partials of its rows.
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    float v = xpart[j];
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if (tx == 0) xn_s[ty + 16 * j] = v;
-  }
-#pragma unroll
-  for (int i = 0; i < MQ; ++i) {
-    float v = qpart[i];
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if (tx == 0) qn_s[ty + 16 * i] = v;
-  }
-  __syncthreads();
-
-  const long long col0 = t.col_off[s] + r0;
-#pragma unroll
-  for (int i = 0; i < MQ; ++i) {
-    const int ql = ty + 16 * i;
-    if (q0 + ql >= nq) continue;
-    float* __restrict__ out = scores + (long long)(q0 + ql) * ld + col0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int rl = tx + 16 * j;
-      if (r0 + rl >= n_s) continue;
-      // Same operation order as the host expression q_norm - 2 q.x + x_norm;
-      // the _rn intrinsics keep nvcc from contracting it into an FMA.
-      float sc = ip ? -acc[i][j]
-                    : __fadd_rn(__fsub_rn(qn_s[ql], __fmul_rn(2.f, acc[i][j])),
-                                xn_s[rl]);
-      if (valid != nullptr && valid[r0 + rl] == 0) sc = INFINITY;
-      out[rl] = sc;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kSelThreads)
-topk_select_kernel(const float* __restrict__ scores, long long ld,
-                   const long long* __restrict__ tab, int S, int k, int ip,
-                   float* __restrict__ out_v, long long* __restrict__ out_i) {
-  typedef cub::BlockScan<int, kSelThreads> Scan;
-  __shared__ typename Scan::TempStorage scan_tmp;
-  __shared__ unsigned int hist[256];
-  __shared__ unsigned long long cand[kMaxK];
-  __shared__ unsigned int sh_prefix;
-  __shared__ int sh_need;
-  __shared__ int sh_count;
-
-  const int tid = threadIdx.x;
-  const int s = blockIdx.x;
-  const long long qi = blockIdx.y;
-  const SegTable t = seg_table(tab, S);
-  const long long n_s = t.rows[s];
-  const float* __restrict__ row = scores + qi * ld + t.col_off[s];
-  float* __restrict__ ov = out_v + (qi * S + s) * k;
-  long long* __restrict__ oi = out_i + (qi * S + s) * k;
-  const int k_eff = (int)(n_s < (long long)k ? n_s : (long long)k);
-
-  if (k_eff > 0) {
-    // Radix select of the k_eff-th smallest key, 8 bits per pass.
-    unsigned int prefix = 0u, mask = 0u;
-    int need = k_eff;
-    for (int shift = 24; shift >= 0; shift -= 8) {
-      for (int b = tid; b < 256; b += kSelThreads) hist[b] = 0u;
-      __syncthreads();
-      for (long long r = tid; r < n_s; r += kSelThreads) {
-        const unsigned int key = float_key(row[r]);
-        if ((key & mask) == prefix) atomicAdd(&hist[(key >> shift) & 255u], 1u);
-      }
-      __syncthreads();
-      if (tid == 0) {
-        int below = 0, b = 0;
-        for (; b < 255; ++b) {
-          const int h = (int)hist[b];
-          if (below + h >= need) break;
-          below += h;
-        }
-        sh_prefix = prefix | ((unsigned int)b << shift);
-        sh_need = need - below;
-      }
-      __syncthreads();
-      prefix = sh_prefix;
-      need = sh_need;
-      mask |= 255u << shift;
-      __syncthreads();
-    }
-    // prefix is the threshold key T; take every key < T and the first
-    // `need` keys == T in row order (exactly k_eff candidates).
-    if (tid == 0) sh_count = 0;
-    __syncthreads();
-    int eq_seen = 0;
-    for (long long r0 = 0; r0 < n_s; r0 += kSelThreads) {
-      const long long r = r0 + tid;
-      unsigned int key = 0u;
-      int lt = 0, eq = 0;
-      if (r < n_s) {
-        key = float_key(row[r]);
-        lt = key < prefix;
-        eq = key == prefix;
-      }
-      int eq_rank, eq_total;
-      Scan(scan_tmp).ExclusiveSum(eq, eq_rank, eq_total);
-      if (lt || (eq && eq_seen + eq_rank < need)) {
-        const int pos = atomicAdd(&sh_count, 1);
-        cand[pos] = ((unsigned long long)key << 32) | (unsigned long long)r;
-      }
-      eq_seen += eq_total;
-      __syncthreads();
-    }
-    int p2 = 1;
-    while (p2 < k_eff) p2 <<= 1;
-    for (int i = k_eff + tid; i < p2; i += kSelThreads) cand[i] = ~0ull;
-    __syncthreads();
-    bitonic_sort(cand, p2);
-    for (int j = tid; j < k_eff; j += kSelThreads) {
-      const long long r = (long long)(cand[j] & 0xffffffffull);
-      const float v = row[r];
-      oi[j] = fabsf(v) >= 1e38f ? -1 : r;
-      ov[j] = ip ? -v : v;
-    }
-  }
-  const float fill = ip ? -INFINITY : INFINITY;
-  for (int j = k_eff + tid; j < k; j += kSelThreads) {
-    ov[j] = fill;
-    oi[j] = -1;
-  }
-}
 
 }  // namespace
 
@@ -291,18 +36,6 @@ extern "C" int repro_l2_topk(const float* q, int nq, int d, const long long* tab
                              int S, long long total_tiles, float* scores,
                              long long ld, int k, int ip, float* out_v,
                              long long* out_i, cudaStream_t stream) {
-  if (total_tiles > 0) {
-    if (nq <= 16) {
-      dim3 grid((unsigned int)total_tiles, (unsigned int)((nq + 15) / 16));
-      l2_scores_kernel<1><<<grid, kThreads, 0, stream>>>(q, nq, d, tab, S, scores, ld, ip);
-    } else {
-      dim3 grid((unsigned int)total_tiles, (unsigned int)((nq + 63) / 64));
-      l2_scores_kernel<4><<<grid, kThreads, 0, stream>>>(q, nq, d, tab, S, scores, ld, ip);
-    }
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid2((unsigned int)S, (unsigned int)nq);
-  topk_select_kernel<<<grid2, kSelThreads, 0, stream>>>(scores, ld, tab, S, k, ip, out_v, out_i);
-  return (int)cudaGetLastError();
+  return launch_scan(q, nq, d, tab, S, total_tiles, scores, ld, k, ip, out_v, out_i, stream,
+                     F32Rows{});
 }

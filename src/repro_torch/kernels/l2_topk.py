@@ -3,7 +3,8 @@ PyTorch version.
 
 Replaces ``src/repro/kernels/l2_topk.py:l2_topk_pallas``.  One call scans
 every segment of one execution class and returns a per-segment top-k
-block; see ``csrc/l2_topk.cu`` for the kernel's design and what bounds it.
+block; see ``csrc/l2_topk.cu`` and ``csrc/scan_common.cuh`` for the
+kernel's design and what bounds it.
 For CPU tensors the wrapper runs :func:`l2_topk_plain`; for CUDA tensors it
 launches the kernel or raises -- there is no fallback.
 """
@@ -71,6 +72,29 @@ def _check(queries, bases, valids, k: int, metric: str) -> None:
             raise ValueError("l2_topk: valid masks must be contiguous [n] bool tensors")
 
 
+def segment_table(bases, valids, tile_rows: int, dev):
+    """The packed int64 segment table the scan kernels read (layout in
+    ``csrc/scan_common.cuh``), on ``dev``, with the total row count and the
+    number of ``tile_rows``-row score tiles."""
+    rows = [int(b.shape[0]) for b in bases]
+    col_off, tile_start, total, tiles = [], [], 0, 0
+    for n in rows:
+        col_off.append(total)
+        tile_start.append(tiles)
+        total += n
+        tiles += -(-n // tile_rows)
+    tile_start.append(tiles)
+    table = torch.tensor(
+        rows
+        + [b.data_ptr() for b in bases]
+        + [0 if v is None else v.data_ptr() for v in valids]
+        + col_off
+        + tile_start,
+        dtype=torch.int64,
+    ).to(dev)
+    return table, total, tiles
+
+
 def l2_topk(queries, bases, valids, k: int, metric: str = "l2"):
     """Per-segment top-k of one execution class.
 
@@ -99,22 +123,7 @@ def l2_topk(queries, bases, valids, k: int, metric: str = "l2"):
     if nq > _MAX_GRID_Y:
         raise ValueError(f"l2_topk: at most {_MAX_GRID_Y} queries per call, got {nq}")
     launch, tile_rows = _kernel()
-    rows = [int(b.shape[0]) for b in bases]
-    col_off, tile_start, total, tiles = [], [], 0, 0
-    for n in rows:
-        col_off.append(total)
-        tile_start.append(tiles)
-        total += n
-        tiles += -(-n // tile_rows)
-    tile_start.append(tiles)
-    table = torch.tensor(
-        rows
-        + [b.data_ptr() for b in bases]
-        + [0 if v is None else v.data_ptr() for v in valids]
-        + col_off
-        + tile_start,
-        dtype=torch.int64,
-    ).to(dev)
+    table, total, tiles = segment_table(bases, valids, tile_rows, dev)
     scores = torch.empty((nq, max(total, 1)), dtype=torch.float32, device=dev)
     out_v = torch.empty((nq, n_seg * k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, n_seg * k), dtype=torch.int64, device=dev)

@@ -1,20 +1,28 @@
-"""Public entry points of the port's kernel layer (mirrors the read-path part
-of ``repro.kernels.ops``).
+"""Public entry points of the port's kernel layer (mirrors
+``repro.kernels.ops`` as far as the port reaches).
 
-Everything takes and returns torch tensors on one device.  The scan and
-merge dispatch by device inside their kernel modules: CUDA tensors launch
-the hand-written kernels, CPU tensors run the plain PyTorch versions.  The
-mask ops are plain tensor code on either device.
+Everything takes and returns torch tensors on one device.  The scans,
+merge, assignment and SQ encoder dispatch by device inside their kernel
+modules: CUDA tensors launch the hand-written kernels, CPU tensors run the
+plain PyTorch versions.  The mask ops and the IVF gather-scan are plain
+tensor code on either device (the reference's are numpy, outside any
+kernel).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
+from . import kmeans_assign as _assign_mod
+from . import pq_adc as _pq_mod
+from . import sq_codec as _sq_mod
 from .l2_topk import MAX_K as MAX_SCAN_K
 from .l2_topk import l2_topk
 from .merge_topk import MAX_M as MAX_MERGE_WIDTH
 from .merge_topk import merge_topk as _merge_topk
+from .sq_codec import sq_scale
 
 __all__ = [
     "MAX_SCAN_K",
@@ -27,6 +35,15 @@ __all__ = [
     "mask_intersect",
     "range_cut",
     "post_filter_cut",
+    "kmeans_assign",
+    "sq_scale",
+    "sq_encode",
+    "sq_topk_scan",
+    "pq_adc_topk",
+    "ivf_probe_schedule",
+    "ivf_gather_topk",
+    "IVFBucket",
+    "IVFSchedule",
 ]
 
 
@@ -155,3 +172,198 @@ def post_filter_cut(scores, idx, keep, metric: str = "l2"):
         ok = torch.zeros_like(alive)
     dead = alive & ~ok
     return torch.where(dead, _fill(metric), scores), torch.where(dead, -1, idx)
+
+
+def kmeans_assign(x, centroids):
+    """Nearest-centroid assignment: ``(assign [n] int64, sqdist [n]
+    float32)``; the earliest centroid wins ties."""
+    x = x.to(torch.float32).contiguous()
+    c = centroids.to(device=x.device, dtype=torch.float32).contiguous()
+    return _assign_mod.kmeans_assign(x, c)
+
+
+def sq_encode(x, vmin, vmax) -> torch.Tensor:
+    """float32 rows -> uint8 SQ codes (round half to even, clipped)."""
+    return _sq_mod.sq_encode(x.to(torch.float32).contiguous(), vmin, vmax)
+
+
+def sq_topk_scan(queries, codes, vmin, vmax, k: int, metric: str = "l2", valid=None):
+    """Top-k against an SQ-compressed base with fused dequantization (the
+    ``topk_scan`` contract).  Codes are taken as uint8."""
+    if codes.dtype != torch.uint8:
+        codes = codes.to(torch.uint8)
+    return _sq_mod.sq_l2_topk(
+        queries.contiguous(), codes.contiguous(), vmin, vmax, valid, k, metric
+    )
+
+
+def pq_adc_topk(luts, codes, k: int, valid=None):
+    """ADC top-k over PQ codes: ``luts`` [nq, m, ksub], ``codes`` [n, m]
+    (uint8 or int32).  Ascending sums; (+inf, -1) fill."""
+    if codes.dtype not in (torch.uint8, torch.int32):
+        codes = codes.to(torch.int32)
+    return _pq_mod.pq_adc_topk(luts.contiguous(), codes.contiguous(), k, valid)
+
+
+# ---------------------------------------------------------------------------
+# Batched IVF execution: probe inversion + size-bucketed gather-scan (the
+# reference's ``ivf_probe_schedule`` / ``ivf_gather_topk``).  The schedule
+# is host control state built with torch on the CPU from the probe matrix
+# (one read-back per call); the bucket index tensors live on the scan's
+# device.  Each probed list is scanned ONCE against the group of queries
+# that probe it.  Buckets bound the padding of the batched products: lists
+# are grouped by quantized (list length, group size) levels, with the
+# in-bucket maxima as the padded extents.  Results do not depend on the
+# bucketing, only the padding and the number of launches do.
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class IVFBucket:
+    """One fused-scan work item: B probed lists padded to a common (group G,
+    width W) tile.  ``rows`` are absolute row indices into the permuted CSR
+    storage (padding clipped to each list's first row, dead in ``wmask``);
+    ``q_idx``/``slot_idx`` address the candidate pool, ``pair_idx`` the
+    schedule's flat pair arrays; ``sel`` lists the real (query, list) pairs
+    among the B*G group slots.  All tensors are on the scan device."""
+
+    lo: torch.Tensor  # [B] CSR start offset per list
+    rows: torch.Tensor  # [B, W]
+    wmask: torch.Tensor  # [B, W] True = real row
+    q_idx: torch.Tensor  # [B, G]
+    slot_idx: torch.Tensor  # [B, G]
+    pair_idx: torch.Tensor  # [B, G]
+    sel: torch.Tensor  # [P_b] flat indices of the real pairs in [B*G]
+    full: bool  # every [B, W] slot is a real row
+
+
+@dataclass
+class IVFSchedule:
+    buckets: "list[IVFBucket]"
+    pair_q: torch.Tensor  # [P] query per kept pair (list-sorted order)
+    pair_list: torch.Tensor  # [P] list id per kept pair (sorted)
+    nq: int
+    nprobe: int
+
+
+def _pow2_ceil(x: torch.Tensor) -> torch.Tensor:
+    e = torch.ceil(torch.log2(x.clamp(min=1).to(torch.float64))).to(torch.int64)
+    return torch.ones_like(e) << e
+
+
+def _bucket_quantum(x: torch.Tensor) -> torch.Tensor:
+    """Quantize up to {1, 2, 3, 4, 6, 8, 12, 16, ...}: powers of two and
+    their midpoints."""
+    p2 = _pow2_ceil(x)
+    mid = (p2 >> 1) + (p2 >> 2)
+    return torch.where(x <= mid, mid.clamp(min=1), p2)
+
+
+# Coarser than the reference's 128 / 512: on the card a padded row costs
+# far less than the launches and host work of one more bucket.
+_SMALL_TILE_W = 1_024  # lists at or below this width share one tile class
+_COARSE_W = 2_048  # up to this width, group sizes take the coarse ladder
+
+
+def _pow4_ceil(x: torch.Tensor) -> torch.Tensor:
+    e = torch.ceil(torch.log2(x.clamp(min=1).to(torch.float64))).to(torch.int64)
+    return torch.ones_like(e) << ((e + 1) >> 1 << 1)
+
+
+def ivf_probe_schedule(probes, list_offsets, max_tile_rows: int = 1 << 17, device=None):
+    """Invert ``probes [nq, nprobe]`` (list ids, -1 = padded slot) into a
+    bucketed gather-scan schedule over the CSR ``list_offsets`` [nlist+1].
+    Padded probe slots and empty lists are dropped up front (their pool
+    slots keep the fill).  The schedule is computed on the host and goes to
+    ``device`` (default: the probes' device) in ONE copy; the buckets' row
+    tiles and masks are expanded there."""
+    dev = probes.device if device is None else torch.device(device)
+    p = probes.to("cpu", torch.int64)
+    offsets = torch.as_tensor(list_offsets).to("cpu", torch.int64)
+    nq, nprobe = p.shape
+    lengths_all = offsets[1:] - offsets[:-1]
+    nlist = lengths_all.numel()
+
+    pair_list = p.reshape(-1)
+    pair_q = torch.arange(nq).repeat_interleave(nprobe)
+    pair_slot = torch.arange(nprobe).repeat(nq)
+    ok = (pair_list >= 0) & (pair_list < nlist)
+    if nlist:
+        ok &= lengths_all[pair_list.clamp(0, nlist - 1)] > 0
+    pair_list, pair_q, pair_slot = pair_list[ok], pair_q[ok], pair_slot[ok]
+
+    order = torch.sort(pair_list, stable=True).indices
+    pl, pq, ps = pair_list[order], pair_q[order], pair_slot[order]
+    if pl.numel() == 0:
+        return IVFSchedule([], pq.to(dev), pl.to(dev), nq, nprobe)
+
+    ulists, counts = torch.unique_consecutive(pl, return_counts=True)
+    starts = torch.cumsum(counts, 0) - counts
+    ulen = lengths_all[ulists]
+    wq = torch.clamp(_bucket_quantum(ulen), min=_SMALL_TILE_W)
+    gq = torch.where(wq <= _COARSE_W, _pow4_ceil(counts), _bucket_quantum(counts))
+    bkey = (wq << 32) | gq
+    # Host pieces of every bucket, packed into one buffer for one copy.
+    parts, shapes = [pq, ps, pl], []
+    for key in torch.unique(bkey).tolist():  # bounded: one per (W, G) level pair
+        mem = torch.nonzero(bkey == key).squeeze(1)
+        w = int(ulen[mem].max())
+        g = int(counts[mem].max())
+        chunk = max(1, max_tile_rows // max(w, 1))
+        for c0 in range(0, mem.numel(), chunk):
+            mm = mem[c0 : c0 + chunk]
+            ln = ulen[mm]
+            gpos = (starts[mm][:, None] + torch.arange(g)[None, :]).clamp(max=pl.numel() - 1)
+            sel = torch.nonzero((torch.arange(g)[None, :] < counts[mm][:, None]).reshape(-1))
+            parts += [offsets[ulists[mm]], ln, gpos.reshape(-1), sel.reshape(-1)]
+            shapes.append((len(mm), w, g, sel.numel(), bool(ln.min() == w)))
+    packed = torch.cat(parts).to(dev)
+    pq_d, ps_d, pl_d = packed[: pl.numel()], packed[pl.numel() : 2 * pl.numel()], packed[
+        2 * pl.numel() : 3 * pl.numel()
+    ]
+    sched = IVFSchedule([], pq_d, pl_d, nq, nprobe)
+    at = 3 * pl.numel()
+    for n_b, w, g, n_sel, full in shapes:
+        lo, ln = packed[at : at + n_b], packed[at + n_b : at + 2 * n_b]
+        at += 2 * n_b
+        gpos = packed[at : at + n_b * g].view(n_b, g)
+        at += n_b * g
+        sel = packed[at : at + n_sel]
+        at += n_sel
+        ar_w = torch.arange(w, device=dev)
+        wmask = ar_w[None, :] < ln[:, None]
+        sched.buckets.append(
+            IVFBucket(
+                lo=lo, rows=torch.where(wmask, lo[:, None] + ar_w[None, :], lo[:, None]),
+                wmask=wmask, q_idx=pq_d[gpos], slot_idx=ps_d[gpos], pair_idx=gpos, sel=sel,
+                full=full,
+            )
+        )
+    return sched
+
+
+def ivf_gather_topk(schedule: IVFSchedule, k: int, score_bucket, device):
+    """Run a schedule's fused scans and pool per-(query, probe slot) top-k.
+
+    ``score_bucket(bucket) -> scores [B, G, W]`` returns min-semantics
+    scores (L2 distance, or negated similarity) with dead slots at +inf.
+    Returns ``(pool_scores [nq, nprobe*k], pool_rows [nq, nprobe*k])``:
+    block ``[:, j*k:(j+1)*k]`` holds probe slot j's candidates, ascending,
+    with absolute rows into the permuted storage (+inf / -1 fill).  Ties
+    break by row index (a stable sort)."""
+    nq, nprobe = schedule.nq, schedule.nprobe
+    pool_s = torch.full((nq, nprobe, k), float("inf"), dtype=torch.float32, device=device)
+    pool_r = torch.full((nq, nprobe, k), -1, dtype=torch.int64, device=device)
+    for b in schedule.buckets:
+        scores = score_bucket(b)  # [B, G, W]
+        n_b, g, w = scores.shape
+        k_eff = min(k, w)
+        vals, idx = torch.sort(scores, dim=2, stable=True)
+        vals, idx = vals[:, :, :k_eff], idx[:, :, :k_eff] + b.lo[:, None, None]
+        idx = torch.where(vals >= 1e38, -1, idx)
+        # Integer gathers of the real pairs: no device-to-host sync.
+        qi = b.q_idx.reshape(-1).index_select(0, b.sel)
+        si = b.slot_idx.reshape(-1).index_select(0, b.sel)
+        pool_s[qi, si, :k_eff] = vals.reshape(n_b * g, k_eff).index_select(0, b.sel)
+        pool_r[qi, si, :k_eff] = idx.reshape(n_b * g, k_eff).index_select(0, b.sel)
+    return pool_s.reshape(nq, nprobe * k), pool_r.reshape(nq, nprobe * k)

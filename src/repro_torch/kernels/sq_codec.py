@@ -1,0 +1,173 @@
+"""Scalar-quantization codec: the encoder and the scan over uint8 codes with
+fused dequantization, the CUDA kernels' wrappers and their plain PyTorch
+versions.
+
+Replaces ``src/repro/kernels/sq_codec.py:sq_encode_pallas`` and
+``sq_l2_topk_pallas`` and holds to the host paths of
+``src/repro/kernels/ops.py:sq_encode`` / ``sq_topk_scan``; see
+``csrc/sq_codec.cu`` for the kernels' design and what bounds them.  For CPU
+tensors the wrappers run the plain versions; for CUDA tensors they launch
+the kernels or raise -- there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .l2_topk import _MAX_GRID_Y, l2_topk_plain, segment_table
+
+#: Largest k the scan takes (``kMaxK`` in ``csrc/scan_common.cuh``).
+MAX_K = 1024
+
+_fns: dict[str, object] = {}
+
+
+def _kernels():
+    if not _fns:
+        lib = _build.load("sq_codec")
+        enc = lib.repro_sq_encode
+        enc.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ]
+        enc.restype = ctypes.c_int
+        scan = lib.repro_sq_l2_topk
+        scan.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p,
+        ]
+        scan.restype = ctypes.c_int
+        lib.repro_sq_l2_topk_max_k.restype = ctypes.c_int
+        lib.repro_sq_l2_topk_tile_rows.restype = ctypes.c_int
+        if lib.repro_sq_l2_topk_max_k() != MAX_K:
+            raise RuntimeError("sq_l2_topk: MAX_K disagrees with the compiled kernel")
+        _fns.update(encode=enc, scan=scan, tile_rows=lib.repro_sq_l2_topk_tile_rows())
+    return _fns
+
+
+def sq_scale(vmin, vmax) -> torch.Tensor:
+    """The codec's per-dimension quantization step,
+    ``max(vmax - vmin, 1e-12) / 255`` in float32: the one definition that
+    encode, decode and the fused scan share."""
+    return torch.clamp_min(vmax.to(torch.float32) - vmin.to(torch.float32), 1e-12) / 255.0
+
+
+def _check_range(name: str, x, vmin, vmax) -> None:
+    d = x.shape[1]
+    for v in (vmin, vmax):
+        if v.shape != (d,) or v.dtype != torch.float32 or v.device != x.device:
+            raise ValueError(f"{name}: vmin/vmax must be [{d}] float32 on the data's device")
+
+
+def sq_encode(x, vmin, vmax) -> torch.Tensor:
+    """``x`` [n, D] float32 -> uint8 codes ``clip(round((x - vmin) /
+    scale), 0, 255)``, rounding half to even."""
+    if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("sq_encode: x must be a contiguous [n, D] float32 tensor")
+    _check_range("sq_encode", x, vmin, vmax)
+    if x.device.type == "cpu":
+        return sq_encode_plain(x, vmin, vmax)
+    if x.device.type != "cuda":
+        raise ValueError(f"sq_encode: unsupported device {x.device}")
+    n, d = x.shape
+    out = torch.empty((n, d), dtype=torch.uint8, device=x.device)
+    if n == 0 or d == 0:
+        return out
+    vmin_c = vmin.contiguous()
+    scale = sq_scale(vmin, vmax).contiguous()
+    rc = _kernels()["encode"](
+        x.data_ptr(), vmin_c.data_ptr(), scale.data_ptr(), out.data_ptr(), n, d,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"sq_encode: kernel launch failed with CUDA error {rc}")
+    sq_encode.launches += 1
+    return out
+
+
+sq_encode.launches = 0
+
+
+def sq_encode_plain(x, vmin, vmax) -> torch.Tensor:
+    """Plain PyTorch version of :func:`sq_encode` (``torch.round`` rounds
+    half to even)."""
+    q = torch.round((x - vmin[None, :]) / sq_scale(vmin, vmax)[None, :])
+    return torch.clamp(q, 0, 255).to(torch.uint8)
+
+
+def sq_decode_plain(codes, vmin, vmax) -> torch.Tensor:
+    """``code * scale + vmin`` in float32 (two roundings, as the host decode
+    and the scan kernel's row loader)."""
+    return codes.to(torch.float32) * sq_scale(vmin, vmax)[None, :] + vmin[None, :]
+
+
+def sq_l2_topk(queries, codes, vmin, vmax, valid, k: int, metric: str = "l2"):
+    """Top-k of ``queries`` [nq, D] float32 against uint8 SQ ``codes``
+    [n, D] decoded as ``code * scale + vmin``, with the ``l2_topk``
+    contract for one segment: ``(vals [nq, k] float32, idx [nq, k] int64)``,
+    ascending L2 distance or descending inner product; slots past the valid
+    rows carry (+inf L2 / -inf IP, -1) and ``|score| >= 1e38`` has index -1."""
+    if metric not in ("l2", "ip"):
+        raise ValueError(f"sq_l2_topk: unknown metric {metric!r}")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"sq_l2_topk: k={k} outside [1, {MAX_K}]")
+    if queries.dim() != 2 or queries.dtype != torch.float32 or not queries.is_contiguous():
+        raise ValueError("sq_l2_topk: queries must be a contiguous [nq, D] float32 tensor")
+    d = queries.shape[1]
+    if (
+        codes.dim() != 2 or codes.shape[1] != d or codes.dtype != torch.uint8
+        or not codes.is_contiguous() or codes.device != queries.device
+    ):
+        raise ValueError(f"sq_l2_topk: codes must be a contiguous [n, {d}] uint8 tensor")
+    if codes.shape[0] >= 2**31:
+        raise ValueError("sq_l2_topk: at most 2**31 - 1 rows")
+    _check_range("sq_l2_topk", codes, vmin, vmax)
+    if valid is not None and (
+        valid.dtype != torch.bool or valid.shape != (codes.shape[0],)
+        or not valid.is_contiguous() or valid.device != queries.device
+    ):
+        raise ValueError("sq_l2_topk: valid must be a contiguous [n] bool tensor")
+    if queries.device.type == "cpu":
+        return sq_l2_topk_plain(queries, codes, vmin, vmax, valid, k, metric)
+    if queries.device.type != "cuda":
+        raise ValueError(f"sq_l2_topk: unsupported device {queries.device}")
+    nq = queries.shape[0]
+    dev = queries.device
+    if nq == 0:
+        fill = float("inf") if metric == "l2" else float("-inf")
+        return (
+            torch.full((0, k), fill, dtype=torch.float32, device=dev),
+            torch.full((0, k), -1, dtype=torch.int64, device=dev),
+        )
+    if nq > _MAX_GRID_Y:
+        raise ValueError(f"sq_l2_topk: at most {_MAX_GRID_Y} queries per call, got {nq}")
+    fns = _kernels()
+    table, total, tiles = segment_table([codes], [valid], fns["tile_rows"], dev)
+    vmin_c = vmin.contiguous()
+    scale = sq_scale(vmin, vmax).contiguous()
+    scores = torch.empty((nq, max(total, 1)), dtype=torch.float32, device=dev)
+    out_v = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, k), dtype=torch.int64, device=dev)
+    rc = fns["scan"](
+        queries.data_ptr(), nq, d, table.data_ptr(), 1, tiles, vmin_c.data_ptr(),
+        scale.data_ptr(), scores.data_ptr(), max(total, 1), k, int(metric == "ip"),
+        out_v.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"sq_l2_topk: kernel launch failed with CUDA error {rc}")
+    sq_l2_topk.launches += 1
+    return out_v, out_i
+
+
+sq_l2_topk.launches = 0
+
+
+def sq_l2_topk_plain(queries, codes, vmin, vmax, valid, k: int, metric: str = "l2"):
+    """Plain PyTorch version of :func:`sq_l2_topk`: decode, then the plain
+    brute-force scan."""
+    return l2_topk_plain(queries, [sq_decode_plain(codes, vmin, vmax)], [valid], k, metric)

@@ -61,3 +61,53 @@ def assert_scan_close(got, want, queries, bases, valids, k: int, metric: str,
             row_scores(queries, base, q_rows, rows, metric), wv[:, blk][q_rows, slots],
             rtol=rtol, atol=atol,
         )
+
+
+def assert_topk_near_tie(got, want, rtol: float, atol: float) -> None:
+    """Check one search's ``(scores, ids)`` [nq, k] against another's that
+    ranked the same candidates with scores summed in another order: the
+    same empty slots, scores close slot by slot, no id twice in a row, and
+    ids equal except at near-ties.  A differing id must sit in ``want``'s
+    row at a slot whose score lies within the tolerance of this slot's, or
+    this slot must tie with ``want``'s last live slot, where the other
+    search may have kept another of the tied rows."""
+    gs, gi = got
+    ws, wi = want
+    if gs.shape != ws.shape or gi.shape != wi.shape:
+        raise AssertionError(f"shape {tuple(gs.shape)} != {tuple(ws.shape)}")
+    live = wi >= 0
+    if not torch.equal(gi >= 0, live):
+        raise AssertionError("empty-slot pattern differs")
+    torch.testing.assert_close(gs[live], ws[live], rtol=rtol, atol=atol)
+    srt = torch.sort(gi, dim=1).values
+    if bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any()):
+        raise AssertionError("an id repeats within a query")
+    for r, j in torch.nonzero((gi != wi) & live).tolist():
+        tol = atol + rtol * abs(float(ws[r, j]))
+        near = live[r] & ((ws[r] - ws[r, j]).abs() <= tol)
+        if bool((wi[r][near] == gi[r, j]).any()):
+            continue
+        last = int(live[r].sum()) - 1
+        if abs(float(ws[r, j]) - float(ws[r, last])) <= 2 * tol:
+            continue
+        raise AssertionError(
+            f"query {r} slot {j}: id {int(gi[r, j])} where {int(wi[r, j])} was expected, "
+            f"and no near-tie explains it"
+        )
+
+
+def assert_assign_close(got, want, x, centroids, rtol: float, atol: float) -> None:
+    """Check a nearest-centroid assignment ``got`` = (assign, min_d2)
+    against ``want``: distances close, assignments exact except where the
+    chosen centroid's distance ties the reference's within the tolerance."""
+    ga, gd = got
+    wa, wd = want
+    if ga.shape != wa.shape or ga.dtype != torch.int64 or gd.dtype != torch.float32:
+        raise AssertionError("assignment shape or dtype differs")
+    torch.testing.assert_close(gd, wd, rtol=rtol, atol=atol)
+    rows = torch.nonzero(ga != wa).squeeze(1)
+    if rows.numel():
+        xr = x[rows]
+        d_got = ((xr - centroids[ga[rows]]) ** 2).sum(1)
+        d_want = ((xr - centroids[wa[rows]]) ** 2).sum(1)
+        torch.testing.assert_close(d_got, d_want, rtol=rtol, atol=atol)

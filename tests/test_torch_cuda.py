@@ -11,10 +11,18 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
+from repro_torch.kernels import kmeans_assign as km_mod  # noqa: E402
 from repro_torch.kernels import l2_topk as l2_mod  # noqa: E402
 from repro_torch.kernels import merge_topk as merge_mod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.testing import SCORE_TOL, assert_scan_close  # noqa: E402
+from repro_torch.kernels import pq_adc as pq_mod  # noqa: E402
+from repro_torch.kernels import sq_codec as sq_mod  # noqa: E402
+from repro_torch.testing import (  # noqa: E402
+    SCORE_TOL,
+    assert_assign_close,
+    assert_scan_close,
+    assert_topk_near_tie,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -133,3 +141,84 @@ def test_query_node_on_card_matches_cpu(dev):
         rtol, atol = SCORE_TOL[metric]
         torch.testing.assert_close(gs.cpu(), cs, rtol=rtol, atol=atol)
         assert torch.equal(gp.cpu(), cp)
+
+
+@pytest.mark.parametrize("n,c,d", [(1, 1, 16), (700, 16, 768), (5000, 130, 16), (3000, 256, 768)])
+def test_kmeans_assign_matches_plain(dev, n, c, d):
+    rng = np.random.default_rng(n + c + d)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dev)
+    cent = torch.from_numpy(rng.standard_normal((c, d)).astype(np.float32)).to(dev)
+    before = km_mod.kmeans_assign.launches
+    got = km_mod.kmeans_assign(x, cent)
+    torch.cuda.synchronize()
+    assert km_mod.kmeans_assign.launches == before + 1
+    assert_assign_close(got, km_mod.kmeans_assign_plain(x, cent), x, cent, *SCORE_TOL["l2"])
+
+
+def test_kmeans_assign_earliest_duplicate_wins(dev):
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((900, 32)).astype(np.float32)).to(dev)
+    cent = torch.from_numpy(rng.standard_normal((40, 32)).astype(np.float32)).to(dev)
+    cent = torch.cat([cent, cent, cent]).contiguous()  # copies in later tiles
+    ga, gd = km_mod.kmeans_assign(x, cent)
+    wa, wd = km_mod.kmeans_assign_plain(x, cent)
+    assert bool((ga < 40).all())
+    assert_assign_close((ga, gd), (wa, wd), x, cent, *SCORE_TOL["l2"])
+
+
+def test_sq_encode_is_bit_exact(dev):
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((4096, 768)).astype(np.float32)
+    vmin, vmax = x.min(0), x.max(0)
+    vmin[0], vmax[0] = 0.0, 255.0  # scale 1: exact .5 boundaries round half to even
+    x[:, 0] = (np.arange(4096) % 256).astype(np.float32) + 0.5
+    x[:, 1] = vmin[1] = vmax[1] = 0.25  # constant column
+    xt, lo, hi = (torch.from_numpy(a).to(dev) for a in (x, vmin, vmax))
+    before = sq_mod.sq_encode.launches
+    got = sq_mod.sq_encode(xt, lo, hi)
+    torch.cuda.synchronize()
+    assert sq_mod.sq_encode.launches == before + 1
+    assert torch.equal(got, sq_mod.sq_encode_plain(xt, lo, hi))
+    col = got[:, 0].long().cpu().numpy()
+    base = np.arange(4096) % 256
+    np.testing.assert_array_equal(col, base + (base % 2) - (base == 255))
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("k", [1, 100, 1024])
+@pytest.mark.parametrize("nq,n", [(1, 5000), (100, 700), (37, 0)])
+def test_sq_l2_topk_matches_plain(dev, metric, k, nq, n):
+    rng = np.random.default_rng(k + nq + n)
+    d = 768
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dev)
+    lo = x.min(0).values if n else torch.zeros(d, device=dev)
+    hi = x.max(0).values if n else torch.ones(d, device=dev)
+    codes = sq_mod.sq_encode(x, lo, hi)
+    q = torch.from_numpy(rng.standard_normal((nq, d)).astype(np.float32)).to(dev)
+    valid = torch.from_numpy(rng.random(n) > 0.3).to(dev)
+    before = sq_mod.sq_l2_topk.launches
+    got = sq_mod.sq_l2_topk(q, codes, lo, hi, valid, k, metric)
+    torch.cuda.synchronize()
+    assert sq_mod.sq_l2_topk.launches == before + 1
+    want = sq_mod.sq_l2_topk_plain(q, codes, lo, hi, valid, k, metric)
+    decoded = sq_mod.sq_decode_plain(codes, lo, hi)
+    assert_scan_close(got, want, q, [decoded], [valid], k, metric, *SCORE_TOL[metric])
+
+
+@pytest.mark.parametrize("code_dtype", [torch.uint8, torch.int32])
+@pytest.mark.parametrize("k", [1, 100, 1024])
+@pytest.mark.parametrize("m", [8, 48])
+def test_pq_adc_topk_is_bit_exact(dev, m, k, code_dtype):
+    rng = np.random.default_rng(m + k)
+    n, nq, ksub = 20_000, 33, 256
+    luts = torch.from_numpy(rng.standard_normal((nq, m, ksub)).astype(np.float32)).to(dev)
+    codes = torch.from_numpy(rng.integers(0, ksub, (n, m))).to(dev, code_dtype)
+    codes[:50] = codes[0]  # exact ties
+    valid = torch.from_numpy(rng.random(n) > 0.2).to(dev)
+    before = pq_mod.pq_adc_topk.launches
+    got = pq_mod.pq_adc_topk(luts, codes, k, valid)
+    torch.cuda.synchronize()
+    assert pq_mod.pq_adc_topk.launches == before + 1
+    want = pq_mod.pq_adc_topk_plain(luts, codes, k, valid)
+    assert torch.equal(got[0], want[0])
+    assert_topk_near_tie(got, want, 0.0, 0.0)

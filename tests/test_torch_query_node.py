@@ -291,17 +291,35 @@ def test_post_filter_beyond_scan_k_limit_matches_reference(metric, rows):
 
 
 def test_full_growing_slice_raises():
-    broker = log.LogBroker()
-    node = QueryNode("qn", broker, MemoryObjectStore(), slice_rows=8, device="cpu")
-    ch = log.dml_channel("c", 0)
-    broker.create_channel(ch)
-    node.subscribe(ch)
-    broker.publish(ch, log.LogEntry(1, log.EntryType.INSERT, {
-        "collection": "c", "segment_id": 1, "shard": 0, "pk": np.arange(8),
-        "vector": np.zeros((8, 4), np.float32),
-    }))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        node.step()
+    """A full slice now gets its interim IVF-FLAT index, as in the
+    reference.  What still raises is what raises there too: a slice whose
+    rows are all equal leaves k-means++ seeding no row to draw (ValueError
+    from numpy in both packages)."""
+    for vectors, raises in ((np.random.default_rng(0).standard_normal((8, 4)), False),
+                            (np.zeros((8, 4)), True)):
+        nodes = []
+        for log_mod, node_cls, kw in ((ref_log, RefNode, {}), (log, QueryNode, {"device": "cpu"})):
+            broker = log_mod.LogBroker()
+            node = node_cls("qn", broker, RefStore() if node_cls is RefNode else MemoryObjectStore(),
+                            slice_rows=8, **kw)
+            ch = log_mod.dml_channel("c", 0)
+            broker.create_channel(ch)
+            node.subscribe(ch)
+            broker.publish(ch, log_mod.LogEntry(1, log_mod.EntryType.INSERT, {
+                "collection": "c", "segment_id": 1, "shard": 0, "pk": np.arange(8),
+                "vector": vectors.astype(np.float32),
+            }))
+            if raises:
+                with pytest.raises(ValueError, match="Probabilities"):
+                    node.step()
+            else:
+                assert node.step()
+                nodes.append(node)
+        if not raises:
+            ref_idx = nodes[0].growing[("c", 1)].slice_index_built[0]
+            port_idx = nodes[1].growing[("c", 1)].slice_indexes[0]
+            assert port_idx.KIND == "ivf_flat" and port_idx.metric is Metric.L2
+            np.testing.assert_array_equal(port_idx._state()["row_ids"], ref_idx.row_ids)
 
 
 def test_traced_request_spans_match_reference(clusters):

@@ -115,7 +115,7 @@ def test_device_guard_and_registry():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Segment(1, "c", 0, 4)
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        create_index(IndexSpec("ivf_flat"), device="cpu")
+        create_index(IndexSpec("hnsw"), device="cpu")
     with pytest.raises(KeyError):
         create_index(IndexSpec("no_such_kind"), device="cpu")
     with pytest.raises(TypeError):
