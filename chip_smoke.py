@@ -5,14 +5,15 @@
 
 1. Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, all started together).
-2. Kernel phase: each of the six kernels against its plain PyTorch version
+2. Kernel phase: each of the seven kernels against its plain PyTorch version
    on the card.  ``l2_topk``: L2 and IP, k in {1, 100, 1024}, ragged and
    all-invalid segments.  ``merge_topk``: duplicate, negative and >int32
    pks, inf/NaN/-0.0 scores, pools wider than one launch (bit-exact).
    ``kmeans_assign``: N in {1, 700, 100,000} x C in {1, 16, 128, 256,
    1,000} x D in {16, 768} and duplicate centroids (earliest wins).
    ``sq_encode``: bit-exact, with exact .5 boundaries and a constant
-   column.  ``sq_l2_topk``: L2/IP, k in {1, 100, 1024}, nq in {1, 100},
+   column.  ``sq_decode``: bit-exact, d % 16 == 0 and odd d, one row, a
+   misaligned view, n * d above 2^31.  ``sq_l2_topk``: L2/IP, k in {1, 100, 1024}, nq in {1, 100},
    ragged and all-invalid.  ``pq_adc_topk``: m in {8, 48}, ksub 256, masks,
    k in {1, 100, 1024}, bit-exact scores.  Scores are held to
    ``repro_torch.testing.SCORE_TOL``, set from the measured float32 error.
@@ -34,7 +35,19 @@
    centroid distances, score the probed rows, sort stably, merge); an
    IVF-FLAT built twice from one seed must save the same bytes.  Recall@100
    against exact brute force is printed, not gated.
-5. Each path runs with every launch counter at 0 and fails unless each of
+5. Facade path: the port's ``ManuSystem`` at the same scale (2 shards,
+   2 loggers, 1 data node, 1 index node, 2 query nodes, 131,072-row seals):
+   an IVF-SQ collection (nlist 128, nprobe 8) with an INT ordinal, 1M
+   mixture rows inserted through the proxy in 8,192-row batches, flush
+   (eight IVF-SQ builds, placed on the two nodes by the query coordinator),
+   16,384 streamed rows, 1% deletes; requests at nq 1 and 100 under
+   STRONG / BOUNDED / EVENTUAL, the filters ``ordinal >= 10000`` and
+   ``ordinal >= 990000``, hydrated ``ordinal`` and time travel.  Every
+   answer must equal the float64 oracle over what the two query nodes hold
+   at its pin (``repro_torch.testing.system_oracle``).  Prints ingest
+   rows/s, the flush time, each build, request latencies and two profiled
+   requests with the host split.
+6. Each path runs with every launch counter at 0 and fails unless each of
    its kernels was launched.  Prints phase and build times, request
    latencies, profiled requests, one JSON line of kernel measurements, the
    card's name and power limit, and as the last line
@@ -44,6 +57,7 @@
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -87,7 +101,19 @@ SLICE_ROWS = 2_048  # the system's default (src/repro/core/query_node.py:38)
 KMEANS_SAMPLE = 100_000  # rows an IVF build's Lloyd steps run on (index/kmeans.py)
 # kmeans_assign's kernel-phase grid: rows x centroids (x D in {16, DIM}).
 ASSIGN_ROWS, ASSIGN_CENTROIDS = (1, 700, KMEANS_SAMPLE), (1, 16, 128, 256, 1_000)
-KERNEL_NAMES = ("l2_topk", "merge_topk", "kmeans_assign", "sq_encode", "sq_l2_topk", "pq_adc_topk")
+# sq_decode's kernel phase: a row count with n * DIM above 2^31.
+DECODE_ROWS_64BIT = 2_800_000
+# Facade path: the ManuSystem deployment (2 shards, 2 loggers, 1 data node,
+# 1 index node, 2 query nodes, 131,072-row seals, the default slice size),
+# the rows streamed after the flush, and the sealed segments that makes.
+FACADE_CONFIG = dict(num_shards=2, num_loggers=2, num_data_nodes=1, num_index_nodes=1,
+                     num_query_nodes=2, seal_rows=SEG_ROWS, slice_rows=SLICE_ROWS)
+FACADE_STREAM = 16_384
+FACADE_SEGMENTS = 8  # per shard: 3 x 131,072 rows and the flushed remainder
+FACADE_KERNELS = ("l2_topk", "merge_topk", "kmeans_assign", "sq_encode", "sq_decode")
+KERNEL_NAMES = (
+    "l2_topk", "merge_topk", "kmeans_assign", "sq_encode", "sq_decode", "sq_l2_topk", "pq_adc_topk",
+)
 
 
 def log(msg: str) -> None:
@@ -108,20 +134,23 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profile_request(torch, fn, label: str) -> None:
+def profile_request(torch, fn, label: str):
     """One warm request under torch.profiler: wall time, device busy time
-    (sum of kernel self times; one stream, so no overlap), the kernels and
-    host ops that take the most."""
+    (sum of kernel self times; one stream, so no overlap), kernel launches
+    and host-device syncs, the kernels and host ops that take the most.
+    Returns the profiled call's result."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        fn()
+        result = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     events = prof.key_averages()
+    launches = sum(e.count for e in events if "LaunchKernel" in e.key)
+    syncs = sum(e.count for e in events if "Synchronize" in e.key)
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
@@ -131,13 +160,15 @@ def profile_request(torch, fn, label: str) -> None:
     top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]
     if busy_ms == 0:
         log(f"profile {label}: wall {wall_ms:.3f} ms, the profiler recorded no device time")
-        return
+        return result
     log(f"profile {label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-        f"(idle share {max(0.0, 1 - busy_ms / wall_ms):.3f})")
+        f"(idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}); {launches} kernel launches, "
+        f"{syncs} host-device syncs")
     log("  device: " + "; ".join(f"{e.key[:60]} x{e.count} {dev_us(e) / 1e3:.3f} ms" for e in top_dev))
     log("  host: " + "; ".join(
         f"{e.key[:40]} x{e.count} {e.self_cpu_time_total / 1e3:.3f} ms" for e in top_cpu
     ))
+    return result
 
 
 def kernel_phase(torch, l2_mod, merge_mod, ops, assert_scan_close, tol, dev, gen) -> dict:
@@ -248,7 +279,8 @@ def index_kernel_phase(torch, km_mod, sq_mod, pq_mod, testing, dev, gen) -> dict
     |err| per kernel.  Assignments must agree except at distance near-ties
     and their distances within ``SCORE_TOL``; SQ codes and PQ table sums
     must be bit-exact."""
-    err = {"kmeans_assign": 0.0, "sq_encode": 0.0, "sq_l2_topk": 0.0, "pq_adc_topk": 0.0}
+    err = {"kmeans_assign": 0.0, "sq_encode": 0.0, "sq_decode": 0.0, "sq_l2_topk": 0.0,
+           "pq_adc_topk": 0.0}
     tol = testing.SCORE_TOL
     n_assign = 0
     for d in (16, DIM):
@@ -288,6 +320,31 @@ def index_kernel_phase(torch, km_mod, sq_mod, pq_mod, testing, dev, gen) -> dict
     if not torch.equal(codes[:, 0].long(), (even + even.remainder(2)).clamp(max=255)):
         raise AssertionError("sq_encode does not round .5 to even")
 
+    # sq_decode, bit-exact: the 16-code path (d % 16 == 0, aligned), the
+    # scalar path (odd d, a misaligned view), one row, ragged row counts,
+    # and n * d above 2^31 (64-bit indexing).
+    n_dec = 0
+    for n, d in ((SEG_ROWS, DIM), (1, DIM), (1, 1), (700, 19), (1_001, DIM), (513, 48),
+                 (DECODE_ROWS_64BIT, DIM)):
+        c = torch.randint(0, 256, (n, d), generator=gen, device=dev, dtype=torch.uint8)
+        lo = torch.randn(d, generator=gen, device=dev)
+        hi = lo + 4 * torch.rand(d, generator=gen, device=dev)
+        hi[0] = lo[0]  # a constant column
+        got = sq_mod.sq_decode(c, lo, hi)
+        want = sq_mod.sq_decode_plain(c, lo, hi)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"sq_decode differs from its plain version (n={n}, d={d})")
+        del c, got, want
+        n_dec += 1
+    flat = torch.randint(0, 256, (3 + 257 * DIM,), generator=gen, device=dev, dtype=torch.uint8)
+    c = flat[3:].view(257, DIM)  # contiguous, 3 bytes off the 16-byte grid
+    lo, hi = torch.zeros(DIM, device=dev), torch.ones(DIM, device=dev)
+    if not torch.equal(sq_mod.sq_decode(c, lo, hi), sq_mod.sq_decode_plain(c, lo, hi)):
+        raise AssertionError("sq_decode differs from its plain version on a misaligned view")
+    n_dec += 1
+    torch.cuda.empty_cache()
+
     n_sq = 0
     for n, frac in ((700, 0.3), (SEG_ROWS, 0.01), (5_000, 1.0)):
         xs = torch.randn((n, DIM), generator=gen, device=dev)
@@ -326,7 +383,8 @@ def index_kernel_phase(torch, km_mod, sq_mod, pq_mod, testing, dev, gen) -> dict
                     n_pq += 1
     log(f"kernel phase: kmeans_assign {n_assign} cases agree (rtol, atol {tol['l2']}, "
         f"near-ties exempt, earliest duplicate wins); sq_encode bit-exact (.5 boundaries, "
-        f"constant column); sq_l2_topk {n_sq} cases agree; pq_adc_topk {n_pq} cases "
+        f"constant column); sq_decode {n_dec} cases bit-exact (n * d up to "
+        f"{DECODE_ROWS_64BIT * DIM}); sq_l2_topk {n_sq} cases agree; pq_adc_topk {n_pq} cases "
         f"bit-exact; max |err| {err}")
     return err
 
@@ -349,102 +407,33 @@ def mixture(torch, gen, dev, n: int, centers):
     return centers[pick] + NOISE * torch.randn((n, centers.shape[1]), generator=gen, device=dev)
 
 
-def l2_scores(q, x):
-    return ((q * q).sum(1, keepdim=True) - 2.0 * (q @ x.T)) + (x * x).sum(1)[None, :]
-
-
-def sq_decoded(torch, codes, vmin, vmax):
-    scale = torch.clamp_min(vmax - vmin, 1e-12) / 255.0
-    return codes.float() * scale[None, :] + vmin[None, :]
-
-
-def lut_tables(torch, q, codebooks):
-    """L2 ADC tables [nq, m, ksub], the plain per-subspace expression."""
-    m, _ksub, dsub = codebooks.shape
-    qs = q.reshape(len(q), m, dsub)
-    dots = torch.einsum("nmd,mkd->nmk", qs, codebooks)
-    return ((qs * qs).sum(-1)[:, :, None] - 2.0 * dots) + (codebooks * codebooks).sum(-1)[None]
-
-
-def lut_sums(torch, lut, codes):
-    """[nq, n] table sums over m = 0..M-1 in order."""
-    codes = codes.long()
-    out = torch.zeros((lut.shape[0], codes.shape[0]), dtype=lut.dtype, device=lut.device)
-    for j in range(codes.shape[1]):
-        out += lut[:, j, :].index_select(1, codes[:, j])
-    return out
-
-
-def oracle_unit(torch, index, q, valid):
-    """[nq, n] float64 L2 scores of one loaded index over its own rows
-    (original order), +inf where the index does not score the row for that
-    query: the probed lists' rows for IVF (probe by a full stable sort of
-    the centroid distances), every valid row otherwise.  float64 makes these
-    the exact values of the index's semantics (SQ rows decode in float32,
-    as the index defines them), which the port's float32 answers are held
-    to within ``SCORE_TOL``."""
-    inf = float("inf")
-    kind = index.KIND
-    q = q.double()
-    if kind == "sq":
-        s = l2_scores(q, sq_decoded(torch, index.codes, index.vmin, index.vmax).double())
-    elif kind == "pq":
-        s = lut_sums(torch, lut_tables(torch, q, index.codebooks.double()), index.codes)
-    else:
-        c = index.centroids.double()
-        nprobe = min(int(index.params["nprobe"]), len(c))
-        probes = torch.sort(l2_scores(q, c), dim=1, stable=True).indices[:, :nprobe]
-        probed = torch.zeros((len(q), len(c)), dtype=torch.bool, device=q.device)
-        probed.scatter_(1, probes, True)
-        counts = (index.list_offsets[1:] - index.list_offsets[:-1]).to(q.device)
-        row_list = torch.repeat_interleave(torch.arange(len(c), device=q.device), counts)
-        if kind == "ivf_flat":
-            s = l2_scores(q, index.storage.double())
-        elif kind == "ivf_sq":
-            s = l2_scores(q, sq_decoded(torch, index.codes, index.vmin, index.vmax).double())
-        else:  # ivf_pq: residual tables per (query, probed list)
-            s = torch.full((len(q), index.num_rows), inf, dtype=torch.float64, device=q.device)
-            offsets = index.list_offsets.tolist()
-            for lst in range(len(c)):
-                lo, hi = offsets[lst], offsets[lst + 1]
-                qsel = torch.nonzero(probed[:, lst]).squeeze(1)
-                if hi <= lo or qsel.numel() == 0:
-                    continue
-                lut = lut_tables(torch, q[qsel] - c[lst][None, :], index.codebooks.double())
-                cols = torch.arange(lo, hi, device=q.device)
-                s[qsel[:, None], cols[None, :]] = lut_sums(torch, lut, index.codes[lo:hi])
-        s = torch.where(probed[:, row_list], s, inf)
-        unperm = torch.empty_like(s)
-        unperm[:, index.row_ids] = s
-        s = unperm
-    return torch.where(valid[None, :], s, inf)
-
-
 def recall_at(got_i, exact_i) -> float:
     """Share of each query's exact top-k ids that the answer holds."""
     return (got_i[:, :, None] == exact_i[:, None, :]).any(2).float().mean().item()
 
 
-def check_indexed_answer(torch, label, got, want, all_scores, col_of_pk, rtol, atol) -> int:
-    """``got`` against the oracle's top-k: scores within the tolerance slot
-    by slot; a pk that differs must score (by the oracle) within the
-    tolerance of the oracle's score at that slot.  Returns the number of
-    near-tie swaps."""
-    got_s, got_p = got
-    want_s, want_p = want
-    if got_s.shape != want_s.shape or got_p.dtype != torch.int64:
-        raise AssertionError(f"{label}: malformed result")
-    if not torch.equal(got_p >= 0, want_p >= 0):
-        raise AssertionError(f"{label}: empty-slot pattern differs from the oracle")
-    live = want_p >= 0
-    torch.testing.assert_close(got_s[live].double(), want_s[live], rtol=rtol, atol=atol)
-    diff = (got_p != want_p) & live
-    if diff.any():
-        qi, slot = torch.nonzero(diff, as_tuple=True)
-        torch.testing.assert_close(
-            all_scores[qi, col_of_pk[got_p[qi, slot]]], want_s[qi, slot], rtol=rtol, atol=atol
-        )  # a pk the oracle never scored reads +inf and fails here
-    return int(diff.sum())
+def check_against_oracle(torch, testing, label, got, nodes, name, q, pin, deleted, passes,
+                         rtol, atol):
+    """``got`` against ``testing.system_oracle`` over what ``nodes`` hold,
+    with no deleted pk returned.  Returns (near-tie swaps, the answer's
+    largest score error against float64 per unit kind, overall)."""
+    oracle = testing.system_oracle(nodes, name, q, K, pin, deleted, passes)
+    if deleted is not None and torch.isin(got[1], deleted).any():
+        raise AssertionError(f"{label}: a deleted pk was returned")
+    swaps = testing.assert_oracle_answer(label, got, oracle, rtol, atol)
+    all_pks, all_scores = oracle["all_pks"], oracle["all_scores"]
+    col_of_pk = torch.full((int(all_pks.max()) + 1,), -1, dtype=torch.int64, device=all_pks.device)
+    col_of_pk[all_pks] = torch.arange(len(all_pks), device=all_pks.device)
+    qi, slot = torch.nonzero(got[1] >= 0, as_tuple=True)
+    cols = col_of_pk[got[1][qi, slot]]
+    err = (got[0][qi, slot].double() - all_scores[qi, cols]).abs()
+    unit = torch.searchsorted(oracle["bounds"].to(cols.device), cols, right=True) - 1
+    by_kind = {}
+    for u, kind in enumerate(oracle["kinds"]):
+        e = err[unit == u]
+        if e.numel():
+            by_kind[kind] = max(by_kind.get(kind, 0.0), e.max().item())
+    return swaps, by_kind, (err.max().item() if err.numel() else 0.0)
 
 
 def indexed_path(torch, mods, gen, dev, phases, counts):
@@ -590,7 +579,7 @@ def indexed_path(torch, mods, gen, dev, phases, counts):
         "name": name, "x": x, "queries": queries, "nodes": nodes, "store": store,
         "built": built, "builds": builds, "doomed": doomed, "request": request,
         "latency": latency, "results": results, "launches": launches,
-        "n_requests": n_requests, "n_slices": n_slices, "tail": tail,
+        "n_requests": n_requests,
     }
 
 
@@ -602,78 +591,32 @@ def check_indexed(torch, run, testing, dev, phases) -> None:
 
     t0 = time.perf_counter()
     rtol, atol = testing.SCORE_TOL["l2"]
-    name, x, nodes, tail = run["name"], run["x"], run["nodes"], run["tail"]
+    name, x, nodes = run["name"], run["x"], run["nodes"]
     handles = {}
     for node in nodes.values():
         for (coll, sid), h in node.sealed.items():
             if coll == name:
                 handles[sid] = h
     grow = nodes["qn-d"].growing[(name, N_SEALED)]
-    gpks = grow.pks()
-    covered = run["n_slices"] * SLICE_ROWS
     for (nq, pin), got in run["results"].items():
         q = run["queries"][nq]
-        parts, pk_parts, kinds = [], [], []
-        for sid in sorted(handles):
-            h = handles[sid]
-            pks = h.segment.pks()
-            valid = torch.ones(len(pks), dtype=torch.bool, device=dev)
-            if pin == "after":
-                valid &= ~torch.isin(pks, run["doomed"])
-            parts.append(oracle_unit(torch, h.index, q, valid))
-            pk_parts.append(pks)
-            kinds.append(h.index.KIND)
-        gvalid = torch.ones(grow.num_rows, dtype=torch.bool, device=dev)
-        if pin == "after":
-            gvalid &= ~torch.isin(gpks, run["doomed"])
-        for s_idx, idx in sorted(grow.slice_indexes.items()):
-            lo, hi = grow.slice_bounds(s_idx)
-            parts.append(oracle_unit(torch, idx, q, gvalid[lo:hi]))
-            pk_parts.append(gpks[lo:hi])
-            kinds.append("interim ivf_flat")
-        tail_scores = l2_scores(q.double(), grow.vectors()[covered:].double())
-        parts.append(torch.where(gvalid[covered:][None, :], tail_scores, float("inf")))
-        pk_parts.append(gpks[covered:])
-        kinds.append("brute tail")
-        bounds = torch.tensor([0] + [len(p) for p in pk_parts], device=dev).cumsum(0)
-        all_scores = torch.cat(parts, 1)
-        all_pks = torch.cat(pk_parts)
-        del parts
-        vals, order = torch.sort(all_scores, dim=1, stable=True)
-        want_s = vals[:, :K]
-        want_p = torch.where(torch.isfinite(want_s), all_pks[order[:, :K]], -1)
-        del vals, order
-        col_of_pk = torch.full((N_ROWS,), -1, dtype=torch.int64, device=dev)
-        col_of_pk[all_pks] = torch.arange(len(all_pks), device=dev)
+        deleted = run["doomed"] if pin == "after" else None
         label = f"{name} nq={nq} {pin}"
-        if pin == "after" and torch.isin(got[1], run["doomed"]).any():
-            raise AssertionError(f"{label}: a deleted pk was returned")
-        swaps = check_indexed_answer(torch, label, got, (want_s, want_p), all_scores, col_of_pk,
-                                     rtol, atol)
-        # The answer's own score error per index kind, against float64.
-        qi, slot = torch.nonzero(got[1] >= 0, as_tuple=True)
-        cols = col_of_pk[got[1][qi, slot]]
-        err = (got[0][qi, slot].double() - all_scores[qi, cols]).abs()
-        unit = torch.searchsorted(bounds, cols, right=True) - 1
-        by_kind = {}
-        for u, kind in enumerate(kinds):
-            e = err[unit == u]
-            if e.numel():
-                by_kind[kind] = max(by_kind.get(kind, 0.0), e.max().item())
-        live = want_p >= 0
+        swaps, by_kind, max_err = check_against_oracle(
+            torch, testing, label, got, list(nodes.values()), name, q,
+            TS_AFTER if pin == "after" else TS_BEFORE, deleted, None, rtol, atol,
+        )
         exact = torch.topk(
             torch.where(
                 torch.isin(torch.arange(N_ROWS, device=dev), run["doomed"])[None, :] & (pin == "after"),
-                float("inf"), l2_scores(q, x),
+                float("inf"), testing.l2_scores(q, x),
             ), K, dim=1, largest=False,
         ).indices
         recall = recall_at(got[1], exact)
         log(f"check {label}: equals the oracle (rtol={rtol}, atol={atol}; max |err| "
-            f"{(got[0][live].double() - want_s[live]).abs().max().item():.3g} against float64; "
-            f"{swaps} near-tie swaps); "
+            f"{max_err:.3g} against float64; {swaps} near-tie swaps); "
             f"recall@{K} vs exact brute force {recall:.4f}; answer score error by kind "
             + json.dumps({k: float(f"{v:.3g}") for k, v in by_kind.items()}))
-        del all_scores, all_pks, col_of_pk
     phases["ivf_verify_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -681,13 +624,13 @@ def check_indexed(torch, run, testing, dev, phases) -> None:
     per_kind = {}
     for sid, h in sorted(handles.items()):
         xs = x[sid * SEG_ROWS:(sid + 1) * SEG_ROWS]
-        exact = torch.topk(l2_scores(q, xs), K, dim=1, largest=False).indices
+        exact = torch.topk(testing.l2_scores(q, xs), K, dim=1, largest=False).indices
         _s, got_i = h.index.search(q, K)
         per_kind.setdefault(h.index.KIND, []).append(recall_at(got_i, exact))
     slice_recall = []
     for s_idx, idx in sorted(grow.slice_indexes.items())[:8]:
         lo, hi = grow.slice_bounds(s_idx)
-        exact = torch.topk(l2_scores(q, grow.vectors()[lo:hi]), K, dim=1, largest=False).indices
+        exact = torch.topk(testing.l2_scores(q, grow.vectors()[lo:hi]), K, dim=1, largest=False).indices
         _s, got_i = idx.search(q, K)
         slice_recall.append(recall_at(got_i, exact))
     per_kind["interim ivf_flat (first 8 slices)"] = slice_recall
@@ -708,6 +651,8 @@ def index_kernel_times(torch, run, km_mod, sq_mod, pq_mod, dev) -> dict:
     """The four index kernels at the indexed path's shapes: kernel, plain
     version and (where one PyTorch call computes the same function) the
     library call, with the bound from this run's shapes."""
+    from repro_torch import testing
+
     handles = {}
     for node in run["nodes"].values():
         for (coll, sid), h in node.sealed.items():
@@ -761,7 +706,7 @@ def index_kernel_times(torch, run, km_mod, sq_mod, pq_mod, dev) -> dict:
             ),
             "shape": f"nq={nq} N={SEG_ROWS} D={DIM} uint8 k={K}",
         }
-        luts = lut_tables(torch, q, pqi.codebooks).contiguous()
+        luts = testing.lut_tables(q, pqi.codebooks).contiguous()
         out[f"pq_adc_topk nq={nq}"] = {
             "ms": cuda_ms(torch, lambda: pq_mod.pq_adc_topk(luts, pqi.codes, K, valid), reps),
             "plain_ms": cuda_ms(torch, lambda: pq_mod.pq_adc_topk_plain(luts, pqi.codes, K, valid), reps),
@@ -772,6 +717,239 @@ def index_kernel_times(torch, run, km_mod, sq_mod, pq_mod, dev) -> dict:
     for kname, row in out.items():
         log(f"{kname}: " + json.dumps(row))
     return out
+
+
+def facade_path(torch, gen, dev, phases, counts, testing) -> dict:
+    """The port's ManuSystem end to end at VectorDBBench Performance768D1M
+    scale: 1M seeded rows inserted through the proxy in 8,192-row batches
+    into an IVF-SQ collection (2 shards, 2 loggers, 1 data node, 1 index
+    node, 2 query nodes), flush, 16,384 streamed rows, 1% deletes; requests
+    at nq 1 and 100 under STRONG / BOUNDED / EVENTUAL, two ordinal filters,
+    output-field hydration and time travel, each answer held to the float64
+    oracle over what the two query nodes hold at the request's pin.  Every
+    launch counter starts at 0 with the system."""
+    from repro_torch.core import (
+        ConsistencyLevel, FieldSchema, FieldType, InsertRequest, ManuConfig, ManuSystem, Metric,
+        SearchRequest,
+    )
+
+    name = "vdb_facade"
+    rtol, atol = testing.SCORE_TOL["l2"]
+    t0 = time.perf_counter()
+    centers = torch.randn((N_CENTERS, DIM), generator=gen, device=dev)
+    n_total = N_ROWS + FACADE_STREAM
+    x = mixture(torch, gen, dev, n_total, centers)
+    x_host = x.cpu().numpy()
+    queries = {nq: mixture(torch, gen, dev, nq, centers) for nq in (1, 100)}
+    torch.cuda.synchronize()
+    phases["facade_data_s"] = time.perf_counter() - t0
+
+    counts.reset()
+    manu = ManuSystem(ManuConfig(**FACADE_CONFIG), device=dev)
+    pump = {"s": 0.0, "calls": 0}
+    step = manu.pump
+
+    def timed_pump(rounds: int = 1) -> bool:  # host time of the cooperative pump
+        t = time.perf_counter()
+        try:
+            return step(rounds)
+        finally:
+            pump["s"] += time.perf_counter() - t
+            pump["calls"] += 1
+
+    manu.pump = timed_pump
+    builds = []
+    inode = manu.index_nodes[0]
+    try_build = inode._try_build
+
+    def timed_build(task: dict) -> bool:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        done = try_build(task)
+        torch.cuda.synchronize()
+        if done:
+            builds.append((task["segment_id"], task["index_kind"], time.perf_counter() - t))
+            log(f"facade build segment {task['segment_id']} {task['index_kind']}: {builds[-1][2]:.3f} s")
+        return done
+
+    inode._try_build = timed_build
+    coll = manu.create_collection(name, dim=DIM, metric=Metric.L2,
+                                  extra_fields=[FieldSchema("ordinal", FieldType.INT)])
+    coll.create_index("vector", "ivf_sq", IVF_PARAMS)
+
+    t0 = time.perf_counter()
+    for lo in range(0, N_ROWS, INSERT_BATCH):
+        hi = min(lo + INSERT_BATCH, N_ROWS)
+        res = coll.insert(InsertRequest({"vector": x_host[lo:hi], "ordinal": np.arange(lo, hi)}))
+        if not np.array_equal(res.pks, np.arange(lo, hi)):
+            raise AssertionError("auto-assigned pks are not the insert ordinals")
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    phases["facade_ingest_s"] = ingest_s
+    log(f"facade ingest: {N_ROWS} rows in {ingest_s:.3f} s through the proxy "
+        f"({N_ROWS / ingest_s:.1f} rows/s; {len(builds)} IVF-SQ builds inline; "
+        f"pump {pump['s']:.3f} s over {pump['calls']} calls)")
+
+    t0 = time.perf_counter()
+    coll.flush()
+    torch.cuda.synchronize()
+    flush_s = time.perf_counter() - t0
+    phases["facade_flush_s"] = flush_s
+    sealed = manu.data_coord.sealed_segments(name)
+    nodes = list(manu.query_nodes.values())
+    held = {sid: h for node in nodes for (c, sid), h in node.sealed.items() if c == name}
+    if len(sealed) != FACADE_SEGMENTS or sorted(held) != sealed or any(
+        h.index is None or h.index.KIND != "ivf_sq" for h in held.values()
+    ):
+        raise AssertionError(f"flush left {sealed} sealed, {sorted(held)} loaded with an IVF-SQ index")
+    if sum(h.segment.num_rows for h in held.values()) != N_ROWS or any(
+        c == name for node in nodes for (c, _sid) in node.growing
+    ):
+        raise AssertionError("the sealed segments do not hold every inserted row exactly once")
+    log(f"facade flush: {flush_s:.3f} s from flush() to every index loaded; {len(sealed)} sealed "
+        f"segments ({sorted(h.segment.num_rows for h in held.values())} rows) on "
+        + ", ".join(f"{n.node_id} {n.held_segments(name)}" for n in nodes))
+
+    t0 = time.perf_counter()
+    for lo in range(N_ROWS, n_total, INSERT_BATCH):
+        hi = min(lo + INSERT_BATCH, n_total)
+        stream = coll.insert(InsertRequest({"vector": x_host[lo:hi], "ordinal": np.arange(lo, hi)}))
+    tt_pin = stream.watermark_ts
+    doomed = torch.randperm(n_total, generator=gen, device=dev)[: int(n_total * DELETE_FRAC)]
+    deleted = coll.delete(doomed.cpu().numpy())
+    torch.cuda.synchronize()
+    phases["facade_stream_and_delete_s"] = time.perf_counter() - t0
+    entities = coll.num_entities()
+    live = 0
+    for node in nodes:
+        for seg in [h.segment for (c, _s), h in node.sealed.items() if c == name] + [
+            g for (c, _s), g in node.growing.items() if c == name
+        ]:
+            live += int((~torch.isin(seg.pks(), doomed)).sum())
+    if entities != n_total or live != n_total - len(doomed):
+        raise AssertionError(f"num_entities {entities}, live rows {live}")
+    log(f"facade entities: num_entities {entities} (deleted rows count until compaction, as in "
+        f"the reference); {live} live rows = {n_total} - {len(doomed)} deleted (delete LSN {deleted})")
+
+    kinds = {
+        "STRONG": dict(consistency=ConsistencyLevel.STRONG),
+        "BOUNDED": dict(consistency=ConsistencyLevel.BOUNDED),
+        "EVENTUAL": dict(consistency=ConsistencyLevel.EVENTUAL),
+        "filter ordinal >= 10000": dict(consistency=ConsistencyLevel.STRONG, filter="ordinal >= 10000"),
+        "filter ordinal >= 990000": dict(consistency=ConsistencyLevel.STRONG, filter="ordinal >= 990000"),
+        "output_fields": dict(consistency=ConsistencyLevel.STRONG, output_fields=("ordinal",)),
+        "time_travel": dict(time_travel_ts=tt_pin),
+    }
+    floors = {"filter ordinal >= 10000": 10_000, "filter ordinal >= 990000": 990_000}
+    reps = {1: 10, 100: 3}
+    latency, results = {}, {}
+    t0 = time.perf_counter()
+    for nq, q in queries.items():
+        for kind, kw in kinds.items():
+            times, first = [], None
+            for _ in range(reps[nq] + 1):  # the first call is reported apart
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                res = coll.search(SearchRequest.single(q, k=K, **kw))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+                if first is None:
+                    first = res
+                elif not torch.equal(res.pks, first.pks):
+                    raise AssertionError(f"facade {kind} nq={nq}: a repeated request changed its answer")
+            latency[f"{name} {kind} nq={nq}"] = times
+            results[(kind, nq)] = first
+    phases["facade_requests_s"] = time.perf_counter() - t0
+    launches = counts.read()
+    log(f"facade path launches: {launches}")
+    for kname in FACADE_KERNELS:
+        if launches[kname] <= 0:
+            raise AssertionError(f"{kname} was not launched on the facade path")
+
+    t0 = time.perf_counter()
+    exact = {}
+    for nq, q in queries.items():
+        s = testing.l2_scores(q, x)
+        s[:, doomed] = float("inf")
+        exact[nq] = torch.topk(s, K, dim=1, largest=False).indices
+        del s
+    for (kind, nq), got in results.items():
+        q = queries[nq]
+        label = f"facade {kind} nq={nq}"
+        if got.scores.shape != (nq, K) or got.scores.device != q.device:
+            raise AssertionError(f"{label}: malformed result")
+        travel = kind == "time_travel"
+        lo = floors.get(kind)
+        passes = None if lo is None else (
+            lambda seg, lo=lo: torch.from_numpy(np.asarray(seg.extra("ordinal")) >= lo)
+        )
+        swaps, by_kind, max_err = check_against_oracle(
+            torch, testing, label, (got.scores, got.pks), nodes, name, q, got.query_ts,
+            None if travel else doomed, passes, rtol, atol,
+        )
+        note = ""
+        if travel:
+            back = int(torch.isin(got.pks, doomed).sum())
+            note = f"; {back} deleted pks answer again"
+        if kind == "STRONG":
+            streamed = int((got.pks >= N_ROWS).sum())
+            if nq == 100 and streamed == 0:
+                raise AssertionError(f"{label}: no streamed row in the answer")
+            note = f"; {streamed} streamed rows in the answer; recall@{K} vs exact brute force " \
+                   f"{recall_at(got.pks, exact[nq]):.4f}"
+        if lo is not None and bool(((got.pks >= 0) & (got.pks < lo)).any()):
+            raise AssertionError(f"{label}: a pk outside the filter was returned")
+        if kind == "output_fields":
+            livep = got.pks >= 0
+            if not np.array_equal(got.fields["ordinal"][livep.cpu().numpy()], got.pks[livep].cpu().numpy()):
+                raise AssertionError(f"{label}: hydrated ordinals differ from the inserted ones")
+            note = "; hydrated ordinals equal the inserted ones"
+        log(f"check {label}: equals the oracle at its pin (rtol={rtol}, atol={atol}; max |err| "
+            f"{max_err:.3g} against float64; {swaps} near-tie swaps){note}; score error by kind "
+            + json.dumps({k: float(f"{v:.3g}") for k, v in by_kind.items()}))
+    phases["facade_verify_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    for nq in (1, 100):
+        pumped = []
+
+        def traced(nq=nq):
+            before = pump["s"]
+            res = coll.search(SearchRequest.single(
+                queries[nq], k=K, consistency=ConsistencyLevel.STRONG, trace=True))
+            pumped.append(pump["s"] - before)
+            return res
+
+        res = profile_request(torch, traced, f"{name} STRONG nq={nq}")
+        split = {}
+        for span in res.trace.walk():
+            if span is not res.trace.root:
+                split[span.name] = split.get(span.name, 0.0) + span.duration_us / 1e3
+        log(f"  host split (ms): consistency-wait pump {pumped[-1] * 1e3:.3f}; trace spans "
+            f"(root {res.trace.root.duration_us / 1e3:.3f}) "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sorted(split.items())))
+    phases["facade_profile_s"] = time.perf_counter() - t0
+    return {"manu": manu, "coll": coll, "name": name, "latency": latency, "launches": launches,
+            "builds": builds, "held": held}
+
+
+def sq_decode_times(torch, held, sq_mod, dev) -> dict:
+    """sq_decode at the facade path's shape: the codes of one 131,072-row
+    IVF-SQ segment, as ``_decoded_norms`` decodes them (in two chunks)."""
+    index = next(h.index for h in held.values() if h.segment.num_rows == SEG_ROWS)
+    codes, vmin, vmax = index.codes, index.vmin, index.vmax
+    n, d = codes.shape
+    scale = sq_mod.sq_scale(vmin, vmax)
+    t_b, t_o = (5 * n * d + 8 * d) / PEAK_BYTES_S, 2 * n * d / PEAK_F32_FLOPS
+    row = {
+        "ms": cuda_ms(torch, lambda: sq_mod.sq_decode(codes, vmin, vmax), 20),
+        "plain_ms": cuda_ms(torch, lambda: sq_mod.sq_decode_plain(codes, vmin, vmax), 20),
+        "library_ms": cuda_ms(torch, lambda: torch.addcmul(vmin[None, :], codes.float(), scale[None, :]), 20),
+        "bound_ms": max(t_b, t_o) * 1e3, "bound_by": "bytes" if t_b >= t_o else "operations",
+        "shape": f"N={n} D={d} uint8",
+    }
+    log("sq_decode: " + json.dumps(row))
+    return row
 
 
 class LaunchCounts:
@@ -824,7 +1002,8 @@ def main() -> int:
     counts = LaunchCounts({
         "l2_topk": l2_mod.l2_topk, "merge_topk": merge_mod.merge_topk,
         "kmeans_assign": km_mod.kmeans_assign, "sq_encode": sq_mod.sq_encode,
-        "sq_l2_topk": sq_mod.sq_l2_topk, "pq_adc_topk": pq_mod.pq_adc_topk,
+        "sq_decode": sq_mod.sq_decode, "sq_l2_topk": sq_mod.sq_l2_topk,
+        "pq_adc_topk": pq_mod.pq_adc_topk,
     })
 
     dev = torch.device("cuda", 0)
@@ -1030,14 +1209,25 @@ def main() -> int:
     phases["kernel_timing_s"] = time.perf_counter() - t0
     per = {k: n / run["n_requests"] for k, n in run["launches"].items()}
     log(f"indexed path launches per request (builds and slice indexes included): {per}")
+    ivf_latency, ivf_launches = run["latency"], run["launches"]
+    # The earlier paths' tables, stores and nodes go before the facade's.
+    del run, data, nodes, broker, store, bases, valids, x, results
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    for key, times in {**latency, **run["latency"]}.items():
+    # ---------------------------------------------------- facade path
+    fac = facade_path(torch, gen, dev, phases, counts, testing)
+    t0 = time.perf_counter()
+    it["sq_decode"] = sq_decode_times(torch, fac["held"], sq_mod, dev)
+    phases["kernel_timing_s"] += time.perf_counter() - t0
+
+    for key, times in {**latency, **ivf_latency, **fac["latency"]}.items():
         steady = times[1:]
         log(f"request {key}: first {times[0]:.3f} ms, median {statistics.median(steady):.3f} ms "
             f"over {len(steady)} (min {min(steady):.3f}, max {max(steady):.3f})")
     log("phases: " + json.dumps({k: round(v, 3) for k, v in phases.items()}))
 
-    launches = {k: flat_launches[k] + run["launches"][k] for k in KERNEL_NAMES}
+    launches = {k: flat_launches[k] + ivf_launches[k] + fac["launches"][k] for k in KERNEL_NAMES}
 
     def index_row(kname, key, replaces, source):
         row = it[key]
@@ -1068,6 +1258,7 @@ def main() -> int:
         index_row("kmeans_assign", "kmeans_assign", "src/repro/kernels/kmeans_assign.py:67",
                   "kmeans_assign.cu"),
         index_row("sq_encode", "sq_encode", "src/repro/kernels/sq_codec.py:49", "sq_codec.cu"),
+        index_row("sq_decode", "sq_decode", "src/repro/kernels/sq_codec.py:70", "sq_codec.cu"),
         index_row("sq_l2_topk", "sq_l2_topk nq=100", "src/repro/kernels/sq_codec.py:145",
                   "sq_codec.cu"),
         index_row("pq_adc_topk", "pq_adc_topk nq=100", "src/repro/kernels/pq_adc.py:84",

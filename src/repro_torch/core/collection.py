@@ -8,8 +8,11 @@ relations to each other (no joins).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from enum import Enum
+from typing import Any
+
+import numpy as np
 
 
 class FieldType(Enum):
@@ -110,3 +113,54 @@ class Schema:
         ]
         fields.extend(extra or [])
         return Schema(tuple(fields))
+
+
+@dataclass
+class CollectionInfo:
+    """Coordinator-side collection metadata (lives in the meta store)."""
+
+    name: str
+    schema: Schema
+    num_shards: int
+    metric: Metric = Metric.L2
+    created_ts: int = 0
+    index_specs: dict[str, dict[str, Any]] = field(default_factory=dict)
+    dropped: bool = False
+    replication_factor: int = 1
+
+    def dim(self, vector_field: str = "vector") -> int:
+        return self.schema.field(vector_field).dim
+
+
+def validate_rows(schema: Schema, rows: dict[str, np.ndarray]) -> int:
+    """Validate one insert batch against the schema; returns row count.
+
+    Rejects unknown field names outright — a typo'd column must fail the
+    request, not silently vanish from the batch."""
+    if not rows:
+        raise ValueError("empty insert batch (no fields)")
+    known = {f.name for f in schema.fields}
+    stray = sorted(set(rows) - known)
+    if stray:
+        raise ValueError(
+            f"unknown field(s) {stray} in insert batch; schema has {sorted(known)}"
+        )
+    n = None
+    for f in schema.fields:
+        if f.name not in rows:
+            if f.is_primary:
+                continue  # auto-assigned PK allowed
+            raise ValueError(f"missing field '{f.name}' in insert batch")
+        arr = rows[f.name]
+        if n is None:
+            n = len(arr)
+        elif len(arr) != n:
+            raise ValueError(f"field '{f.name}' length {len(arr)} != {n}")
+        if f.dtype is FieldType.VECTOR:
+            if arr.ndim != 2 or arr.shape[1] != f.dim:
+                raise ValueError(
+                    f"vector field '{f.name}' must be (n,{f.dim}), got {arr.shape}"
+                )
+    if n is None:
+        raise ValueError("empty insert batch")
+    return n

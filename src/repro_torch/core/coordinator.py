@@ -1,0 +1,1161 @@
+"""The coordinator layer (paper §3.2): root, data, query, index; mirrors
+``repro.core.coordinator`` (host logic, no device state).  Compaction hot
+swaps, GC and whole-system recovery (``segment_compacted`` / ``segment_gc``
+handling, ``recover_state``) wait for ROADMAP Queue 1 item 8.
+
+Coordinators keep all authoritative state in the meta store (etcd role) and
+communicate with workers exclusively through the coordination log channel —
+"the log system provides a simple and reliable mechanism for broadcasting
+system events" (§3.3).  Each coordinator is a deterministic state machine
+with ``step()``; multiple instances could run main+backup off the meta
+store.
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+from .collection import CollectionInfo, Metric, Schema
+from .log import (
+    COORD_CHANNEL,
+    DDL_CHANNEL,
+    EntryType,
+    LogBroker,
+    LogEntry,
+    Subscription,
+    dml_channel,
+)
+from .meta_store import MetaStore, SegmentMap
+from .segment import DEFAULT_PARTITION
+from .telemetry import EventLog
+from .timestamp import TSO, Clock
+
+DEFAULT_SEAL_ROWS = 8_192
+
+
+class IdAllocator:
+    """Typed auto-ID allocator (paper §3.2: the root coordinator assigns
+    entity IDs).  Hands out dense per-collection int64 ranges and tracks a
+    high watermark across *explicit* user keys too, so the write path can
+    cheaply reject deletes of never-allocated pks (the no-match no-op).
+
+    The watermark is checkpointed to the meta store (``id_alloc/{coll}``)
+    so a restarted system never re-issues an id and no-match rejection
+    stays sound across crashes."""
+
+    def __init__(self, meta: "MetaStore | None" = None) -> None:
+        self._next: dict[str, int] = {}
+        self.meta = meta
+
+    def _persist(self, collection: str) -> None:
+        if self.meta is not None:
+            self.meta.put(
+                f"id_alloc/{collection}", {"next": self._next[collection]}
+            )
+
+    def allocate(self, collection: str, n: int) -> "np.ndarray":
+        import numpy as np
+
+        start = self._next.get(collection, 0)
+        self._next[collection] = start + n
+        self._persist(collection)
+        return np.arange(start, start + n, dtype=np.int64)
+
+    def note_explicit(self, collection: str, pks) -> None:
+        """Bump the watermark past user-supplied integer keys."""
+        import numpy as np
+
+        pks = np.asarray(pks)
+        if pks.size and pks.dtype.kind in "iu":
+            cur = self._next.get(collection, 0)
+            new = max(cur, int(pks.max()) + 1)
+            if new != cur:
+                self._next[collection] = new
+                self._persist(collection)
+
+    def high(self, collection: str) -> int:
+        """Exclusive upper bound of every pk ever seen for the collection."""
+        return self._next.get(collection, 0)
+
+# ---------------------------------------------------------------------------
+# Root coordinator: DDL
+# ---------------------------------------------------------------------------
+
+
+class RootCoordinator:
+    def __init__(self, broker: LogBroker, meta: MetaStore, tso: TSO):
+        self.broker = broker
+        self.meta = meta
+        self.tso = tso
+        self.broker.create_channel(DDL_CHANNEL)
+        self.broker.create_channel(COORD_CHANNEL)
+
+    def create_collection(
+        self,
+        name: str,
+        schema: Schema,
+        num_shards: int = 2,
+        metric: Metric = Metric.L2,
+        seal_rows: int = DEFAULT_SEAL_ROWS,
+        replication_factor: int = 1,
+    ) -> CollectionInfo:
+        if self.meta.get(f"collection/{name}") is not None:
+            raise ValueError(f"collection '{name}' already exists")
+        if not isinstance(replication_factor, int) or replication_factor < 1:
+            raise ValueError(
+                f"replication_factor must be an int >= 1, got {replication_factor!r}"
+            )
+        ts = self.tso.next()
+        info = CollectionInfo(
+            name=name, schema=schema, num_shards=num_shards, metric=metric,
+            created_ts=ts, replication_factor=replication_factor,
+        )
+        for shard in range(num_shards):
+            self.broker.create_channel(dml_channel(name, shard))
+        self.meta.put(
+            f"collection/{name}",
+            {
+                "name": name,
+                "num_shards": num_shards,
+                "metric": metric.value,
+                "created_ts": ts,
+                "seal_rows": seal_rows,
+                "dim": info.schema.vector_fields()[0].dim,
+                "replication_factor": replication_factor,
+                # full schema so a restarted system can reconstruct the
+                # CollectionInfo without any in-memory survivor
+                "schema": schema.to_dict(),
+            },
+        )
+        # Every collection starts with the implicit default partition.
+        self.meta.put(
+            f"partition/{name}/{DEFAULT_PARTITION}",
+            {"name": DEFAULT_PARTITION, "created_ts": ts},
+        )
+        self.broker.publish(
+            DDL_CHANNEL,
+            LogEntry(ts=ts, type=EntryType.DDL,
+                     payload={"msg": "create_collection", "name": name}),
+        )
+        return info
+
+    def drop_collection(self, name: str) -> None:
+        ts = self.tso.next()
+        self.meta.delete(f"collection/{name}")
+        for key in self.meta.scan(f"partition/{name}/"):
+            self.meta.delete(key)
+        self.broker.publish(
+            DDL_CHANNEL,
+            LogEntry(ts=ts, type=EntryType.DDL,
+                     payload={"msg": "drop_collection", "name": name}),
+        )
+
+    # ------------------------------------------------------------ partitions
+    def create_partition(self, collection: str, partition: str) -> None:
+        """Register a named partition (paper §3.1: collection → shard →
+        partition → segment).  The meta store is the authoritative list;
+        proxies watch the prefix to verify placement early."""
+        if self.meta.get(f"collection/{collection}") is None:
+            raise KeyError(f"collection '{collection}' does not exist")
+        if not partition or "/" in partition:
+            raise ValueError(f"invalid partition name '{partition}'")
+        key = f"partition/{collection}/{partition}"
+        if self.meta.get(key) is not None:
+            raise ValueError(
+                f"partition '{partition}' already exists in '{collection}'"
+            )
+        ts = self.tso.next()
+        self.meta.put(key, {"name": partition, "created_ts": ts})
+        self.broker.publish(
+            DDL_CHANNEL,
+            LogEntry(ts=ts, type=EntryType.DDL,
+                     payload={"msg": "create_partition", "name": collection,
+                              "partition": partition}),
+        )
+
+    def drop_partition(self, collection: str, partition: str) -> int:
+        """Unregister a partition; returns the drop timestamp.  The system
+        facade broadcasts the matching ``partition_dropped`` coordination
+        message so serving nodes release the partition's segments."""
+        if partition == DEFAULT_PARTITION:
+            raise ValueError("the default partition cannot be dropped")
+        key = f"partition/{collection}/{partition}"
+        if self.meta.get(key) is None:
+            raise KeyError(f"no partition '{partition}' in '{collection}'")
+        ts = self.tso.next()
+        self.meta.delete(key)
+        self.broker.publish(
+            DDL_CHANNEL,
+            LogEntry(ts=ts, type=EntryType.DDL,
+                     payload={"msg": "drop_partition", "name": collection,
+                              "partition": partition}),
+        )
+        return ts
+
+    def partitions(self, collection: str) -> list[str]:
+        return sorted(
+            key.rsplit("/", 1)[1]
+            for key in self.meta.scan(f"partition/{collection}/")
+        )
+
+
+# ---------------------------------------------------------------------------
+# Data coordinator: segment allocation, sealing policy, compaction triggers
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SegmentAlloc:
+    segment_id: int
+    rows: int = 0
+    last_alloc_ms: float = 0.0
+
+
+class DataCoordinator:
+    def __init__(self, broker: LogBroker, meta: MetaStore, tso: TSO, clock: Clock):
+        self.broker = broker
+        self.meta = meta
+        self.tso = tso
+        self.clock = clock
+        self._next_segment = 1
+        self.id_alloc = IdAllocator(meta)
+        # (collection, shard, partition) -> current growing allocation;
+        # partitions are a placement surface, so each gets its own growing
+        # segment per shard and sealed segments never mix partitions.
+        self._growing: dict[tuple[str, int, str], SegmentAlloc] = {}
+        self._to_seal: set[tuple[str, int]] = set()  # (collection, segment_id)
+        self._sealed_rows: dict[tuple[str, int], int] = {}
+        self._sealed_upto_pos: dict[tuple[str, int], int] = {}  # per channel shard
+        self.segment_map = SegmentMap(meta)
+
+    # ------------------------------------------------------------ allocation
+    def allocate_pks(self, collection: str, n: int):
+        return self.id_alloc.allocate(collection, n)
+
+    def _alloc_sid(self) -> int:
+        """Allocate a segment id; the sequence is checkpointed to the meta
+        store so a restarted coordinator never reuses one."""
+        sid = self._next_segment
+        self._next_segment += 1
+        self.meta.put("segment_seq", {"next": self._next_segment})
+        return sid
+
+    def seal_rows_for(self, collection: str) -> int:
+        info = self.meta.get(f"collection/{collection}") or {}
+        return int(info.get("seal_rows", DEFAULT_SEAL_ROWS))
+
+    def assign_segment(
+        self,
+        collection: str,
+        shard: int,
+        n_rows: int,
+        partition: str = DEFAULT_PARTITION,
+    ) -> int:
+        key = (collection, shard, partition)
+        alloc = self._growing.get(key)
+        if alloc is None:
+            alloc = SegmentAlloc(self._alloc_sid())
+            self._growing[key] = alloc
+        alloc.rows += n_rows
+        alloc.last_alloc_ms = self.clock.now_ms()
+        if alloc.rows >= self.seal_rows_for(collection):
+            self._to_seal.add((collection, alloc.segment_id))
+            self._growing[key] = SegmentAlloc(self._alloc_sid())
+        return alloc.segment_id
+
+    # --------------------------------------------------------------- sealing
+    def should_seal(self, collection: str, segment_id: int) -> bool:
+        return (collection, segment_id) in self._to_seal
+
+    def on_sealed(
+        self,
+        collection: str,
+        segment_id: int,
+        rows: int,
+        partition: str = DEFAULT_PARTITION,
+        shard: int = 0,
+        attr_fields=None,
+    ) -> None:
+        self._to_seal.discard((collection, segment_id))
+        self._sealed_rows[(collection, segment_id)] = rows
+        self.meta.put(
+            f"segment/{collection}/{segment_id}",
+            {
+                "rows": rows,
+                "state": "sealed",
+                "partition": partition,
+                "shard": shard,
+                "visible_from_ts": 0,
+            },
+        )
+        self._record_attr_fields(collection, segment_id, rows, attr_fields)
+        self.segment_map.apply(
+            collection, add=[segment_id], ts=self.tso.last_issued()
+        )
+
+    def _record_attr_fields(
+        self, collection: str, segment_id: int, rows: int, attr_fields
+    ) -> None:
+        """Meta-key the segment's attribute-index satellites (mirrors the
+        per-field vector index records) so GC and recovery can enumerate
+        them without listing the object store."""
+        for f in attr_fields or ():
+            self.meta.put(
+                f"attr_index/{collection}/{segment_id}/{f}",
+                {"field": f, "rows": rows, "state": "ready"},
+            )
+
+    def flush(self, collection: str) -> list[int]:
+        """Force-seal every growing segment of a collection."""
+        sealed = []
+        for (coll, shard, part), alloc in list(self._growing.items()):
+            if coll != collection or alloc.rows == 0:
+                continue
+            self._to_seal.add((coll, alloc.segment_id))
+            sealed.append(alloc.segment_id)
+            self._growing[(coll, shard, part)] = SegmentAlloc(self._alloc_sid())
+        return sealed
+
+    def sealed_segments(self, collection: str) -> list[int]:
+        return sorted(sid for (c, sid) in self._sealed_rows if c == collection)
+
+    def segment_partition(self, collection: str, segment_id: int) -> str:
+        info = self.meta.get(f"segment/{collection}/{segment_id}") or {}
+        return info.get("partition", DEFAULT_PARTITION)
+
+    def partition_segments(self, collection: str, partition: str) -> list[int]:
+        """Sealed segments currently placed under ``partition``."""
+        return sorted(
+            sid
+            for (c, sid) in self._sealed_rows
+            if c == collection
+            and self.segment_partition(collection, sid) == partition
+        )
+
+    def drop_partition_state(self, collection: str, partition: str, ts: int) -> list[int]:
+        """Forget a dropped partition's placement: clear its growing
+        allocations and retire its sealed segments (marked for GC).
+        Returns the retired sealed segment ids."""
+        for key in [k for k in self._growing if k[0] == collection and k[2] == partition]:
+            self._to_seal.discard((collection, self._growing[key].segment_id))
+            del self._growing[key]
+        sids = self.partition_segments(collection, partition)
+        for sid in sids:
+            self._sealed_rows.pop((collection, sid), None)
+            self.meta.put(
+                f"segment/{collection}/{sid}",
+                {"rows": 0, "state": "retired", "partition": partition},
+            )
+            self.meta.put(
+                f"retired_segment/{collection}/{sid}",
+                {"retired_at_ts": ts, "compacted_into": []},
+            )
+        if sids:
+            self.segment_map.apply(collection, remove=sids, ts=ts)
+        return sids
+
+    def record_sealed_position(self, collection: str, shard: int, pos: int) -> None:
+        key = (collection, shard)
+        cur = self.replay_position(collection, shard)
+        new = max(cur, pos)
+        self._sealed_upto_pos[key] = new
+        if new != cur:
+            # durable checkpoint: a restarted system replays from here
+            self.meta.put(f"replay/{collection}/{shard}", {"pos": new})
+
+    def replay_position(self, collection: str, shard: int) -> int:
+        """WAL position from which a recovering node must replay."""
+        key = (collection, shard)
+        pos = self._sealed_upto_pos.get(key)
+        if pos is None:
+            rec = self.meta.get(f"replay/{collection}/{shard}") or {}
+            pos = int(rec.get("pos", 0))
+            self._sealed_upto_pos[key] = pos
+        return pos
+
+# ---------------------------------------------------------------------------
+# Index coordinator: build-task fan-out, idle-node shutdown
+# ---------------------------------------------------------------------------
+
+
+class IndexCoordinator:
+    """Per-vector-field index specs: ``index_spec/{collection}/{field}``
+    in the meta store, one build task per (segment, field)."""
+
+    def __init__(
+        self,
+        broker: LogBroker,
+        meta: MetaStore,
+        tso: TSO,
+        events: EventLog | None = None,
+    ):
+        self.broker = broker
+        self.meta = meta
+        self.tso = tso
+        self.events = events
+        self.sub = Subscription(broker, COORD_CHANNEL)
+        # (collection, segment_id, field) -> task / index_built payload
+        self.pending_tasks: dict[tuple[str, int, str], dict] = {}
+        self.built: dict[tuple[str, int, str], dict] = {}
+
+    def set_index_spec(
+        self,
+        collection: str,
+        field: str,
+        kind: str,
+        params: dict[str, Any] | None = None,
+        metric: Metric = Metric.L2,
+        column: str | None = None,
+    ) -> None:
+        """Declare the index of one vector field.  ``column`` is the
+        segment column backing the field (the first vector field is stored
+        as the primary "vector" column); defaults to the field name."""
+        self.meta.put(
+            f"index_spec/{collection}/{field}",
+            {
+                "field": field,
+                "column": column or field,
+                "kind": kind,
+                "params": params or {},
+                "metric": metric.value,
+            },
+        )
+
+    def index_spec(self, collection: str, field: str = "vector") -> dict | None:
+        return self.meta.get(f"index_spec/{collection}/{field}")
+
+    def index_specs(self, collection: str) -> dict[str, dict]:
+        """All field specs of a collection: field name -> spec."""
+        return {
+            key.rsplit("/", 1)[1]: spec
+            for key, spec in self.meta.scan(f"index_spec/{collection}/").items()
+        }
+
+    def _task_of(self, collection: str, segment_id: int, spec: dict) -> dict:
+        return {
+            "msg": "index_build_task",
+            "collection": collection,
+            "segment_id": segment_id,
+            "field": spec["field"],
+            "column": spec.get("column", spec["field"]),
+            "index_kind": spec["kind"],
+            "params": spec["params"],
+            "metric": spec["metric"],
+        }
+
+    def step(self) -> bool:
+        progress = False
+        for entry in self.sub.poll():
+            if entry.type is not EntryType.COORD:
+                continue
+            p = entry.payload
+            if p.get("msg") == "segment_sealed":
+                for field, spec in self.index_specs(p["collection"]).items():
+                    key = (p["collection"], p["segment_id"], field)
+                    if key in self.pending_tasks or key in self.built:
+                        continue
+                    task = self._task_of(p["collection"], p["segment_id"], spec)
+                    self.pending_tasks[key] = task
+                    self.broker.publish(
+                        COORD_CHANNEL,
+                        LogEntry(ts=self.tso.next(), type=EntryType.COORD, payload=task),
+                    )
+                    if self.events is not None:
+                        self.events.emit(
+                            "index_task", "index_coord",
+                            collection=p["collection"],
+                            segment_id=p["segment_id"],
+                            field=field, index_kind=spec["kind"],
+                        )
+                    progress = True
+            elif p.get("msg") == "index_built":
+                field = p.get("field", "vector")
+                key = (p["collection"], p["segment_id"], field)
+                self.pending_tasks.pop(key, None)
+                self.built[key] = p
+                self.meta.put(
+                    f"index/{p['collection']}/{p['segment_id']}/{field}",
+                    {
+                        "kind": p["index_kind"],
+                        "key": p["index_key"],
+                        "column": p.get("column", field),
+                    },
+                )
+                if self.events is not None:
+                    self.events.emit(
+                        "index_built", "index_coord",
+                        collection=p["collection"],
+                        segment_id=p["segment_id"],
+                        field=field, index_kind=p["index_kind"],
+                        built_by=p.get("built_by"),
+                    )
+                progress = True
+        return progress
+
+    def rebuild_segment(
+        self, collection: str, segment_id: int, fields: "list[str] | None" = None
+    ) -> None:
+        """Re-issue builds (after compaction, heavy deletes, or a new
+        field spec); ``fields=None`` rebuilds every spec'd field."""
+        specs = self.index_specs(collection)
+        for field, spec in specs.items():
+            if fields is not None and field not in fields:
+                continue
+            self.built.pop((collection, segment_id, field), None)
+            self.meta.delete(
+                f"index_claim/{collection}/{segment_id}/{field}/{spec['kind']}"
+            )
+            task = self._task_of(collection, segment_id, spec)
+            self.pending_tasks[(collection, segment_id, field)] = task
+            self.broker.publish(
+                COORD_CHANNEL,
+                LogEntry(ts=self.tso.next(), type=EntryType.COORD, payload=task),
+            )
+
+
+# ---------------------------------------------------------------------------
+# Query coordinator: replica groups, load balance, failover, scaling
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class QueryNodeState:
+    node_id: str
+    lease_id: int
+    segments: set[tuple[str, int]] = field(default_factory=set)
+    channels: set[str] = field(default_factory=set)
+    draining: bool = False
+    last_beat_ms: float = 0.0
+
+
+class QueryCoordinator:
+    """Single-leader query coordinator (paper §3.2, §3.6).
+
+    Every sealed segment is owned by a **replica group** — an ordered list
+    of query nodes (index 0 is the primary).  The authoritative placement
+    record lives in the meta store at ``assignment/{coll}/{sid}`` and every
+    mutation goes through the CAS-safe ``update_placement`` primitive, so a
+    failover racing a rebalance converges on the committed winner instead
+    of clobbering it.  Health observation (``HealthMonitor``) and
+    convergence (``StateReconciler``) are split per the single-writer
+    control-loop idiom: the monitor only observes, the reconciler acts.
+    """
+
+    HEARTBEAT_TTL_MS = 5_000
+
+    def __init__(
+        self,
+        broker: LogBroker,
+        meta: MetaStore,
+        tso: TSO,
+        data_coord: DataCoordinator,
+        replication_factor: int = 1,
+        heartbeat_ttl_ms: float | None = None,
+        events: EventLog | None = None,
+    ):
+        self.broker = broker
+        self.meta = meta
+        self.tso = tso
+        self.data_coord = data_coord
+        self.clock = data_coord.clock
+        self.events = events
+        self.sub = Subscription(broker, COORD_CHANNEL)
+        self.nodes: dict[str, QueryNodeState] = {}
+        # (collection, segment_id) -> ordered replica group (node ids);
+        # in-memory mirror of the committed ``assignment/`` meta records.
+        self.replica_sets: dict[tuple[str, int], list[str]] = {}
+        self.replication_factor = max(1, int(replication_factor))
+        self.heartbeat_ttl_ms = float(
+            heartbeat_ttl_ms if heartbeat_ttl_ms is not None else self.HEARTBEAT_TTL_MS
+        )
+        # DML channel -> standby follower node ids: replicas that consume
+        # the channel (rf > 1) WITHOUT owning it.  Kept out of
+        # ``QueryNodeState.channels`` (the ownership/committed surface that
+        # failover, drain and cluster_state reason about) — followers are
+        # a read-routing surface: the proxy serves bounded-staleness reads
+        # from whichever candidate's watermark already covers the request.
+        self.channel_followers: dict[str, set[str]] = {}
+        # (collection, segment_id) -> {field: index_built payload}
+        self._known_indexes: dict[tuple[str, int], dict[str, dict]] = {}
+        # (collection, segment_id) -> visible_from_ts MVCC gate of compacted
+        # rewrites; must survive failover/rebalance reloads or a pinned
+        # query would see both the rewrite and its retired sources.
+        self._visible_from: dict[tuple[str, int], int] = {}
+        # Serializes control-loop passes against coordination-log consumption
+        # when a threaded watchdog reconciles concurrently with the pump.
+        self._mutex = threading.RLock()
+        self.health = HealthMonitor(self)
+        self.reconciler = StateReconciler(self)
+
+    # ------------------------------------------------------------ membership
+    def register_node(self, node_id: str) -> int:
+        lease = self.meta.grant_lease(self.heartbeat_ttl_ms)
+        self.meta.put(f"querynode/{node_id}", {"node_id": node_id}, lease_id=lease)
+        self.nodes[node_id] = QueryNodeState(
+            node_id, lease, last_beat_ms=self.clock.now_ms()
+        )
+        if self.events is not None:
+            self.events.emit("node_join", "query_coord", node=node_id)
+        return lease
+
+    def heartbeat(self, node_id: str) -> None:
+        st = self.nodes.get(node_id)
+        if st:
+            self.meta.keepalive(st.lease_id)
+            st.last_beat_ms = self.clock.now_ms()
+
+    def deregister_node(self, node_id: str) -> None:
+        # Revoke the lease only; the node stays in ``self.nodes`` until
+        # ``handle_failures`` reassigns its segments/channels (popping it
+        # here would orphan its assignments).
+        st = self.nodes.get(node_id)
+        if st:
+            self.meta.revoke_lease(st.lease_id)
+
+    def start_drain(self, node_id: str) -> None:
+        """Mark a node for graceful scale-down: it keeps serving, but the
+        reconciler sheds its replicas (load-before-release) and it stops
+        receiving new placements."""
+        st = self.nodes.get(node_id)
+        if st:
+            st.draining = True
+            if self.events is not None:
+                self.events.emit(
+                    "drain_start", "query_coord",
+                    node=node_id, replicas=len(st.segments),
+                )
+
+    def live_nodes(self) -> list[str]:
+        alive = set(self.meta.scan("querynode/"))
+        return sorted(
+            n for n in self.nodes if f"querynode/{n}" in alive
+        )
+
+    def on_node_down(self, node_id: str) -> None:
+        """Immediate failure report from the dispatch path (a request found
+        the node dead): revoke its lease and reconcile now rather than
+        waiting out the heartbeat TTL."""
+        st = self.nodes.get(node_id)
+        if st is not None:
+            self.meta.revoke_lease(st.lease_id)
+        if self.events is not None:
+            self.events.emit("node_down_reported", "query_coord", node=node_id)
+        self.reconciler.reconcile()
+
+    # ------------------------------------------------------------ placement
+    def replication_for(self, collection: str) -> int:
+        """Desired replica count: per-collection override, else config."""
+        info = self.meta.get(f"collection/{collection}") or {}
+        return max(1, int(info.get("replication_factor", self.replication_factor)))
+
+    def placement_for(self, collection: str) -> dict[int, list[str]]:
+        """segment_id -> replica group, for the proxy's dispatch planner."""
+        return {
+            sid: list(nodes)
+            for (coll, sid), nodes in self.replica_sets.items()
+            if coll == collection
+        }
+
+    def _placement_candidates(self, exclude: set[str] | None = None) -> list[str]:
+        """Live, non-draining nodes eligible to receive new replicas."""
+        exclude = exclude or set()
+        return [
+            n for n in self.live_nodes()
+            if n not in exclude and not self.nodes[n].draining
+        ]
+
+    def _least_loaded(self, exclude: set[str] | None = None) -> str | None:
+        nodes = self._placement_candidates(exclude)
+        if not nodes:
+            return None
+        return min(nodes, key=lambda n: (len(self.nodes[n].segments), n))
+
+    def update_placement(
+        self,
+        collection: str,
+        segment_id: int,
+        fn: Callable[[list[str]], "list[str] | None"],
+    ) -> list[str]:
+        """CAS-safe read-modify-write of one segment's replica group.
+
+        ``fn(current_nodes) -> new_nodes | None`` computes the new replica
+        list from the value *actually committed* in the meta store (None
+        aborts).  The write is retried until the compare-and-swap lands, so
+        a reassignment racing a concurrent rebalance recomputes from the
+        winner's committed record instead of overwriting it.  Load/release
+        messages and in-memory mirrors are applied only for the committed
+        value.  Returns the committed replica list (the pre-existing one on
+        abort).
+        """
+        with self._mutex:
+            key = (collection, segment_id)
+            mkey = f"assignment/{collection}/{segment_id}"
+            desired = self.replication_for(collection)
+            while True:
+                rev = self.meta.get_rev(mkey)
+                cur = self.meta.get(mkey) or {}
+                cur_nodes = list(cur.get("nodes") or ())
+                if not cur_nodes and cur.get("node"):
+                    cur_nodes = [cur["node"]]
+                new_nodes = fn(list(cur_nodes))
+                if new_nodes is None:
+                    return cur_nodes
+                new_nodes = list(dict.fromkeys(new_nodes))
+                record = {
+                    "nodes": new_nodes,
+                    "node": new_nodes[0] if new_nodes else None,
+                    "visible_from_ts": self._visible_from.get(key, 0),
+                    "under_replicated": len(new_nodes) < desired,
+                }
+                if not self.meta.cas(mkey, rev, record):
+                    if self.events is not None:
+                        self.events.emit(
+                            "placement_cas_retry", "query_coord",
+                            collection=collection, segment_id=segment_id,
+                        )
+                    continue  # lost the race: recompute from the winner
+                self._apply_committed(key, new_nodes)
+                return new_nodes
+
+    def _apply_committed(self, key: tuple[str, int], new_nodes: list[str]) -> None:
+        """Sync mirrors and publish load/release for a committed placement.
+        Loads are published before releases, so a segment may briefly live
+        on both nodes (the proxy dedups) but never on neither."""
+        coll, sid = key
+        old = self.replica_sets.get(key, [])
+        added = [n for n in new_nodes if n not in old]
+        removed = [n for n in old if n not in new_nodes]
+        if new_nodes:
+            self.replica_sets[key] = list(new_nodes)
+        else:
+            self.replica_sets.pop(key, None)
+            self.meta.delete(f"assignment/{coll}/{sid}")
+        for n in added:
+            if n not in self.nodes:
+                continue
+            self.nodes[n].segments.add(key)
+            self._publish(
+                {
+                    "msg": "load_segment",
+                    "node_id": n,
+                    "collection": coll,
+                    "segment_id": sid,
+                    "visible_from_ts": self._visible_from.get(key, 0),
+                }
+            )
+            for idx in self._known_indexes.get(key, {}).values():
+                self._publish(self._load_index_payload(n, idx))
+        for n in removed:
+            if n not in self.nodes:
+                continue
+            self.nodes[n].segments.discard(key)
+            self._publish(
+                {
+                    "msg": "release_segment",
+                    "node_id": n,
+                    "collection": coll,
+                    "segment_id": sid,
+                }
+            )
+
+    def _fill_replicas(self, nodes: list[str], desired: int) -> list[str]:
+        """Top a replica list up to ``desired`` with least-loaded candidates;
+        degrades gracefully (shorter list) when the cluster is too small —
+        the committed record then carries ``under_replicated: True``."""
+        nodes = [n for n in nodes if n in self.nodes and not self.nodes[n].draining]
+        while len(nodes) < desired:
+            pick = self._least_loaded(exclude=set(nodes))
+            if pick is None:
+                break
+            nodes.append(pick)
+        return nodes
+
+    def _publish(self, payload: dict) -> None:
+        self.broker.publish(
+            COORD_CHANNEL,
+            LogEntry(ts=self.tso.next(), type=EntryType.COORD, payload=payload),
+        )
+
+    def step(self) -> bool:
+        with self._mutex:
+            return self._step_locked()
+
+    def _step_locked(self) -> bool:
+        progress = False
+        for entry in self.sub.poll():
+            if entry.type is not EntryType.COORD:
+                continue
+            p = entry.payload
+            msg = p.get("msg")
+            if msg == "segment_sealed":
+                self.data_coord.record_sealed_position(
+                    p["collection"], p["shard"], p["checkpoint_pos"] + 1
+                )
+                progress |= self._assign_segment(p["collection"], p["segment_id"])
+            elif msg == "index_built":
+                key = (p["collection"], p["segment_id"])
+                self._known_indexes.setdefault(key, {})[p.get("field", "vector")] = p
+                for node in self.replica_sets.get(key, ()):
+                    if node in self.nodes:
+                        self._publish(self._load_index_payload(node, p))
+                progress = True
+            elif msg == "partition_dropped":
+                progress |= self._handle_partition_dropped(p)
+        return progress
+
+    def _handle_partition_dropped(self, p: dict) -> bool:
+        """Release every replica of a dropped partition's segments."""
+        coll = p["collection"]
+        changed = False
+        for sid in p.get("segment_ids", ()):
+            key = (coll, sid)
+            owners = self.replica_sets.pop(key, [])
+            self._known_indexes.pop(key, None)
+            self._visible_from.pop(key, None)
+            self.meta.delete(f"assignment/{coll}/{sid}")
+            for owner in owners:
+                if owner in self.nodes:
+                    self.nodes[owner].segments.discard(key)
+                    self._publish(
+                        {
+                            "msg": "release_segment",
+                            "node_id": owner,
+                            "collection": coll,
+                            "segment_id": sid,
+                        }
+                    )
+            changed = True
+        return changed
+
+    def _assign_segment(self, collection: str, segment_id: int) -> bool:
+        """Least-loaded placement of a fresh sealed segment's replica group."""
+        key = (collection, segment_id)
+        if key in self.replica_sets:
+            return False
+        desired = self.replication_for(collection)
+
+        def place(cur: list[str]) -> "list[str] | None":
+            return self._fill_replicas(cur, desired) or None
+
+        return bool(self.update_placement(collection, segment_id, place))
+
+    def _load_index_payload(self, node: str, built: dict) -> dict:
+        return {
+            "msg": "load_index",
+            "node_id": node,
+            "collection": built["collection"],
+            "segment_id": built["segment_id"],
+            "field": built.get("field", "vector"),
+            "column": built.get("column", built.get("field", "vector")),
+            "index_kind": built["index_kind"],
+            "index_key": built["index_key"],
+        }
+
+    # ------------------------------------------------------ channel coverage
+    def assign_channels(self, collection: str, num_shards: int) -> None:
+        """Distribute DML channel subscriptions over live nodes (draining
+        nodes shed channel ownership so scale-down leaves them idle).
+
+        With replication factor > 1, the next rf-1 candidates consume each
+        channel as standby *followers* (``channel_followers``): same WAL
+        replay, no ownership.  Their consumed watermarks give the proxy
+        routing choices for bounded-staleness reads and a warm takeover
+        target on failover.  Idempotent — the reconciler re-runs this
+        every pass, so only membership diffs publish messages."""
+        nodes = self._placement_candidates() or self.live_nodes()
+        if not nodes:
+            return
+        all_nodes = self.live_nodes()
+        for shard in range(num_shards):
+            ch = dml_channel(collection, shard)
+            owner = nodes[shard % len(nodes)]
+            for n in all_nodes:
+                st = self.nodes[n]
+                if n == owner and ch not in st.channels:
+                    st.channels.add(ch)
+                    self._publish(
+                        {
+                            "msg": "subscribe_channel",
+                            "node_id": n,
+                            "channel": ch,
+                            "from_position": self.data_coord.replay_position(collection, shard),
+                        }
+                    )
+                elif n != owner and ch in st.channels:
+                    st.channels.discard(ch)
+                    self._publish(
+                        {"msg": "unsubscribe_channel", "node_id": n, "channel": ch}
+                    )
+            # ---- standby followers (rf - 1 of the remaining candidates)
+            desired = self.replication_for(collection) - 1
+            cands = [n for n in nodes if n != owner]
+            want = set(cands[:desired]) if desired > 0 else set()
+            have = self.channel_followers.setdefault(ch, set())
+            have.discard(owner)  # promoted by a re-home: owner, not follower
+            for n in sorted(want - have):
+                have.add(n)
+                # The node-side subscribe is idempotent (an existing
+                # subscription keeps its position), so an owner->follower
+                # transition re-publishing here is harmless.
+                self._publish(
+                    {
+                        "msg": "subscribe_channel",
+                        "node_id": n,
+                        "channel": ch,
+                        "from_position": self.data_coord.replay_position(collection, shard),
+                    }
+                )
+            for n in sorted(have - want):
+                have.discard(n)
+                if n in self.nodes and ch not in self.nodes[n].channels:
+                    self._publish(
+                        {"msg": "unsubscribe_channel", "node_id": n, "channel": ch}
+                    )
+
+    # -------------------------------------------------------------- failover
+    def handle_failures(self) -> list[str]:
+        """Detect dead nodes (lease expiry) and reassign their replicas to
+        under-replicated survivors, one CAS-committed record at a time."""
+        with self._mutex:
+            self.meta.expire_now()
+            live = set(self.live_nodes())
+            dead = [n for n in self.nodes if n not in live]
+            for node_id in dead:
+                st = self.nodes.pop(node_id)
+                for fs in self.channel_followers.values():
+                    fs.discard(node_id)
+                if self.events is not None:
+                    self.events.emit(
+                        "node_dead", "query_coord",
+                        node=node_id, replicas=len(st.segments),
+                        channels=sorted(st.channels),
+                    )
+                for key in sorted(st.segments):
+                    coll, sid = key
+                    desired = self.replication_for(coll)
+
+                    def heal(cur: list[str], dead_id: str = node_id,
+                             desired: int = desired) -> "list[str] | None":
+                        survivors = [n for n in cur if n != dead_id]
+                        return self._fill_replicas(survivors, desired)
+
+                    # The dead node is already out of self.nodes, so the
+                    # committed diff only loads onto survivors.
+                    if key in self.replica_sets:
+                        self.replica_sets[key] = [
+                            n for n in self.replica_sets[key] if n != node_id
+                        ]
+                    self.update_placement(coll, sid, heal)
+                # re-home channels: a live standby follower is the warm
+                # takeover target (its subscription — kept by the
+                # idempotent node-side subscribe — already consumed the
+                # channel, so no replay gap); else least-loaded cold start.
+                live_now = set(self.live_nodes())
+                for ch in sorted(st.channels):
+                    parts = ch.split("/")
+                    coll, shard = parts[1], int(parts[2])
+                    warm = sorted(
+                        self.channel_followers.get(ch, ()) & live_now
+                    )
+                    target = warm[0] if warm else self._least_loaded()
+                    if target:
+                        self.channel_followers.get(ch, set()).discard(target)
+                        self.nodes[target].channels.add(ch)
+                        self._publish(
+                            {
+                                "msg": "subscribe_channel",
+                                "node_id": target,
+                                "channel": ch,
+                                "from_position": self.data_coord.replay_position(coll, shard),
+                            }
+                        )
+            return dead
+
+    # -------------------------------------------------------------- balance
+    def rebalance(self) -> int:
+        """Move replicas from the most- to least-loaded node (paper §3.6),
+        never co-locating two replicas of one segment on the same node."""
+        with self._mutex:
+            moved = 0
+            while True:
+                nodes = self._placement_candidates()
+                if len(nodes) < 2:
+                    return moved
+                counts = {n: len(self.nodes[n].segments) for n in nodes}
+                hi = max(nodes, key=lambda n: (counts[n], n))
+                lo = min(nodes, key=lambda n: (counts[n], n))
+                if counts[hi] - counts[lo] <= 1:
+                    return moved
+                key = next(
+                    (
+                        k
+                        for k in sorted(self.nodes[hi].segments)
+                        if lo not in self.replica_sets.get(k, ())
+                    ),
+                    None,
+                )
+                if key is None:
+                    return moved
+                coll, sid = key
+
+                def move(cur: list[str], hi: str = hi, lo: str = lo) -> "list[str] | None":
+                    if hi not in cur or lo in cur:
+                        return None  # placement changed under us: abort
+                    return [lo if n == hi else n for n in cur]
+
+                self.update_placement(coll, sid, move)
+                if lo not in self.replica_sets.get(key, ()):
+                    return moved  # aborted: stop rather than spin
+                moved += 1
+
+
+
+# ---------------------------------------------------------------------------
+# Health + reconciliation control loop
+# ---------------------------------------------------------------------------
+
+
+class HealthMonitor:
+    """Missed-heartbeat detector.  Observation only — it never mutates
+    placement; the ``StateReconciler`` acts on what it reports (the
+    observe/act split of the single-writer control-loop idiom)."""
+
+    def __init__(self, coord: QueryCoordinator):
+        self.coord = coord
+        self._last: dict[str, str] = {}
+
+    def observe(self) -> dict[str, str]:
+        """Status per registered node: ``healthy`` / ``suspect`` (more than
+        half a TTL since the last heartbeat) / ``dead`` (lease expired) /
+        ``draining`` (graceful scale-down in progress)."""
+        c = self.coord
+        c.meta.expire_now()
+        now = c.clock.now_ms()
+        alive = set(c.live_nodes())
+        out: dict[str, str] = {}
+        for node_id, st in c.nodes.items():
+            if node_id not in alive:
+                out[node_id] = "dead"
+            elif st.draining:
+                out[node_id] = "draining"
+            elif now - st.last_beat_ms > c.heartbeat_ttl_ms / 2:
+                out[node_id] = "suspect"
+            else:
+                out[node_id] = "healthy"
+        if c.events is not None:
+            for node_id, status in out.items():
+                if self._last.get(node_id, "healthy") != status:
+                    c.events.emit(
+                        "node_status_change", "health_monitor",
+                        node=node_id, status=status,
+                        was=self._last.get(node_id, "healthy"),
+                    )
+        self._last = dict(out)
+        return out
+
+
+class StateReconciler:
+    """Converges desired placement with observed cluster state.  One pass:
+
+    1. **failures** — expired leases: every replica the dead node held is
+       CAS-reassigned to under-replicated survivors,
+    2. **heal** — any sealed segment below its collection's replication
+       factor (node join, prior total outage) gains replicas on the
+       least-loaded candidates,
+    3. **drain** — draining nodes shed replicas load-before-release (a
+       replica leaves the draining node only once a replacement exists),
+    4. **channels** — DML channel ownership re-converges over candidates,
+    5. **rebalance** — replica counts converge toward even load.
+
+    MVCC epoch pins ride along automatically: ``update_placement`` stamps
+    every committed record with the segment's ``visible_from_ts``.
+    """
+
+    def __init__(self, coord: QueryCoordinator):
+        self.coord = coord
+
+    def reconcile(self) -> dict:
+        c = self.coord
+        with c._mutex:
+            report = {
+                "statuses": c.health.observe(),
+                "dead": c.handle_failures(),
+            }
+            report["healed"] = self.heal()
+            report["drained"] = self.drain()
+            for key, info in c.meta.scan("collection/").items():
+                c.assign_channels(key.split("/", 1)[1], info["num_shards"])
+            report["moved"] = c.rebalance()
+            if c.events is not None and (
+                report["dead"] or report["healed"] or report["drained"]
+                or report["moved"]
+            ):
+                c.events.emit(
+                    "reconcile", "reconciler",
+                    dead=list(report["dead"]), healed=report["healed"],
+                    drained=report["drained"], moved=report["moved"],
+                )
+            return report
+
+    def heal(self) -> int:
+        """Top every under-replicated sealed segment back up to its desired
+        replica count; returns the number of replicas added."""
+        c = self.coord
+        healed = 0
+        for key in c.meta.scan("collection/"):
+            coll = key.split("/", 1)[1]
+            desired = c.replication_for(coll)
+            capacity = len(c._placement_candidates())
+            for sid in c.data_coord.sealed_segments(coll):
+                skey = (coll, sid)
+                cur = c.replica_sets.get(skey, [])
+                have = [
+                    n for n in cur if n in c.nodes and not c.nodes[n].draining
+                ]
+                if len(have) >= min(desired, capacity):
+                    continue
+
+                def grow(nodes_in: list[str], desired: int = desired) -> "list[str] | None":
+                    grown = self.coord._fill_replicas(list(nodes_in), desired)
+                    return grown if grown != nodes_in else None
+
+                before = len(cur)
+                new = c.update_placement(coll, sid, grow)
+                healed += max(0, len(new) - before)
+        return healed
+
+    def drain(self) -> int:
+        """Shed replicas off draining nodes; a replica is only released once
+        a replacement node carries it (or another replica already does), so
+        pinned MVCC reads keep a serving copy throughout."""
+        c = self.coord
+        shed = 0
+        for node_id, st in list(c.nodes.items()):
+            if not st.draining:
+                continue
+            for key in sorted(st.segments):
+                coll, sid = key
+
+                def shed_one(cur: list[str], node_id: str = node_id) -> "list[str] | None":
+                    if node_id not in cur:
+                        return None
+                    rest = [n for n in cur if n != node_id]
+                    repl = c._least_loaded(exclude=set(cur))
+                    if repl is not None:
+                        rest.append(repl)
+                    # Keep the last copy on the draining node until some
+                    # other node can take it: no serving gap, ever.
+                    return rest if rest else None
+
+                new = c.update_placement(coll, sid, shed_one)
+                if node_id not in new:
+                    shed += 1
+                    if c.events is not None:
+                        c.events.emit(
+                            "drain_step", "reconciler",
+                            node=node_id, collection=coll, segment_id=sid,
+                            moved_to=[n for n in new if n not in (node_id,)],
+                        )
+        return shed

@@ -1,4 +1,6 @@
-"""The log backbone (paper §3.3).
+"""The log backbone (paper §3.3); a copy of ``repro.core.log`` (host
+Python and numpy: WAL payloads stay host arrays, and each subscriber copies
+a payload to its device once, on consume).
 
 Manu structures the entire system as log publish/subscribe services: the
 WAL is the incremental part, the binlog the base part.  We reproduce the
@@ -29,6 +31,8 @@ import threading
 from dataclasses import dataclass, field
 from enum import Enum
 from typing import Any
+
+import numpy as np
 
 
 class EntryType(Enum):
@@ -64,6 +68,19 @@ class _Channel:
     name: str
     entries: list[LogEntry] = field(default_factory=list)
     last_tick_ts: int = 0
+    bytes_published: int = 0
+
+
+def _entry_nbytes(entry: LogEntry) -> int:
+    total = 64
+    for v in entry.payload.values():
+        if isinstance(v, np.ndarray):
+            total += v.nbytes
+        elif isinstance(v, (bytes, str)):
+            total += len(v)
+        else:
+            total += 16
+    return total
 
 
 class LogBroker:
@@ -71,9 +88,9 @@ class LogBroker:
 
     The API mirrors what Manu needs from a cloud message queue: create
     channels, append (publish) and read from an offset.  (Retention,
-    replay-by-timestamp and tick waits of ``repro.core.log`` are not ported
-    yet.)  All reads are positional so any subscriber can replay
-    independently — the property the whole architecture leans on.
+    replay-by-timestamp and tick waits of ``repro.core.log`` wait for
+    ROADMAP Queue 1 item 8.)  All reads are positional so any subscriber can
+    replay independently — the property the whole architecture leans on.
     """
 
     def __init__(self) -> None:
@@ -118,6 +135,7 @@ class LogBroker:
                 position=position,
             )
             ch.entries.append(stamped)
+            ch.bytes_published += _entry_nbytes(stamped)
             if entry.type is EntryType.TIME_TICK:
                 ch.last_tick_ts = entry.ts
             return position
@@ -140,6 +158,18 @@ class LogBroker:
     def last_tick(self, channel: str) -> int:
         with self._lock:
             return self._channels[channel].last_tick_ts
+
+    def stats(self) -> dict[str, dict[str, int]]:
+        with self._lock:
+            return {
+                name: {
+                    "entries": len(ch.entries),
+                    "bytes": ch.bytes_published,
+                    "last_tick": ch.last_tick_ts,
+                }
+                for name, ch in self._channels.items()
+            }
+
 
 class Subscription:
     """A positional cursor over one channel.
@@ -187,3 +217,46 @@ def dml_channel(collection: str, shard: int) -> str:
 def shard_of_channel(channel: str) -> int:
     """Inverse of :func:`dml_channel`: the shard a DML channel carries."""
     return int(channel.rsplit("/", 1)[1])
+
+
+_HASH_MASK = 0x7FFFFFFF
+
+
+def shard_of_pk(pk: int | str, num_shards: int) -> int:
+    """Consistent hash of a primary key onto a shard (paper Fig. 4).
+
+    String keys hash their unicode codepoints through a Horner polynomial —
+    the scalar twin of the vectorized :func:`shards_of_pks`, which the write
+    pipeline uses to split whole batches without per-row Python loops."""
+    if isinstance(pk, str):
+        h = 0
+        for c in pk:
+            h = (h * 131 + ord(c)) & _HASH_MASK
+        return h % num_shards
+    return int(pk) % num_shards
+
+
+def shards_of_pks(pks: np.ndarray, num_shards: int) -> np.ndarray:
+    """Vectorized :func:`shard_of_pk` over a whole pk batch.
+
+    Integer keys are one modulo; string keys view the fixed-width unicode
+    buffer as a [n, width] codepoint matrix and run the Horner hash one
+    *column* at a time (loop over max string length, not over rows),
+    skipping NUL padding so short and long keys agree with the scalar hash.
+    """
+    pks = np.asarray(pks)
+    if pks.size == 0:
+        return np.empty(0, np.int64)
+    if pks.dtype.kind in "iu":
+        return (pks.astype(np.int64) % num_shards).astype(np.int64)
+    codes = (
+        np.ascontiguousarray(pks.astype(np.str_))
+        .view(np.uint32)
+        .reshape(len(pks), -1)
+        .astype(np.int64)
+    )
+    h = np.zeros(len(pks), np.int64)
+    for col in range(codes.shape[1]):
+        c = codes[:, col]
+        h = np.where(c > 0, (h * 131 + c) & _HASH_MASK, h)
+    return h % num_shards

@@ -202,6 +202,15 @@ class QueryNode:
         self.subscriptions.pop(channel, None)
         self._applied_pos.pop(channel, None)
 
+    def watermark(self, collection: str) -> int:
+        """Min last-time-tick over this node's channels for the collection."""
+        marks = [
+            sub.last_tick_seen
+            for ch, sub in self.subscriptions.items()
+            if ch.startswith(f"dml/{collection}/")
+        ]
+        return min(marks) if marks else 0
+
     # ----------------------------------------------------------------- step
     def step(self) -> bool:
         """Consume coord and DML entries (LSN-deduplicated: the broker is
@@ -409,8 +418,41 @@ class QueryNode:
             handle.retired_at_ts = retired_at_ts
         self.growing.pop((collection, segment_id), None)
 
+    def apply_retention(self, horizon_ts: int, collection: str | None = None) -> bool:
+        raise NotImplementedError(
+            "apply_retention needs compaction, not ported yet: ROADMAP Queue 1 item 8"
+        )
+
     def drop_growing(self, collection: str, segment_id: int) -> None:
         self.growing.pop((collection, segment_id), None)
+
+    def held_segments(self, collection: str) -> list[int]:
+        return sorted(sid for (c, sid) in self.sealed if c == collection)
+
+    def memory_rows(self, collection: str | None = None) -> int:
+        rows = sum(
+            h.segment.num_rows
+            for (c, _sid), h in self.sealed.items()
+            if collection is None or c == collection
+        )
+        rows += sum(
+            seg.num_rows
+            for (c, _sid), seg in self.growing.items()
+            if collection is None or c == collection
+        )
+        return rows
+
+    def segment_rows(self, collection: str) -> "dict[tuple[str, int, bool], int]":
+        """(collection, segment_id, is_sealed) -> row count, for the
+        per-collection entity count (replicated segments dedup upstream)."""
+        out: dict[tuple[str, int, bool], int] = {}
+        for (c, sid), h in self.sealed.items():
+            if c == collection and h.retired_at_ts is None:
+                out[(c, sid, True)] = h.segment.num_rows
+        for (c, sid), seg in self.growing.items():
+            if c == collection:
+                out[(c, sid, False)] = seg.num_rows
+        return out
 
     # --------------------------------------------------------------- search
     def _request_doomed_pks(self, collection: str, ts: int):
@@ -807,3 +849,51 @@ class QueryNode:
             anns=[AnnsQuery(PRIMARY_VECTOR_COLUMN, queries)], filter_masks=filter_masks,
         )
         return self.search_request(request)[0]
+
+    # ----------------------------------------------------------- hydration
+    def fetch_fields(
+        self, collection: str, pks, columns: "list[str]", ts: int
+    ) -> "dict[str, tuple[np.ndarray, np.ndarray]]":
+        """Stored column values of the result ``pks`` visible at ``ts`` on
+        this node (output-field hydration).  ``columns`` holds segment
+        column names ("pk", the primary "vector" column or an extras
+        column).  Returns column -> (found_pks [n], values [n, ...]) as host
+        arrays; the proxy assembles the [nq, k] view."""
+        want = np.unique(np.asarray(pks))
+        want = torch.from_numpy(want[want >= 0].astype(np.int64)).to(self.device)
+        out: dict[str, list] = {c: [] for c in columns}
+        if want.numel():
+            doomed = self._request_doomed_pks(collection, ts)
+            sources = [
+                h.segment for (c, _sid), h in self.sealed.items()
+                if c == collection and h.covers_ts(ts)
+            ]
+            sources += [seg for (c, _sid), seg in self.growing.items() if c == collection]
+            for seg in sources:
+                if seg.num_rows == 0:
+                    continue
+                hit = self._visible(collection, seg, ts, doomed)
+                hit &= ops.isin_sorted(seg.pks(), want)
+                if not bool(hit.any()):
+                    continue
+                hit_host = hit.cpu().numpy()
+                hit_pks = seg.pks()[hit].cpu().numpy()
+                for c in columns:
+                    if c == "pk":
+                        vals = hit_pks
+                    elif c == PRIMARY_VECTOR_COLUMN:
+                        vals = seg.vectors()[hit].cpu().numpy()
+                    elif c in seg.extra_fields:
+                        vals = np.asarray(seg.extra(c))[hit_host]
+                    else:
+                        continue  # segment predates the column
+                    out[c].append((hit_pks, vals))
+        return {
+            c: (
+                (np.concatenate([p for p, _v in out[c]]),
+                 np.concatenate([v for _p, v in out[c]]))
+                if out[c]
+                else (np.empty(0, np.int64), np.empty(0))
+            )
+            for c in columns
+        }

@@ -1,5 +1,5 @@
-"""Zero-dependency observability plane: metrics and traces (a copy of
-``repro.core.telemetry`` without the control-plane event log).
+"""Zero-dependency observability plane: metrics, traces, events (a copy of
+``repro.core.telemetry``; pure Python and numpy, no device state).
 
 Three cooperating primitives, all process-local and allocation-light:
 
@@ -19,6 +19,11 @@ Three cooperating primitives, all process-local and allocation-light:
     ids, segment ids, and rows scanned so chaos tests can assert the
     tree bit-for-bit matches what was executed.
 
+``EventLog``
+    Bounded ring of typed control-plane events (node death, CAS
+    retries, drain steps, hot-swaps, GC reaps, pump progress).  Event
+    timestamps come from an injectable clock — the system's manual
+    clock in cooperative tests — so event history is deterministic.
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ __all__ = [
     "TraceContext",
     "Span",
     "RequestTrace",
+    "Event",
+    "EventLog",
 ]
 
 
@@ -362,3 +369,80 @@ class _SpanTimer:
 
     def __exit__(self, *exc) -> None:
         self.span.duration_us = (self.perf_counter() - self.t0) * 1e6
+
+
+# --------------------------------------------------------------------------
+# control-plane event log
+# --------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Event:
+    """One typed control-plane event."""
+
+    ts_ms: float
+    kind: str
+    source: str
+    detail: dict
+
+    def to_dict(self) -> dict:
+        return {
+            "ts_ms": float(self.ts_ms),
+            "kind": self.kind,
+            "source": self.source,
+            "detail": {k: _jsonable(v) for k, v in self.detail.items()},
+        }
+
+
+def _jsonable(v):
+    if isinstance(v, (np.integer,)):
+        return int(v)
+    if isinstance(v, (np.floating,)):
+        return float(v)
+    if isinstance(v, (list, tuple)):
+        return [_jsonable(x) for x in v]
+    if isinstance(v, dict):
+        return {k: _jsonable(x) for k, x in v.items()}
+    if isinstance(v, (set, frozenset)):
+        return sorted(_jsonable(x) for x in v)
+    return v
+
+
+class EventLog:
+    """Bounded ring buffer of control-plane events.
+
+    ``clock`` supplies timestamps (``now_ms()``) — the system's manual
+    clock in cooperative tests, wall clock in threaded mode — so event
+    history is deterministic where the system is.
+    """
+
+    def __init__(self, clock, capacity: int = 4096) -> None:
+        self.clock = clock
+        self.capacity = capacity
+        self._events: list[Event] = []
+        self.dropped = 0
+
+    def emit(self, kind: str, source: str, **detail) -> Event:
+        ev = Event(
+            ts_ms=float(self.clock.now_ms()),
+            kind=kind,
+            source=source,
+            detail=detail,
+        )
+        self._events.append(ev)
+        if len(self._events) > self.capacity:
+            overflow = len(self._events) - self.capacity
+            del self._events[:overflow]
+            self.dropped += overflow
+        return ev
+
+    def query(self, since_ts: float | None = None, kind: str | None = None) -> list[Event]:
+        out = self._events
+        if since_ts is not None:
+            out = [e for e in out if e.ts_ms >= since_ts]
+        if kind is not None:
+            out = [e for e in out if e.kind == kind]
+        return list(out)
+
+    def __len__(self) -> int:
+        return len(self._events)

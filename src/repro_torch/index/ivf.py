@@ -13,8 +13,12 @@ Search is the reference's batched pipeline:
 2. **invert + gather-scan** -- ``ops.ivf_probe_schedule`` inverts the probe
    matrix into a (list -> query group) schedule bucketed by padded size,
    and ``ops.ivf_gather_topk`` runs one batched product per bucket
-   (``torch.bmm`` in full float32, as the reference's numpy products sit
-   outside any kernel) and pools the per-probe-slot top-k;
+   (``torch.bmm``; the reference's numpy products sit outside any kernel)
+   and pools the per-probe-slot top-k.  IVF-FLAT and IVF-SQ accumulate the
+   product (and IVF-SQ its ``q . vmin`` constant) in float64 and round each
+   score once to float32: a float32 dot product of 768 terms at row norms
+   near 1e3 drifts by up to ~3e-3, past ``testing.SCORE_TOL`` (see
+   PERF.md);
 3. **reduce** -- ``search`` merges the pool with the ``merge_topk`` kernel;
    ``search_batched`` returns the raw pools, so the query node merges once.
 
@@ -41,6 +45,14 @@ from .kmeans import _as_rows, kmeans
 from .pq import _device_codes, adc_tables, pq_encode, train_pq_codebooks
 
 _CHUNK = 65_536  # rows per pass of the lazily cached per-row biases
+
+
+def _round_scores(s: torch.Tensor, bias) -> torch.Tensor:
+    """A float64 bucket product plus its per-row bias, rounded once to
+    float32 (the pool's type)."""
+    if bias is not None:
+        s += bias[:, None, :]
+    return s.to(torch.float32)
 
 
 class IVFBase(VectorIndex):
@@ -230,16 +242,13 @@ class IVFFlatIndex(IVFBase):
         l2 = self.metric is Metric.L2
         if l2 and self._row_norms is None:
             self._row_norms = (self.storage * self.storage).sum(1)
-        qs = -2.0 * q if l2 else -q
+        qs = (-2.0 * q if l2 else -q).double()
         base = self._row_norms if l2 else None
 
         def score(b: ops.IVFBucket) -> torch.Tensor:
-            tile = self.storage[b.rows]  # [B, W, d]
+            tile = self.storage[b.rows].double()  # [B, W, d]
             s = torch.bmm(qs[b.q_idx], tile.transpose(1, 2))  # [B, G, W]
-            bias = self._row_bias(b, valid_perm, base)
-            if bias is not None:
-                s += bias[:, None, :]
-            return s
+            return _round_scores(s, self._row_bias(b, valid_perm, base))
 
         return score, ((q * q).sum(1) if l2 else None)
 
@@ -279,10 +288,9 @@ class IVFSQIndex(IVFBase):
     def _decoded_norms(self) -> torch.Tensor:
         """||decode(code)||^2 per row, computed once (chunked decode)."""
         if self._row_norms is None:
-            scale = ops.sq_scale(self.vmin, self.vmax)
             out = torch.empty(len(self.codes), dtype=torch.float32, device=self.device)
             for lo in range(0, len(self.codes), _CHUNK):
-                y = self.codes[lo : lo + _CHUNK].to(torch.float32) * scale + self.vmin
+                y = ops.sq_decode(self.codes[lo : lo + _CHUNK], self.vmin, self.vmax)
                 out[lo : lo + _CHUNK] = (y * y).sum(1)
             self._row_norms = out
         return self._row_norms
@@ -291,21 +299,19 @@ class IVFSQIndex(IVFBase):
         # Fused dequantization: with y = code*scale + vmin, q.y runs on the
         # cast codes with the scale folded into the query operand and q.vmin
         # into the deferred per-query constant.
-        scale = ops.sq_scale(self.vmin, self.vmax)
+        scale = ops.sq_scale(self.vmin, self.vmax).double()
         l2 = self.metric is Metric.L2
-        qs = (-2.0 * q if l2 else -q) * scale
+        q64 = q.double()
+        qs = (-2.0 * q64 if l2 else -q64) * scale
         base = self._decoded_norms() if l2 else None
 
         def score(b: ops.IVFBucket) -> torch.Tensor:
-            tile = self.codes[b.rows].to(torch.float32)  # [B, W, d]
+            tile = self.codes[b.rows].to(torch.float64)  # [B, W, d]
             s = torch.bmm(qs[b.q_idx], tile.transpose(1, 2))
-            bias = self._row_bias(b, valid_perm, base)
-            if bias is not None:
-                s += bias[:, None, :]
-            return s
+            return _round_scores(s, self._row_bias(b, valid_perm, base))
 
-        qv = q @ self.vmin
-        return score, ((q * q).sum(1) - 2.0 * qv if l2 else -qv)
+        qv = q64 @ self.vmin.double()
+        return score, ((q64 * q64).sum(1) - 2.0 * qv if l2 else -qv).to(torch.float32)
 
     def _scan_range(self, q, lo, hi, k, valid_perm):
         v = None if valid_perm is None else valid_perm[lo:hi]

@@ -38,7 +38,11 @@ __all__ = [
     "kmeans_assign",
     "sq_scale",
     "sq_encode",
+    "sq_decode",
     "sq_topk_scan",
+    "shard_split",
+    "normalized_similarity",
+    "hybrid_fuse",
     "pq_adc_topk",
     "ivf_probe_schedule",
     "ivf_gather_topk",
@@ -185,6 +189,11 @@ def kmeans_assign(x, centroids):
 def sq_encode(x, vmin, vmax) -> torch.Tensor:
     """float32 rows -> uint8 SQ codes (round half to even, clipped)."""
     return _sq_mod.sq_encode(x.to(torch.float32).contiguous(), vmin, vmax)
+
+
+def sq_decode(codes, vmin, vmax) -> torch.Tensor:
+    """uint8 SQ codes -> float32 rows ``code * scale + vmin``."""
+    return _sq_mod.sq_decode(codes, vmin, vmax)
 
 
 def sq_topk_scan(queries, codes, vmin, vmax, k: int, metric: str = "l2", valid=None):
@@ -367,3 +376,90 @@ def ivf_gather_topk(schedule: IVFSchedule, k: int, score_bucket, device):
         pool_s[qi, si, :k_eff] = vals.reshape(n_b * g, k_eff).index_select(0, b.sel)
         pool_r[qi, si, :k_eff] = idx.reshape(n_b * g, k_eff).index_select(0, b.sel)
     return pool_s.reshape(nq, nprobe * k), pool_r.reshape(nq, nprobe * k)
+
+
+def shard_split(shards, num_shards: int) -> "tuple[torch.Tensor, torch.Tensor]":
+    """Group a batch by shard id in one pass (``bincount`` + stable
+    ``argsort``).  Returns ``(order, offsets)``: ``order[offsets[s] :
+    offsets[s + 1]]`` are the row indices of shard ``s`` in arrival order."""
+    shards = torch.as_tensor(shards, dtype=torch.int64)
+    counts = torch.bincount(shards, minlength=num_shards)
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    return torch.argsort(shards, stable=True), offsets
+
+
+def normalized_similarity(scores, metric: str = "l2") -> torch.Tensor:
+    """Raw metric scores -> a shared higher-is-better (0, 1] scale: L2
+    ``1/(1+d)`` (d clipped at 0), cosine ``(1+s)/2``, IP ``1/(1+exp(-s))``;
+    float32, as the reference."""
+    s = scores.to(torch.float32)
+    if metric == "l2":
+        return 1.0 / (1.0 + torch.clamp_min(s, 0.0))
+    if metric == "cosine":
+        return (1.0 + s) / 2.0
+    return 1.0 / (1.0 + torch.exp(-s))
+
+
+def hybrid_fuse(
+    scores_list, pks_list, k: int, metrics, weights=None, kind: str = "weighted",
+    rrf_k: float = 60.0,
+):
+    """Fuse per-field global result lists ([nq, m_f] best-first, pk < 0 =
+    empty) into the hybrid top-k: ``weighted`` sums weight-scaled
+    :func:`normalized_similarity`, ``rrf`` sums ``w_f / (rrf_k + rank)``
+    (1-based).  Sums are float64 per (row, pk) in field order, the ranking
+    is a stable sort of the descending sums.  Returns (fused [nq, k]
+    float32 descending, pks [nq, k]); slots past the distinct candidates
+    carry (-inf, -1)."""
+    n_fields = len(scores_list)
+    if n_fields == 0:
+        raise ValueError("hybrid_fuse needs at least one field result")
+    if weights is None:
+        weights = [1.0] * n_fields
+    if isinstance(metrics, str):
+        metrics = [metrics] * n_fields
+    if kind not in ("weighted", "rrf"):
+        raise ValueError(f"unknown fusion kind '{kind}'")
+    dev = scores_list[0].device
+    nq = scores_list[0].shape[0]
+    contribs = []
+    for f in range(n_fields):
+        s = scores_list[f].to(torch.float32)
+        live = (pks_list[f] >= 0) & torch.isfinite(s)
+        if kind == "rrf":
+            ranks = torch.arange(1, s.shape[1] + 1, dtype=torch.float64, device=dev)
+            c = (float(weights[f]) / (float(rrf_k) + ranks))[None, :].expand(s.shape)
+        else:
+            c = float(weights[f]) * normalized_similarity(s, metrics[f]).to(torch.float64)
+        contribs.append(torch.where(live, c, 0.0))
+    P = torch.cat([p.to(torch.int64) for p in pks_list], 1)
+    C = torch.cat(contribs, 1)
+    m = P.shape[1]
+    if nq == 0 or m == 0:
+        return (
+            torch.full((nq, k), float("-inf"), dtype=torch.float32, device=dev),
+            torch.full((nq, k), -1, dtype=torch.int64, device=dev),
+        )
+    live = (P >= 0).reshape(-1)
+    stride = max(int(P.max()) + 1, 1)
+    rows = torch.arange(nq, dtype=torch.int64, device=dev)[:, None]
+    key = (rows * stride + torch.where(P >= 0, P, 0)).reshape(-1)
+    fused = torch.full((nq * m,), float("-inf"), dtype=torch.float64, device=dev)
+    pos = torch.nonzero(live).squeeze(1)
+    if pos.numel():
+        uniq, inv = torch.unique(key[pos], return_inverse=True)
+        sums = torch.zeros(len(uniq), dtype=torch.float64, device=dev)
+        sums.index_add_(0, inv, C.reshape(-1)[pos])
+        # Each candidate's sum lands on its first slot; duplicates stay -inf.
+        first = torch.full((len(uniq),), torch.iinfo(torch.int64).max, device=dev)
+        first.scatter_reduce_(0, inv, pos, "amin")
+        fused[first] = sums
+    fused = fused.reshape(nq, m)
+    order = torch.argsort(-fused, dim=1, stable=True)[:, :k]
+    out_s = torch.gather(fused, 1, order)
+    out_p = torch.where(torch.isfinite(out_s), torch.gather(P, 1, order), -1)
+    pad = k - out_s.shape[1]
+    if pad > 0:
+        out_s = torch.cat([out_s, out_s.new_full((nq, pad), float("-inf"))], 1)
+        out_p = torch.cat([out_p, out_p.new_full((nq, pad), -1)], 1)
+    return out_s.to(torch.float32), out_p

@@ -1,10 +1,10 @@
-"""Scalar-quantization codec: the encoder and the scan over uint8 codes with
-fused dequantization, the CUDA kernels' wrappers and their plain PyTorch
-versions.
+"""Scalar-quantization codec: the encoder, the decoder and the scan over
+uint8 codes with fused dequantization, the CUDA kernels' wrappers and their
+plain PyTorch versions.
 
-Replaces ``src/repro/kernels/sq_codec.py:sq_encode_pallas`` and
-``sq_l2_topk_pallas`` and holds to the host paths of
-``src/repro/kernels/ops.py:sq_encode`` / ``sq_topk_scan``; see
+Replaces ``src/repro/kernels/sq_codec.py:sq_encode_pallas``,
+``sq_decode_pallas`` and ``sq_l2_topk_pallas`` and holds to the host paths
+of ``src/repro/kernels/ops.py:sq_encode`` / ``sq_decode`` / ``sq_topk_scan``; see
 ``csrc/sq_codec.cu`` for the kernels' design and what bounds them.  For CPU
 tensors the wrappers run the plain versions; for CUDA tensors they launch
 the kernels or raise -- there is no fallback.
@@ -34,6 +34,12 @@ def _kernels():
             ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
         ]
         enc.restype = ctypes.c_int
+        dec = lib.repro_sq_decode
+        dec.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ]
+        dec.restype = ctypes.c_int
         scan = lib.repro_sq_l2_topk
         scan.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
@@ -46,7 +52,7 @@ def _kernels():
         lib.repro_sq_l2_topk_tile_rows.restype = ctypes.c_int
         if lib.repro_sq_l2_topk_max_k() != MAX_K:
             raise RuntimeError("sq_l2_topk: MAX_K disagrees with the compiled kernel")
-        _fns.update(encode=enc, scan=scan, tile_rows=lib.repro_sq_l2_topk_tile_rows())
+        _fns.update(encode=enc, decode=dec, scan=scan, tile_rows=lib.repro_sq_l2_topk_tile_rows())
     return _fns
 
 
@@ -98,6 +104,35 @@ def sq_encode_plain(x, vmin, vmax) -> torch.Tensor:
     half to even)."""
     q = torch.round((x - vmin[None, :]) / sq_scale(vmin, vmax)[None, :])
     return torch.clamp(q, 0, 255).to(torch.uint8)
+
+
+def sq_decode(codes, vmin, vmax) -> torch.Tensor:
+    """uint8 ``codes`` [n, D] -> float32 rows ``code * scale + vmin``,
+    bit-exact against :func:`sq_decode_plain` (two roundings, no FMA)."""
+    if codes.dim() != 2 or codes.dtype != torch.uint8 or not codes.is_contiguous():
+        raise ValueError("sq_decode: codes must be a contiguous [n, D] uint8 tensor")
+    _check_range("sq_decode", codes, vmin, vmax)
+    if codes.device.type == "cpu":
+        return sq_decode_plain(codes, vmin, vmax)
+    if codes.device.type != "cuda":
+        raise ValueError(f"sq_decode: unsupported device {codes.device}")
+    n, d = codes.shape
+    out = torch.empty((n, d), dtype=torch.float32, device=codes.device)
+    if n == 0 or d == 0:
+        return out
+    vmin_c = vmin.contiguous()
+    scale = sq_scale(vmin, vmax).contiguous()
+    rc = _kernels()["decode"](
+        codes.data_ptr(), vmin_c.data_ptr(), scale.data_ptr(), out.data_ptr(), n, d,
+        torch.cuda.current_stream(codes.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"sq_decode: kernel launch failed with CUDA error {rc}")
+    sq_decode.launches += 1
+    return out
+
+
+sq_decode.launches = 0
 
 
 def sq_decode_plain(codes, vmin, vmax) -> torch.Tensor:

@@ -111,3 +111,198 @@ def assert_assign_close(got, want, x, centroids, rtol: float, atol: float) -> No
         d_got = ((xr - centroids[ga[rows]]) ** 2).sum(1)
         d_want = ((xr - centroids[wa[rows]]) ** 2).sum(1)
         torch.testing.assert_close(d_got, d_want, rtol=rtol, atol=atol)
+
+
+# --------------------------------------------------------------------------
+# Float64 oracle over what query nodes hold (chip_smoke.py and the tests)
+# --------------------------------------------------------------------------
+
+
+def l2_scores(q, x) -> torch.Tensor:
+    """[nq, n] squared L2 distances by the plain expansion."""
+    return ((q * q).sum(1, keepdim=True) - 2.0 * (q @ x.T)) + (x * x).sum(1)[None, :]
+
+
+def sq_decoded(codes, vmin, vmax) -> torch.Tensor:
+    """SQ rows as the codec defines them (float32, two roundings)."""
+    scale = torch.clamp_min(vmax - vmin, 1e-12) / 255.0
+    return codes.float() * scale[None, :] + vmin[None, :]
+
+
+def lut_tables(q, codebooks) -> torch.Tensor:
+    """L2 ADC tables [nq, m, ksub], the plain per-subspace expression."""
+    m, _ksub, dsub = codebooks.shape
+    qs = q.reshape(len(q), m, dsub)
+    dots = torch.einsum("nmd,mkd->nmk", qs, codebooks)
+    return ((qs * qs).sum(-1)[:, :, None] - 2.0 * dots) + (codebooks * codebooks).sum(-1)[None]
+
+
+def lut_sums(lut, codes) -> torch.Tensor:
+    """[nq, n] table sums over m = 0..M-1 in order."""
+    codes = codes.long()
+    out = torch.zeros((lut.shape[0], codes.shape[0]), dtype=lut.dtype, device=lut.device)
+    for j in range(codes.shape[1]):
+        out += lut[:, j, :].index_select(1, codes[:, j])
+    return out
+
+
+def oracle_unit(index, q, valid) -> torch.Tensor:
+    """[nq, n] float64 L2 scores of one loaded index over its own rows
+    (original order), +inf where the index does not score the row for that
+    query: the probed lists' rows for IVF (probe by a full stable sort of
+    the centroid distances), every valid row otherwise.  float64 makes these
+    the exact values of the index's semantics (SQ rows decode in float32,
+    as the index defines them), which the port's float32 answers are held
+    to within ``SCORE_TOL``."""
+    inf = float("inf")
+    kind = index.KIND
+    q = q.double()
+    if kind == "flat":
+        s = l2_scores(q, index.vectors.double())
+    elif kind == "sq":
+        s = l2_scores(q, sq_decoded(index.codes, index.vmin, index.vmax).double())
+    elif kind == "pq":
+        s = lut_sums(lut_tables(q, index.codebooks.double()), index.codes)
+    else:
+        c = index.centroids.double()
+        nprobe = min(int(index.params["nprobe"]), len(c))
+        probes = torch.sort(l2_scores(q, c), dim=1, stable=True).indices[:, :nprobe]
+        probed = torch.zeros((len(q), len(c)), dtype=torch.bool, device=q.device)
+        probed.scatter_(1, probes, True)
+        counts = (index.list_offsets[1:] - index.list_offsets[:-1]).to(q.device)
+        row_list = torch.repeat_interleave(torch.arange(len(c), device=q.device), counts)
+        if kind == "ivf_flat":
+            s = l2_scores(q, index.storage.double())
+        elif kind == "ivf_sq":
+            s = l2_scores(q, sq_decoded(index.codes, index.vmin, index.vmax).double())
+        else:  # ivf_pq: residual tables per (query, probed list)
+            s = torch.full((len(q), index.num_rows), inf, dtype=torch.float64, device=q.device)
+            offsets = index.list_offsets.tolist()
+            for lst in range(len(c)):
+                lo, hi = offsets[lst], offsets[lst + 1]
+                qsel = torch.nonzero(probed[:, lst]).squeeze(1)
+                if hi <= lo or qsel.numel() == 0:
+                    continue
+                lut = lut_tables(q[qsel] - c[lst][None, :], index.codebooks.double())
+                cols = torch.arange(lo, hi, device=q.device)
+                s[qsel[:, None], cols[None, :]] = lut_sums(lut, index.codes[lo:hi])
+        s = torch.where(probed[:, row_list], s, inf)
+        unperm = torch.empty_like(s)
+        unperm[:, index.row_ids] = s
+        s = unperm
+    return torch.where(valid[None, :], s, inf)
+
+
+#: The filtered planner's brute rule (``core/query_node.py``): a unit whose
+#: filter keeps at most max(2k, 64) rows, or a quarter of its visible rows,
+#: is scanned exactly over the passing rows.  Pre- and post-filtering both
+#: give the index's answer over the passing rows.
+def _brute_filtered(n_vis: int, n_comb: int, k: int) -> bool:
+    return n_comb <= max(2 * k, 64) or n_comb <= 0.25 * n_vis
+
+
+def system_oracle(nodes, collection: str, q, k: int, pin: int, deleted, passes=None) -> dict:
+    """The float64 top-k of an L2 search pinned at ``pin`` over every unit
+    that the query ``nodes`` hold of ``collection``: sealed segments through
+    their loaded index (exactly where none), growing segments through their
+    interim slice indexes and an exact tail.  A row is visible when its LSN
+    is at most ``pin`` and its pk is not in ``deleted`` (the pks deleted at
+    or before the pin); ``passes(segment)`` gives a filter's row mask.
+    Returns ``want`` (scores float64, pks), the merged ``all_scores`` /
+    ``all_pks`` and, per unit, its ``kinds`` and column ``bounds``."""
+    inf = float("inf")
+    q = q.double()
+    parts, pk_parts, kinds = [], [], []
+
+    def visible(seg):
+        vis = seg.timestamps() <= pin
+        if deleted is not None and deleted.numel():
+            vis &= ~torch.isin(seg.pks(), deleted.to(vis.device))
+        fmask = None if passes is None else passes(seg).to(vis.device)
+        return vis, (vis if fmask is None else vis & fmask), fmask is not None
+
+    def exact(seg, lo, hi, valid):
+        s = l2_scores(q, seg.vectors()[lo:hi].double())
+        return torch.where(valid[None, :], s, inf)
+
+    for node in nodes:
+        for (coll, _sid), h in sorted(node.sealed.items()):
+            if coll != collection or h.retired_at_ts is not None:
+                continue
+            seg = h.segment
+            vis, comb, filtered = visible(seg)
+            n_comb = int(comb.sum())
+            if n_comb == 0:
+                continue
+            if h.index is None or (filtered and _brute_filtered(int(vis.sum()), n_comb, k)):
+                parts.append(exact(seg, 0, seg.num_rows, comb))
+                kinds.append("exact")
+            else:
+                parts.append(oracle_unit(h.index, q, comb))
+                kinds.append(h.index.KIND)
+            pk_parts.append(seg.pks())
+        for (coll, _sid), seg in sorted(node.growing.items()):
+            if coll != collection or seg.num_rows == 0:
+                continue
+            _vis, comb, _ = visible(seg)
+            tail = 0  # slices cover a prefix of the segment
+            for s_idx, idx in sorted(seg.slice_indexes.items()):
+                lo, hi = seg.slice_bounds(s_idx)
+                tail = max(tail, hi)
+                parts.append(oracle_unit(idx, q, comb[lo:hi]))
+                pk_parts.append(seg.pks()[lo:hi])
+                kinds.append("interim ivf_flat")
+            if tail < seg.num_rows:
+                parts.append(exact(seg, tail, seg.num_rows, comb[tail:]))
+                pk_parts.append(seg.pks()[tail:])
+                kinds.append("brute tail")
+    all_pks = torch.cat(pk_parts) if pk_parts else torch.empty(0, dtype=torch.int64)
+    if len(torch.unique(all_pks)) != len(all_pks):
+        raise AssertionError(f"{collection}: a pk is held by two units of the nodes")
+    all_scores = (
+        torch.cat(parts, 1) if parts else torch.empty((len(q), 0), dtype=torch.float64)
+    )
+    pad = max(0, k - all_scores.shape[1])
+    vals, order = torch.sort(
+        torch.cat([all_scores, all_scores.new_full((len(q), pad), inf)], 1), dim=1, stable=True
+    )
+    want_s = vals[:, :k]
+    order = order[:, :k].clamp(max=max(len(all_pks) - 1, 0))
+    want_p = torch.where(torch.isfinite(want_s), all_pks[order] if len(all_pks) else -1, -1)
+    bounds = torch.tensor([0] + [len(p) for p in pk_parts]).cumsum(0)
+    return {
+        "want": (want_s, want_p), "all_scores": all_scores, "all_pks": all_pks,
+        "kinds": kinds, "bounds": bounds,
+    }
+
+
+def assert_oracle_answer(label: str, got, oracle: dict, rtol: float, atol: float) -> int:
+    """A search answer ``got`` = (scores, pks) [nq, k] against
+    :func:`system_oracle`'s top-k: the same empty slots, scores within the
+    tolerance slot by slot, and a pk that differs from the oracle's must
+    score (by the oracle) within the tolerance of the oracle's score at
+    that slot.  Returns the number of such near-tie swaps."""
+    got_s, got_p = got
+    want_s, want_p = oracle["want"]
+    if got_s.shape != want_s.shape or got_p.dtype != torch.int64:
+        raise AssertionError(f"{label}: malformed result {tuple(got_s.shape)}")
+    got_s, got_p = got_s.to(want_s.device), got_p.to(want_s.device)
+    if not torch.equal(got_p >= 0, want_p >= 0):
+        raise AssertionError(f"{label}: empty-slot pattern differs from the oracle")
+    live = want_p >= 0
+    torch.testing.assert_close(got_s[live].double(), want_s[live], rtol=rtol, atol=atol)
+    diff = (got_p != want_p) & live
+    if diff.any():
+        all_pks = oracle["all_pks"]
+        col_of_pk = torch.full(
+            (int(all_pks.max()) + 1,), -1, dtype=torch.int64, device=all_pks.device
+        )
+        col_of_pk[all_pks] = torch.arange(len(all_pks), device=all_pks.device)
+        qi, slot = torch.nonzero(diff, as_tuple=True)
+        pk = got_p[qi, slot]
+        if bool((pk > int(all_pks.max())).any()) or bool((col_of_pk[pk] < 0).any()):
+            raise AssertionError(f"{label}: a pk the nodes do not hold was returned")
+        torch.testing.assert_close(
+            oracle["all_scores"][qi, col_of_pk[pk]], want_s[qi, slot], rtol=rtol, atol=atol
+        )  # a pk the oracle never scored reads +inf and fails here
+    return int(diff.sum())

@@ -222,3 +222,54 @@ def test_pq_adc_topk_is_bit_exact(dev, m, k, code_dtype):
     want = pq_mod.pq_adc_topk_plain(luts, codes, k, valid)
     assert torch.equal(got[0], want[0])
     assert_topk_near_tie(got, want, 0.0, 0.0)
+
+
+@pytest.mark.parametrize("n,d,offset", [(1, 1, 0), (1, 768, 0), (700, 19, 0), (1001, 768, 0),
+                                        (513, 48, 0), (257, 768, 3), (65_536, 768, 0)])
+def test_sq_decode_is_bit_exact(dev, n, d, offset):
+    """The 16-code path (d % 16 == 0, aligned) and the scalar path (odd d,
+    a view 3 bytes off the 16-byte grid), one row, ragged row counts."""
+    rng = np.random.default_rng(n + d + offset)
+    flat = torch.from_numpy(rng.integers(0, 256, offset + n * d).astype(np.uint8)).to(dev)
+    codes = flat[offset:].view(n, d)
+    lo = torch.from_numpy(rng.standard_normal(d).astype(np.float32)).to(dev)
+    hi = lo + torch.from_numpy(rng.random(d).astype(np.float32) * 4).to(dev)
+    hi[0] = lo[0]  # a constant column
+    before = sq_mod.sq_decode.launches
+    got = sq_mod.sq_decode(codes, lo, hi)
+    torch.cuda.synchronize()
+    assert sq_mod.sq_decode.launches == before + 1
+    want = sq_mod.sq_decode_plain(codes, lo, hi)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_facade_round_trip_on_card(dev):
+    """Insert, flush, search, delete and search again through the port's
+    ManuSystem on the card: each answer equals the float64 oracle over what
+    the query nodes hold, and the IVF-SQ norms went through sq_decode."""
+    from repro_torch import testing
+    from repro_torch.core import ConsistencyLevel, FieldSchema, FieldType, ManuConfig, ManuSystem
+    from repro_torch.core import SearchRequest
+
+    manu = ManuSystem(ManuConfig(seal_rows=1_000, slice_rows=256), device=dev)
+    coll = manu.create_collection("c", dim=64, extra_fields=[FieldSchema("ordinal", FieldType.INT)])
+    coll.create_index("vector", "ivf_sq", {"nlist": 16, "nprobe": 4})
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((3_000, 64)).astype(np.float32)
+    coll.insert({"vector": x[:2_500], "ordinal": np.arange(2_500)})
+    coll.flush()
+    coll.insert({"vector": x[2_500:], "ordinal": np.arange(2_500, 3_000)})
+    q = torch.from_numpy(rng.standard_normal((8, 64)).astype(np.float32)).to(dev)
+    nodes = list(manu.query_nodes.values())
+    before = sq_mod.sq_decode.launches
+    doomed = None
+    for step in ("before", "after"):
+        if step == "after":
+            doomed = torch.from_numpy(rng.choice(3_000, 30, replace=False)).to(dev)
+            coll.delete(doomed.cpu().numpy())
+        got = coll.search(SearchRequest.single(q, k=50, consistency=ConsistencyLevel.STRONG))
+        assert got.pks.device.type == "cuda"
+        oracle = testing.system_oracle(nodes, "c", q, 50, got.query_ts, doomed)
+        testing.assert_oracle_answer(step, (got.scores, got.pks), oracle, *SCORE_TOL["l2"])
+    assert sq_mod.sq_decode.launches > before
+    assert not torch.isin(got.pks, doomed).any()
