@@ -17,6 +17,9 @@
    ragged and all-invalid.  ``pq_adc_topk``: m in {8, 48}, ksub 256, masks,
    k in {1, 100, 1024}, bit-exact scores.  Scores are held to
    ``repro_torch.testing.SCORE_TOL``, set from the measured float32 error.
+   The redesigned scans also: both score paths at nq 1..300, rows of d
+   16,000 and 10,001 bit-exact on exact data, and the tensor-core scores
+   against the CPU model ``testing.scan_scores_tf32`` (``model_tie``).
 3. FLAT path at VectorDBBench's Performance768D1M scale (1M x 768, top-100;
    synthetic data from --seed): an L2 and a cosine collection, each as
    seven 131,072-row sealed segments written to and loaded from the binlog
@@ -76,9 +79,24 @@ FLAT_SEGMENTS = (0, 1, 4)
 NODE_A, NODE_B = (0, 1, 2, 3), (4, 5, 6)
 DELETE_FRAC = 0.01
 INSERT_BATCH = 8_192
-# H100 SXM peaks at 700 W (NVIDIA data sheet): HBM3 and f32 outside the
-# tensor cores, the unit these kernels use.
-PEAK_BYTES_S, PEAK_F32_FLOPS = 3.35e12, 67e12
+# H100 SXM peaks at 700 W (NVIDIA data sheet): HBM3, f32 outside the tensor
+# cores, and dense TF32 on them.  The exact scans reach float32 accuracy on
+# the tensor cores in three TF32 products (3xTF32), so their bound counts
+# 3 x 2*nq*N*D TF32 operations; the f32 bound of earlier runs is printed
+# beside it.
+PEAK_BYTES_S, PEAK_F32_FLOPS, PEAK_TF32_FLOPS = 3.35e12, 67e12, 495e12
+# The redesigned scans' kernel-phase grid: nq across the small-nq path's
+# threshold and the 128-query tensor-core tile, d with and without 16-byte
+# rows, segments across the select's chunk of SELECT_CHUNK rows with one row
+# repeated at TIE_ROWS (both sides of every chunk edge).
+SCAN_NQ = (1, 4, 5, 7, 8, 9, 16, 17, 100, 128, 129, 300)
+SCAN_D = (768, 96, 100, 19)
+SELECT_CHUNK = 16384
+# Rows wider than the small-nq path's shared-memory staging (and, for SQ,
+# a row of scale / vmin): 16-byte and odd widths.
+WIDE_D = (16_000, 10_001)
+TIE_ROWS = (3, SELECT_CHUNK - 2, SELECT_CHUNK - 1, SELECT_CHUNK, SELECT_CHUNK + 1,
+            2 * SELECT_CHUNK + 7, 3 * SELECT_CHUNK + 4)
 # Log timestamps: sealed rows, WAL inserts, deletes, and the two pins.
 TS_SEALED, TS_GROW, TS_DELETE = 1_000, 2_000, 3_000
 TS_BEFORE, TS_AFTER = 2_500, 3_500
@@ -223,6 +241,229 @@ def kernel_phase(torch, l2_mod, merge_mod, ops, assert_scan_close, tol, dev, gen
             err["merge_topk"] = max(err["merge_topk"], e)
     log(f"kernel phase: l2_topk 24 cases agree (rtol, atol: l2 {tol['l2']}, ip {tol['ip']}), "
         f"merge_topk {2 * len(cases)} cases bit-exact (widths up to {wide}); max |err| {err}")
+    return err
+
+
+def scan_bound(nq: int, n_bytes: float, n: int, d: int, f32_ops: float) -> dict:
+    """The exact scans' bound: the bytes over the memory rate against the
+    3xTF32 product over the TF32 rate; and the f32 bound of earlier runs
+    (``f32_ops``, the product and the norms, over the f32 rate)."""
+    t_b = n_bytes / PEAK_BYTES_S
+    t_o = 3 * 2 * nq * n * d / PEAK_TF32_FLOPS
+    return {"bound_ms": max(t_b, t_o) * 1e3, "bound_by": "bytes" if t_b >= t_o else "operations",
+            "bound_f32_ms": max(t_b, f32_ops / PEAK_F32_FLOPS) * 1e3}
+
+
+def path_crossover(torch, label: str, scan, d: int, gen, dev) -> dict:
+    """Both score paths of one scan at nq 4 and 8, in one run:
+    ``scan(q, small_q)`` with small_q 8 (the byte-bound path) and 0 (the
+    tensor cores).  The kernels' default thresholds (``kSmallQ``: 4 for
+    f32 rows, 8 for SQ codes) should sit where the faster path changes."""
+    out = {}
+    for nq in (4, 8):
+        q = torch.randn((nq, d), generator=gen, device=dev)
+        small = cuda_ms(torch, lambda: scan(q, 8), 20)
+        tc = cuda_ms(torch, lambda: scan(q, 0), 20)
+        out[nq] = {"small_ms": small, "tensor_core_ms": tc,
+                   "faster": "small" if small < tc else "tensor_core"}
+    log(f"{label} score paths at nq 4 / 8: " + json.dumps(out))
+    return out
+
+
+def wide_rows_phase(torch, l2_mod, sq_mod, gen, dev) -> int:
+    """The scans at WIDE_D, where the small-nq path reads the queries (and
+    SQ's scale / vmin) from global memory and the tensor-core path carries
+    SQ's per-column state through its ring: small integers (SQ: codes 0..7
+    with vmin 0, vmax 255, so scale is 1), whose products and sums float32
+    holds exactly, so scores and ids must equal the plain versions' bit for
+    bit.  Returns the number of cases."""
+    n_cases = 0
+    for d in WIDE_D:
+        bases = [torch.randint(-2, 3, (n, d), generator=gen, device=dev).float() for n in (700, 3000)]
+        valids = [None, torch.rand(3000, generator=gen, device=dev) > 0.2]
+        codes = torch.randint(0, 8, (3000, d), generator=gen, device=dev, dtype=torch.uint8)
+        lo, hi = torch.zeros(d, device=dev), torch.full((d,), 255.0, device=dev)
+        for nq, small_q in ((1, None), (4, None), (8, 8), (8, None), (100, None)):
+            q = torch.randint(-2, 3, (nq, d), generator=gen, device=dev).float()
+            for metric in ("l2", "ip"):
+                for label, got, want in (
+                    ("l2_topk", l2_mod.l2_topk(q, bases, valids, K, metric, small_q=small_q),
+                     l2_mod.l2_topk_plain(q, bases, valids, K, metric)),
+                    ("sq_l2_topk", sq_mod.sq_l2_topk(q, codes, lo, hi, valids[1], K, metric,
+                                                     small_q=small_q),
+                     sq_mod.sq_l2_topk_plain(q, codes, lo, hi, valids[1], K, metric)),
+                ):
+                    torch.cuda.synchronize()
+                    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                        raise AssertionError(f"{label} d={d} nq={nq} small_q={small_q} {metric}: "
+                                             "differs from its plain version on exact data")
+                    n_cases += 1
+    log(f"wide rows: l2_topk and sq_l2_topk at d {WIDE_D}, nq 1 / 4 / 8 (both paths) / 100, "
+        f"{n_cases} cases bit-exact on exact data")
+    return n_cases
+
+
+def model_tie_phase(testing, dev) -> dict:
+    """The tensor-core score pass of both exact scans against the CPU model
+    ``testing.scan_scores_tf32`` (``testing.model_tie``, nq 16 and 100):
+    fails below ``testing.MODEL_TIE``'s share of bit-exact scores or past
+    its ulps."""
+    tie = {f"{kname} nq={nq}": testing.model_tie(kname, nq, dev)
+           for kname in ("l2_topk", "sq_l2_topk") for nq in (16, 100)}
+    log("tensor-core scores vs the 3xTF32 model (share bit-exact, largest ulps): " + json.dumps(tie))
+    share, ulps = testing.MODEL_TIE
+    for key, per in tie.items():
+        for metric, (exact, far) in per.items():
+            if exact < share or far > ulps:
+                raise AssertionError(f"{key} {metric}: {exact:.4f} of the scores bit-exact, "
+                                     f"{far:.2f} ulps at most, against {testing.MODEL_TIE}")
+    return tie
+
+
+def tensor_core_counts(_build) -> dict:
+    """HMMA / HGMMA instructions in the built scan libraries' SASS
+    (``cuobjdump -sass``), where the toolkit has cuobjdump."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = {}
+    for name in ("l2_topk", "sq_codec"):
+        try:
+            sass = subprocess.run([tool, "-sass", str(_build._lib_path(name))], capture_output=True,
+                                  text=True, timeout=120).stdout
+        except (OSError, subprocess.SubprocessError) as exc:
+            out[name] = f"not measured ({exc.__class__.__name__})"
+            continue
+        out[name] = {op: sum(1 for ln in sass.splitlines() if f"{op}." in ln) for op in ("HMMA", "HGMMA")}
+    return out
+
+
+def scan_redesign_phase(torch, l2_mod, sq_mod, pq_mod, testing, dev, gen) -> dict:
+    """The three scans over the redesigned score pass and two-stage select:
+    every (nq, d, metric) of SCAN_NQ x SCAN_D x (L2, IP) at k 1, 100, 1024
+    (nq 5..8 also through each score path at k 100) against the plain
+    versions within ``SCORE_TOL``, segments of 0, 1, 700
+    (all invalid), C - 1, C, C + 1 and 3C + 5 rows with ties planted across
+    the chunk edges (the lowest rows must lead where the kernel scored them
+    equal); ``pq_adc_topk`` bit-exact with exact ties across chunk edges;
+    and the scans on the mixture data (norms ~960) against float64.
+    Returns the largest error per kernel and metric."""
+    err = {}
+
+    def note(key, got, want):
+        fin = torch.isfinite(want)
+        if fin.any():
+            err[key] = max(err.get(key, 0.0), (got[fin].double() - want[fin].double()).abs().max().item())
+
+    def runs(nq):  # (k, small_q): nq 5..8 also through each path by name
+        return ((1024, None), (100, None), (1, None)) + (((100, 8), (100, 0)) if 4 < nq <= 8 else ())
+
+    C = SELECT_CHUNK
+    ties = list(TIE_ROWS)
+    n_l2 = n_sq = n_pq = 0
+    for d in SCAN_D:
+        sizes = (0, 1, 700, C - 1, C, C + 1, 3 * C + 5)
+        bases = [torch.randn((n, d), generator=gen, device=dev) for n in sizes]
+        # a row of a quarter of the usual norm: query 0 = that row sits at L2
+        # distance ~0 without the float32 rounding of norms near d
+        bases[-1][ties] = 0.25 * bases[-1][ties[0]]
+        valids = [None, None, torch.zeros(700, dtype=torch.bool, device=dev)] + [
+            torch.rand(n, generator=gen, device=dev) > 0.2 for n in sizes[3:]
+        ]
+        valids[-1][ties] = True
+        for nq in SCAN_NQ:
+            q = torch.randn((nq, d), generator=gen, device=dev)
+            q[0] = bases[-1][ties[0]]  # L2 distance ~0: the tied rows lead query 0
+            for metric in ("l2", "ip"):
+                equal = None
+                for k, small_q in runs(nq):
+                    got = l2_mod.l2_topk(q, bases, valids, k, metric, small_q=small_q)
+                    want = l2_mod.l2_topk_plain(q, bases, valids, k, metric)
+                    torch.cuda.synchronize()
+                    testing.assert_scan_close(got, want, q, bases, valids, k, metric,
+                                              *testing.SCORE_TOL[metric])
+                    note(f"l2_topk {metric} vs plain", got[0], want[0])
+                    if metric == "l2":
+                        blk = slice((len(bases) - 1) * k, len(bases) * k)
+                        if equal is None:
+                            equal = torch.unique(got[0][0, blk][:len(ties)]).numel() == 1
+                        testing.assert_ties_by_row(got[0][0, blk], got[1][0, blk], ties, equal)
+                    n_l2 += 1
+        for n in (0, 1, C - 1, C + 1, 3 * C + 5):
+            x = torch.randn((n, d), generator=gen, device=dev)
+            lo = x.min(0).values if n else torch.zeros(d, device=dev)
+            hi = x.max(0).values if n else torch.ones(d, device=dev)
+            codes = sq_mod.sq_encode(x, lo, hi)
+            tied = [r for r in ties if r < n]
+            if tied:  # the code nearest the column centres: a row of small norm
+                codes[tied] = sq_mod.sq_encode(((lo + hi) / 2)[None, :], lo, hi)
+            decoded = sq_mod.sq_decode_plain(codes, lo, hi)
+            valid = torch.rand(n, generator=gen, device=dev) > 0.2
+            valid[tied] = True
+            for nq in SCAN_NQ:
+                q = torch.randn((nq, d), generator=gen, device=dev)
+                if tied:
+                    q[0] = decoded[tied[0]]
+                for metric in ("l2", "ip"):
+                    equal = None
+                    for k, small_q in runs(nq):
+                        got = sq_mod.sq_l2_topk(q, codes, lo, hi, valid, k, metric, small_q=small_q)
+                        want = sq_mod.sq_l2_topk_plain(q, codes, lo, hi, valid, k, metric)
+                        torch.cuda.synchronize()
+                        testing.assert_scan_close(got, want, q, [decoded], [valid], k, metric,
+                                                  *testing.SCORE_TOL[metric])
+                        note(f"sq_l2_topk {metric} vs plain", got[0], want[0])
+                        if tied and metric == "l2":
+                            if equal is None:
+                                equal = torch.unique(got[0][0, :len(tied)]).numel() == 1
+                            testing.assert_ties_by_row(got[0][0], got[1][0], tied, equal)
+                        n_sq += 1
+    for n in (C - 1, C + 1, 3 * C + 5, SEG_ROWS):
+        codes = torch.randint(0, 256, (n, 48), generator=gen, device=dev, dtype=torch.uint8)
+        tied = [r for r in ties if r < n]
+        codes[tied] = codes[tied[0]].clone()
+        valid = torch.rand(n, generator=gen, device=dev) > 0.1
+        for nq in (1, 7, 100):
+            luts = torch.randn((nq, 48, 256), generator=gen, device=dev)
+            for k in (1, 100, 1024):
+                got = pq_mod.pq_adc_topk(luts, codes, k, valid)
+                want = pq_mod.pq_adc_topk_plain(luts, codes, k, valid)
+                torch.cuda.synchronize()
+                if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                    raise AssertionError(f"pq_adc_topk differs from its plain version (n={n}, k={k})")
+                n_pq += 1
+
+    # Against float64 on the mixture data the chip cells use (|x|^2 ~ 960,
+    # same-center L2 distances ~ 384), both score-pass routes.
+    centers = torch.randn((N_CENTERS, DIM), generator=gen, device=dev)
+    x = mixture(torch, gen, dev, SEG_ROWS, centers)
+    lo, hi = x.min(0).values, x.max(0).values
+    codes = sq_mod.sq_encode(x, lo, hi)
+    decoded = sq_mod.sq_decode_plain(codes, lo, hi).double()
+    x64 = x.double()
+    for nq in (1, 100):
+        q = mixture(torch, gen, dev, nq, centers)
+        q64 = q.double()
+        for metric in ("l2", "ip"):
+            for kname, fn, base in (
+                ("l2_topk", lambda: l2_mod.l2_topk(q, [x], [None], K, metric), x64),
+                ("sq_l2_topk", lambda: sq_mod.sq_l2_topk(q, codes, lo, hi, None, K, metric), decoded),
+            ):
+                got_v, got_i = fn()
+                qx = (q64[:, None, :] * base[got_i]).sum(-1)
+                exact = qx if metric == "ip" else (
+                    (q64 * q64).sum(1)[:, None] - 2.0 * qx + (base[got_i] ** 2).sum(-1))
+                rtol, atol = testing.SCORE_TOL[metric]
+                e = (got_v.double() - exact).abs()
+                if bool((e > atol + rtol * exact.abs()).any()):
+                    raise AssertionError(f"{kname} {metric} nq={nq}: a score misses float64 by "
+                                         f"{e.max().item():.3g}")
+                key = f"{kname} {metric} vs float64 (mixture)"
+                err[key] = max(err.get(key, 0.0), e.max().item())
+    del x, x64, codes, decoded
+    log(f"scan redesign phase: l2_topk {n_l2} cases, sq_l2_topk {n_sq} cases agree with their plain "
+        f"versions (SCORE_TOL; ties across chunk edges in row order), pq_adc_topk {n_pq} cases "
+        f"bit-exact; largest |err| " + json.dumps({k: float(f"{v:.3g}") for k, v in err.items()}))
     return err
 
 
@@ -647,7 +888,7 @@ def check_indexed(torch, run, testing, dev, phases) -> None:
     phases["ivf_recall_and_rebuild_s"] = time.perf_counter() - t0
 
 
-def index_kernel_times(torch, run, km_mod, sq_mod, pq_mod, dev) -> dict:
+def index_kernel_times(torch, run, km_mod, sq_mod, pq_mod, dev, gen) -> dict:
     """The four index kernels at the indexed path's shapes: kernel, plain
     version and (where one PyTorch call computes the same function) the
     library call, with the bound from this run's shapes."""
@@ -700,10 +941,8 @@ def index_kernel_times(torch, run, km_mod, sq_mod, pq_mod, dev) -> dict:
                 torch, lambda: sq_mod.sq_l2_topk_plain(q, sqi.codes, sqi.vmin, sqi.vmax, valid, K), reps
             ),
             "library_ms": cuda_ms(torch, lambda: torch.topk(q @ decoded.T, K, dim=1), reps),
-            **bound(
-                4 * nq * DIM + SEG_ROWS * DIM + 8 * DIM + SEG_ROWS + 12 * nq * K,
-                2 * nq * SEG_ROWS * DIM + 4 * SEG_ROWS * DIM + 2 * nq * DIM,
-            ),
+            **scan_bound(nq, 4 * nq * DIM + SEG_ROWS * DIM + 8 * DIM + SEG_ROWS + 12 * nq * K,
+                         SEG_ROWS, DIM, 2 * nq * SEG_ROWS * DIM + 4 * SEG_ROWS * DIM + 2 * nq * DIM),
             "shape": f"nq={nq} N={SEG_ROWS} D={DIM} uint8 k={K}",
         }
         luts = testing.lut_tables(q, pqi.codebooks).contiguous()
@@ -716,6 +955,10 @@ def index_kernel_times(torch, run, km_mod, sq_mod, pq_mod, dev) -> dict:
         }
     for kname, row in out.items():
         log(f"{kname}: " + json.dumps(row))
+    path_crossover(torch, f"sq_l2_topk over {SEG_ROWS} x {DIM} uint8",
+                   lambda q, sq: sq_mod.sq_l2_topk(q, sqi.codes, sqi.vmin, sqi.vmax, valid, K,
+                                                   small_q=sq),
+                   DIM, gen, dev)
     return out
 
 
@@ -1021,6 +1264,14 @@ def main() -> int:
     t0 = time.perf_counter()
     max_err = kernel_phase(torch, l2_mod, merge_mod, ops, assert_scan_close, SCORE_TOL, dev, gen)
     max_err.update(index_kernel_phase(torch, km_mod, sq_mod, pq_mod, testing, dev, gen))
+    scan_err = scan_redesign_phase(torch, l2_mod, sq_mod, pq_mod, testing, dev, gen)
+    wide_rows_phase(torch, l2_mod, sq_mod, gen, dev)
+    model_tie_phase(testing, dev)
+    for kname in ("l2_topk", "sq_l2_topk"):
+        max_err[kname] = max([max_err[kname]] + [v for k, v in scan_err.items()
+                                                 if k.startswith(kname + " ") and "plain" in k])
+    log("tensor-core instructions in the built scans (cuobjdump -sass): "
+        + json.dumps(tensor_core_counts(_build)))
     phases["kernel_phase_s"] = time.perf_counter() - t0
 
     # ---------------------------------------------------------- main path
@@ -1182,8 +1433,10 @@ def main() -> int:
     bases = [x[s * SEG_ROWS:(s + 1) * SEG_ROWS] for s in range(N_SEALED)] + [x[tail:]]
     valids = [torch.ones(b.shape[0], dtype=torch.bool, device=dev) for b in bases]
     kt = {}
-    for nq, q in queries.items():
-        reps_k = 20 if nq == 1 else 10
+    # nq 4 / 8 / 16 on each side of the small-nq path's threshold
+    scan_queries = {**queries, **{nq: torch.randn((nq, DIM), generator=gen, device=dev) for nq in (4, 8, 16)}}
+    for nq, q in sorted(scan_queries.items()):
+        reps_k = 20 if nq < 100 else 10
         kt[nq] = {
             "ms": cuda_ms(torch, lambda: l2_mod.l2_topk(q, bases, valids, K, "l2"), reps_k),
             "plain_ms": cuda_ms(torch, lambda: l2_mod.l2_topk_plain(q, bases, valids, K, "l2"), reps_k),
@@ -1191,11 +1444,11 @@ def main() -> int:
                 torch, lambda: torch.topk(q @ x.T, K, dim=1), reps_k
             ),
         }
-        n_bytes = 4 * nq * DIM + 4 * N_ROWS * DIM + N_ROWS + 12 * nq * len(bases) * K
-        n_ops = 2 * nq * N_ROWS * DIM + 2 * N_ROWS * DIM + 2 * nq * DIM
-        kt[nq]["bound_ms"] = max(n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_FLOPS) * 1e3
-        kt[nq]["bound_by"] = "bytes" if n_bytes / PEAK_BYTES_S >= n_ops / PEAK_F32_FLOPS else "operations"
+        kt[nq].update(scan_bound(nq, 4 * nq * DIM + 4 * N_ROWS * DIM + N_ROWS + 12 * nq * len(bases) * K,
+                                 N_ROWS, DIM, 2 * nq * N_ROWS * DIM + 2 * N_ROWS * DIM + 2 * nq * DIM))
         log(f"l2_topk nq={nq} over {N_ROWS} x {DIM}, k={K}: " + json.dumps(kt[nq]))
+    path_crossover(torch, f"l2_topk over {N_ROWS} x {DIM}",
+                   lambda q, sq: l2_mod.l2_topk(q, bases, valids, K, "l2", small_q=sq), DIM, gen, dev)
     m_pool = 4 * K  # node merge: four scan units of top-100 per node
     ps = torch.randn((100, m_pool), generator=gen, device=dev)
     pp = torch.randint(0, N_ROWS, (100, m_pool), generator=gen, device=dev)
@@ -1205,7 +1458,7 @@ def main() -> int:
         "bound_ms": (12 * 100 * m_pool + 12 * 100 * K) / PEAK_BYTES_S * 1e3,
     }
     log(f"merge_topk nq=100 M={m_pool} k={K}: " + json.dumps(mt))
-    it = index_kernel_times(torch, run, km_mod, sq_mod, pq_mod, dev)
+    it = index_kernel_times(torch, run, km_mod, sq_mod, pq_mod, dev, gen)
     phases["kernel_timing_s"] = time.perf_counter() - t0
     per = {k: n / run["n_requests"] for k, n in run["launches"].items()}
     log(f"indexed path launches per request (builds and slice indexes included): {per}")

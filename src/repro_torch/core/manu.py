@@ -29,6 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from .._device import resolve_device
+from .binlog import read_binlog_column
 from .collection import CollectionInfo, FieldSchema, FieldType, Metric, Schema
 from .consistency import ConsistencyLevel, GuaranteeTs
 from .coordinator import (
@@ -596,14 +597,30 @@ class ManuSystem:
         """Drop a partition: unregister it, retire its sealed segments,
         discard its growing rows, and broadcast ``partition_dropped`` so
         serving nodes release their copies.  Like ``drop_collection``, the
-        drop is not MVCC-gated.  (The reference also broadcasts the
-        tombstones that lived only in the partition as
-        ``tombstones_folded``, for pruning at the retention horizon; that
-        pruning is compaction's, not ported yet: the port's nodes keep
-        those tombstones, which changes no answer.)"""
+        drop is not MVCC-gated.  The pks that lived only in the partition
+        are then broadcast as ``tombstones_folded`` (``compact_ts`` = the
+        drop ts), which the query nodes record for pruning at the retention
+        horizon; the pruning itself is compaction's, not ported yet."""
         self.run_until_idle()  # let in-flight seals land first
         ts = self.root_coord.drop_partition(name, partition)
         sids = self.data_coord.drop_partition_state(name, partition, ts)
+
+        # pk accounting BEFORE nodes release anything: which pks vanish
+        # with the partition, and which survive elsewhere?
+        dropped_pks: list[np.ndarray] = [
+            read_binlog_column(self.store, name, sid, "pk") for sid in sids
+        ]
+        surviving_pks: list[np.ndarray] = [
+            read_binlog_column(self.store, name, sid, "pk")
+            for sid in self.data_coord.sealed_segments(name)
+        ]
+        for node in list(self.query_nodes.values()) + self.data_nodes:
+            for (coll, _sid), seg in list(node.growing.items()):
+                if coll != name:
+                    continue
+                pks = seg.pks().cpu().numpy()
+                (dropped_pks if seg.partition == partition else surviving_pks).append(pks)
+
         self.broker.publish(
             COORD_CHANNEL,
             LogEntry(
@@ -620,6 +637,28 @@ class ManuSystem:
         )
         for dn in self.data_nodes:
             dn.drop_partition(name, partition)
+
+        exclusive = np.empty(0, np.int64)
+        if dropped_pks:
+            exclusive = np.unique(np.concatenate(dropped_pks))
+            if surviving_pks:
+                exclusive = np.setdiff1d(
+                    exclusive, np.concatenate(surviving_pks), assume_unique=False
+                )
+        if exclusive.size:
+            self.broker.publish(
+                COORD_CHANNEL,
+                LogEntry(
+                    ts=self.tso.next(),
+                    type=EntryType.COORD,
+                    payload={
+                        "msg": "tombstones_folded",
+                        "collection": name,
+                        "folded_pks": exclusive,
+                        "compact_ts": ts,
+                    },
+                ),
+            )
         self.run_until_idle()
         return {"partition": partition, "segments_dropped": len(sids)}
 

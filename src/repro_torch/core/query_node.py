@@ -185,6 +185,8 @@ class QueryNode:
         # rebuilt after the next delete.
         self._delta_flat: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}
         self.dropped_partitions: set[tuple[str, str]] = set()
+        # tombstones_folded broadcasts awaiting the retention horizon
+        self._pending_prunes: list[dict] = []
         self.alive = True
         self.search_count = 0
         self.searches_primary = 0
@@ -252,7 +254,19 @@ class QueryNode:
         if msg == "tombstones":
             self._apply_delete(p["collection"], p["pk"], entry.ts)
             return True
-        if msg in ("tombstones_folded", "retention_advance"):
+        if msg == "tombstones_folded":
+            # Broadcast: these tombstones' pks were folded away (a compaction
+            # or a partition drop).  Every node remembers them for pruning at
+            # the retention horizon (the pruning is compaction's, item 8).
+            self._pending_prunes.append(
+                {
+                    "collection": p["collection"],
+                    "folded_pks": np.asarray(p["folded_pks"]),
+                    "compact_ts": p["compact_ts"],
+                }
+            )
+            return True
+        if msg == "retention_advance":
             raise NotImplementedError(
                 f"coord message '{msg}' needs compaction, not ported yet: ROADMAP Queue 1 item 8"
             )

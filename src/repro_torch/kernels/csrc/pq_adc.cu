@@ -17,7 +17,9 @@
 // LUT[m, code_m] for m = 0..M-1 in that order with IEEE adds, exactly as the
 // host loop `scores += lut[:, m, codes[:, m]]` does, so the scores are
 // bit-exact against the plain version.  Invalid rows score +inf.  Pass 2 is
-// the per-segment radix select of scan_common.cuh over the [nq, N] scratch.
+// the two-stage select of scan_common.cuh over the [nq, N] scratch, which
+// reads each score once: 16,384-row chunks give 8 blocks at nq=1 over a
+// 131,072-row segment where one block walked it before.
 // Codes are uint8 (KSUB <= 256, the device layout) or int32 (the saved
 // layout) and must lie in [0, KSUB).
 #include "scan_common.cuh"
@@ -53,7 +55,8 @@ adc_scores_kernel(const float* __restrict__ lut, const CodeT* __restrict__ codes
 template <typename CodeT>
 int launch_adc(const float* lut, int nq, int m, int ksub, const CodeT* codes,
                const unsigned char* valid, long long n, const long long* tab, int k,
-               float* scores, float* out_v, long long* out_i, cudaStream_t stream) {
+               float* scores, long long total_chunks, int multi_chunk, unsigned long long* cand,
+               float* out_v, long long* out_i, cudaStream_t stream) {
   if (n > 0) {
     const int smem = m * ksub * (int)sizeof(float);
     if (smem > 48 * 1024) {
@@ -67,7 +70,8 @@ int launch_adc(const float* lut, int nq, int m, int ksub, const CodeT* codes,
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  return select_topk(scores, n, tab, 1, nq, k, 0, out_v, out_i, stream);
+  return select_topk(scores, n, tab, 1, nq, k, 0, total_chunks, multi_chunk, cand, out_v, out_i,
+                     stream);
 }
 
 }  // namespace
@@ -77,15 +81,20 @@ extern "C" int repro_pq_adc_max_lut_bytes() { return kMaxLutBytes; }
 
 // luts [nq, m, ksub] f32; codes [n, m] uint8 (code_bytes = 1) or int32
 // (code_bytes = 4); valid [n] uint8 or null; tab: a one-segment table
-// (rows = n, column offset 0); scores: [nq, n] f32 scratch; outputs
-// [nq, k] ascending.  Returns the CUDA error code of the launches.
+// (rows = n, column offset 0, chunks 0 .. total_chunks); scores: [nq, n] f32
+// scratch; cand: [nq, total_chunks * k] u64 scratch when multi_chunk;
+// outputs [nq, k] ascending.  Returns the CUDA error code of the launches.
+extern "C" int repro_pq_adc_chunk_rows() { return kChunkRows; }
+
 extern "C" int repro_pq_adc_topk(const float* lut, int nq, int m, int ksub, const void* codes,
                                  int code_bytes, const unsigned char* valid, long long n,
-                                 const long long* tab, int k, float* scores, float* out_v,
-                                 long long* out_i, cudaStream_t stream) {
+                                 const long long* tab, int k, float* scores,
+                                 long long total_chunks, int multi_chunk,
+                                 unsigned long long* cand, float* out_v, long long* out_i,
+                                 cudaStream_t stream) {
   if (code_bytes == 1)
     return launch_adc(lut, nq, m, ksub, static_cast<const unsigned char*>(codes), valid, n, tab,
-                      k, scores, out_v, out_i, stream);
+                      k, scores, total_chunks, multi_chunk, cand, out_v, out_i, stream);
   return launch_adc(lut, nq, m, ksub, static_cast<const int*>(codes), valid, n, tab, k, scores,
-                    out_v, out_i, stream);
+                    total_chunks, multi_chunk, cand, out_v, out_i, stream);
 }

@@ -26,12 +26,16 @@
 //
 // sq_l2_topk replaces src/repro/kernels/sq_codec.py:sq_l2_topk_pallas (body
 // _sq_scan_kernel): the l2_topk scan (scan_common.cuh) whose row loader
-// reads a uint8 code and dequantizes it in registers as
-// code * scale + vmin (two roundings, as the host decode), before the f32
-// product.  What bounds it: the f32 product 2*nq*N*D (at nq=100 over
-// 131,072 x 768 codes, 2.0e10 FLOP: 0.30 ms at 67 TFLOP/s) against the
-// 0.10 GB read of the codes (0.03 ms) -- compute-bound at nq=100, byte-bound
-// at nq=1, where the codes are 4x fewer bytes than f32 rows.
+// reads uint8 codes and dequantizes them as __fadd_rn(__fmul_rn(code,
+// scale), vmin) (the host decode's two roundings) before the 3xTF32 split.
+// In the tensor-core path (nq > 8) each 16-byte cp.async brings 16 codes of
+// a row into the shared ring, and the stage's vmin / vmax ride along in the
+// same ring (scale computed once per stage and block); in the small-nq path
+// each lane reads 4 codes per 4-byte load against scale / vmin staged in
+// shared memory (or, for rows too wide for that, read from global memory).  What bounds it, at float32 accuracy: at nq=100
+// over 131,072 x 768 codes, 3 x 2.0e10 TF32 FLOP (0.122 ms at 495 TFLOP/s)
+// against the 0.10 GB read of the codes (0.030 ms): operations; at nq=1 the
+// read of the codes.
 #include "scan_common.cuh"
 
 namespace {
@@ -89,10 +93,135 @@ __global__ void sq_decode_kernel(const unsigned char* __restrict__ codes,
 
 struct SQRows {
   const float* vmin;
-  const float* scale;
-  __device__ __forceinline__ float load(const void* base, long long r, int c, int d) const {
-    const float code = (float)reinterpret_cast<const unsigned char*>(base)[r * d + c];
-    return __fadd_rn(__fmul_rn(code, scale[c]), vmin[c]);
+  const float* vmax;
+  static constexpr bool kCodes = true;
+  static constexpr int kXBytes = BN * kLdB;
+  static constexpr int kParFloats = 2 * BK;  // a ring stage's scale (vmax until finished) | vmin
+  static constexpr int kSmallQ = 8;  // measured: chip_smoke.py's path_crossover
+
+  int tile_vec(int d, int xalign) const { return d % 16 == 0 && xalign >= 16; }
+  int small_vec(int d, int xalign) const { return d % 4 == 0 && xalign >= 4; }
+
+  // scale = max(vmax - vmin, 1e-12) / 255 in f32: the expression and the
+  // roundings of the wrapper's sq_scale (computed here, it costs the call no
+  // launch).
+  __device__ __forceinline__ float scale_of(float vmax_k, float vmin_k) const {
+    return __fdiv_rn(fmaxf(__fsub_rn(vmax_k, vmin_k), 1e-12f), 255.f);
+  }
+
+  // par = scale[dpad] | vmin[dpad], zero past d (so padded columns decode to
+  // 0): the small-nq path's whole row.
+  __device__ __forceinline__ void load_params(float* par, int d, int dpad, int tid) const {
+    for (int k = tid; k < dpad; k += kThreads) {
+      par[k] = k < d ? scale_of(vmax[k], vmin[k]) : 0.f;
+      par[dpad + k] = k < d ? vmin[k] : 0.f;
+    }
+  }
+
+  // The tensor-core path's BK columns per ring stage: vmax | vmin copied
+  // with the stage (16 bytes per copy where vec), zero past d; vmax turns
+  // into scale in place once landed.  Padded columns decode to 0 * scale +
+  // 0 = 0.
+  __device__ __forceinline__ void load_stage_params(float* ps, int k0, int d, bool vec,
+                                                    int tid) const {
+    if (vec) {
+      if (tid < 2 * BK / 4) {
+        const float* src = tid < BK / 4 ? vmax : vmin;
+        const int c = (tid % (BK / 4)) * 4;
+        const bool ok = k0 + c < d;
+        cp_async16(ps + (tid / (BK / 4)) * BK + c, ok ? src + k0 + c : src, ok);
+      }
+    } else {
+      for (int i = tid; i < 2 * BK; i += kThreads) {
+        const float* src = i < BK ? vmax : vmin;
+        const int c = i % BK;
+        ps[i] = k0 + c < d ? src[k0 + c] : 0.f;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void finish_stage_params(float* ps, int tid) const {
+    if (tid < BK) ps[tid] = scale_of(ps[tid], ps[BK + tid]);
+  }
+
+  __device__ __forceinline__ void load_tile(unsigned char* tile, const void* base, long long r0,
+                                            long long n, int k0, int d, bool vec, int tid) const {
+    const unsigned char* codes = reinterpret_cast<const unsigned char*>(base);
+    if (vec) {  // 16 codes per 16-byte copy, two per row
+      for (int i = tid; i < BN * 2; i += kThreads) {
+        const int row = i >> 1, c = (i & 1) * 16;
+        const long long r = r0 + row;
+        const bool ok = r < n && k0 + c < d;
+        cp_async16(tile + row * kLdB + c, ok ? codes + r * d + k0 + c : codes, ok);
+      }
+    } else {
+      for (int i = tid; i < BN * BK; i += kThreads) {
+        const int row = i / BK, c = i % BK;
+        const long long r = r0 + row;
+        tile[row * kLdB + c] = (r < n && k0 + c < d) ? codes[r * d + k0 + c] : 0;
+      }
+    }
+  }
+
+  __device__ __forceinline__ float at(const unsigned char* tile, int row, int c,
+                                      const float* ps) const {
+    return sq_decode_one(tile[row * kLdB + c], ps[c], ps[BK + c]);
+  }
+
+  // Column k's (scale, vmin): from par where staged, else from global memory.
+  template <bool kStaged>
+  __device__ __forceinline__ void param(const float* par, int dpad, int k, float& sc,
+                                        float& mn) const {
+    if constexpr (kStaged) {
+      sc = par[k];
+      mn = par[dpad + k];
+    } else {
+      mn = __ldg(vmin + k);
+      sc = scale_of(__ldg(vmax + k), mn);
+    }
+  }
+
+  template <int NQ, bool kStaged>
+  __device__ __forceinline__ void dot_row(const void* base, long long r, int d, bool vec, int lane,
+                                          const float* const (&qrow)[NQ], const float* par,
+                                          int dpad, float (&acc)[NQ], float& xn) const {
+    const unsigned char* __restrict__ x = reinterpret_cast<const unsigned char*>(base) + r * d;
+    if (vec) {  // 4 codes per 4-byte load
+      const unsigned int* __restrict__ x4 = reinterpret_cast<const unsigned int*>(x);
+#pragma unroll 2
+      for (int c = lane; c < d / 4; c += 32) {
+        const unsigned int w = __ldg(x4 + c);
+        float4 sc, mn;
+        if constexpr (kStaged) {
+          sc = *reinterpret_cast<const float4*>(par + 4 * c);
+          mn = *reinterpret_cast<const float4*>(par + dpad + 4 * c);
+        } else {
+          param<false>(par, dpad, 4 * c, sc.x, mn.x);
+          param<false>(par, dpad, 4 * c + 1, sc.y, mn.y);
+          param<false>(par, dpad, 4 * c + 2, sc.z, mn.z);
+          param<false>(par, dpad, 4 * c + 3, sc.w, mn.w);
+        }
+        const float v0 = sq_decode_one(w & 0xffu, sc.x, mn.x);
+        const float v1 = sq_decode_one((w >> 8) & 0xffu, sc.y, mn.y);
+        const float v2 = sq_decode_one((w >> 16) & 0xffu, sc.z, mn.z);
+        const float v3 = sq_decode_one(w >> 24, sc.w, mn.w);
+        xn = fmaf(v0, v0, fmaf(v1, v1, fmaf(v2, v2, fmaf(v3, v3, xn))));
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          const float4 qq = *reinterpret_cast<const float4*>(qrow[j] + 4 * c);
+          acc[j] = fmaf(v0, qq.x, fmaf(v1, qq.y, fmaf(v2, qq.z, fmaf(v3, qq.w, acc[j]))));
+        }
+      }
+    } else {
+      for (int c = lane; c < d; c += 32) {
+        float sc, mn;
+        param<kStaged>(par, dpad, c, sc, mn);
+        const float v = sq_decode_one(x[c], sc, mn);
+        xn = fmaf(v, v, xn);
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) acc[j] = fmaf(v, qrow[j][c], acc[j]);
+      }
+    }
   }
 };
 
@@ -137,15 +266,23 @@ extern "C" int repro_sq_decode(const unsigned char* codes, const float* vmin, co
 
 extern "C" int repro_sq_l2_topk_max_k() { return kMaxK; }
 extern "C" int repro_sq_l2_topk_tile_rows() { return BN; }
+extern "C" int repro_sq_l2_topk_chunk_rows() { return kChunkRows; }
+extern "C" int repro_sq_l2_topk_small_q() { return SQRows::kSmallQ; }
+extern "C" int repro_sq_l2_topk_small_q_max() { return kSmallQMax; }
 
 // queries [nq, d] f32; tab: the packed segment table (base pointers are
-// uint8 codes [n_s, d]); vmin / scale [d] f32, shared by every segment of
-// the call; scores: [nq, ld] f32 scratch; outputs [nq, S * k].  Returns the
-// CUDA error code of the launches (0 = success).
+// uint8 codes [n_s, d]); vmin / vmax [d] f32, shared by every segment of
+// the call, palign the largest power of two (<= 16) dividing both; other
+// arguments as repro_l2_topk.  Returns the CUDA error code of the launches
+// (0 = success).
 extern "C" int repro_sq_l2_topk(const float* q, int nq, int d, const long long* tab, int S,
-                                long long total_tiles, const float* vmin, const float* scale,
-                                float* scores, long long ld, int k, int ip, float* out_v,
+                                long long total_tiles, long long n_rows, int qalign, int xalign,
+                                int palign, int small_q, const float* vmin, const float* vmax,
+                                float* scores,
+                                long long ld, int k, int ip, long long total_chunks,
+                                int multi_chunk, unsigned long long* cand, float* out_v,
                                 long long* out_i, cudaStream_t stream) {
-  return launch_scan(q, nq, d, tab, S, total_tiles, scores, ld, k, ip, out_v, out_i, stream,
-                     SQRows{vmin, scale});
+  return launch_scan(q, nq, d, tab, S, total_tiles, n_rows, qalign, xalign, palign, small_q,
+                     scores, ld, k, ip, total_chunks, multi_chunk, cand, out_v, out_i, stream,
+                     SQRows{vmin, vmax});
 }

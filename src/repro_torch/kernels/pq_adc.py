@@ -15,7 +15,7 @@ import ctypes
 import torch
 
 from . import _build
-from .l2_topk import _MAX_GRID_Y
+from .l2_topk import _MAX_GRID_Y, candidate_buffer, segment_table
 
 #: Largest k the scan takes (``kMaxK`` in ``csrc/scan_common.cuh``).
 MAX_K = 1024
@@ -24,25 +24,29 @@ MAX_K = 1024
 MAX_LUT_BYTES = 232_448
 
 _c_fn = None
+_chunk_rows = 0  # select chunk height of the compiled kernel
 
 
 def _kernel():
-    global _c_fn
+    global _c_fn, _chunk_rows
     if _c_fn is None:
         lib = _build.load("pq_adc")
         fn = lib.repro_pq_adc_topk
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
         lib.repro_pq_adc_max_k.restype = ctypes.c_int
         lib.repro_pq_adc_max_lut_bytes.restype = ctypes.c_int
+        lib.repro_pq_adc_chunk_rows.restype = ctypes.c_int
         if lib.repro_pq_adc_max_k() != MAX_K or lib.repro_pq_adc_max_lut_bytes() != MAX_LUT_BYTES:
             raise RuntimeError("pq_adc_topk: limits disagree with the compiled kernel")
+        _chunk_rows = lib.repro_pq_adc_chunk_rows()
         _c_fn = fn
-    return _c_fn
+    return _c_fn, _chunk_rows
 
 
 def pq_adc_topk(luts, codes, k: int, valid=None):
@@ -85,16 +89,19 @@ def pq_adc_topk(luts, codes, k: int, valid=None):
         )
     if nq > _MAX_GRID_Y:
         raise ValueError(f"pq_adc_topk: at most {_MAX_GRID_Y} queries per call, got {nq}")
-    # One-segment table for the select pass: rows | base | valid | column
-    # offset | first tile, last tile (unused by the select).
-    table = torch.tensor([n, 0, 0, 0, 0, 0], dtype=torch.int64).to(dev)
+    launch, chunk_rows = _kernel()
+    # One-segment table for the select (the codes' pointer and the score
+    # tiles are not read by it).
+    table, geo = segment_table([codes], [None], chunk_rows, chunk_rows, dev)
     scores = torch.empty((nq, max(n, 1)), dtype=torch.float32, device=dev)
+    cand = candidate_buffer(nq, geo, k, dev)
     out_v = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int64, device=dev)
-    rc = _kernel()(
+    rc = launch(
         luts.data_ptr(), nq, m, ksub, codes.data_ptr(), codes.element_size(),
         0 if valid is None else valid.data_ptr(), n, table.data_ptr(), k, scores.data_ptr(),
-        out_v.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        geo["chunks"], int(geo["multi_chunk"]), cand.data_ptr(), out_v.data_ptr(),
+        out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"pq_adc_topk: kernel launch failed with CUDA error {rc}")

@@ -17,7 +17,14 @@ import ctypes
 import torch
 
 from . import _build
-from .l2_topk import _MAX_GRID_Y, l2_topk_plain, segment_table
+from .l2_topk import (
+    _MAX_GRID_Y,
+    candidate_buffer,
+    l2_topk_plain,
+    pointer_align,
+    segment_table,
+    small_q_arg,
+)
 
 #: Largest k the scan takes (``kMaxK`` in ``csrc/scan_common.cuh``).
 MAX_K = 1024
@@ -43,23 +50,28 @@ def _kernels():
         scan = lib.repro_sq_l2_topk
         scan.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
         scan.restype = ctypes.c_int
-        lib.repro_sq_l2_topk_max_k.restype = ctypes.c_int
-        lib.repro_sq_l2_topk_tile_rows.restype = ctypes.c_int
+        names = ("tile_rows", "chunk_rows", "small_q", "small_q_max")
+        for name in ("max_k",) + names:
+            getattr(lib, f"repro_sq_l2_topk_{name}").restype = ctypes.c_int
         if lib.repro_sq_l2_topk_max_k() != MAX_K:
             raise RuntimeError("sq_l2_topk: MAX_K disagrees with the compiled kernel")
-        _fns.update(encode=enc, decode=dec, scan=scan, tile_rows=lib.repro_sq_l2_topk_tile_rows())
+        _fns.update(encode=enc, decode=dec, scan=scan)
+        _fns.update({name: getattr(lib, f"repro_sq_l2_topk_{name}")() for name in names})
     return _fns
 
 
 def sq_scale(vmin, vmax) -> torch.Tensor:
     """The codec's per-dimension quantization step,
-    ``max(vmax - vmin, 1e-12) / 255`` in float32: the one definition that
-    encode, decode and the fused scan share."""
+    ``max(vmax - vmin, 1e-12) / 255`` in float32, which the encode and
+    decode kernels take from here.  The fused scan computes the same
+    expression, with the same roundings, in CUDA (``SQRows::scale_of`` in
+    ``csrc/sq_codec.cu``), so that a call costs no launch for it."""
     return torch.clamp_min(vmax.to(torch.float32) - vmin.to(torch.float32), 1e-12) / 255.0
 
 
@@ -141,12 +153,14 @@ def sq_decode_plain(codes, vmin, vmax) -> torch.Tensor:
     return codes.to(torch.float32) * sq_scale(vmin, vmax)[None, :] + vmin[None, :]
 
 
-def sq_l2_topk(queries, codes, vmin, vmax, valid, k: int, metric: str = "l2"):
+def sq_l2_topk(queries, codes, vmin, vmax, valid, k: int, metric: str = "l2", *,
+               small_q: int | None = None):
     """Top-k of ``queries`` [nq, D] float32 against uint8 SQ ``codes``
     [n, D] decoded as ``code * scale + vmin``, with the ``l2_topk``
     contract for one segment: ``(vals [nq, k] float32, idx [nq, k] int64)``,
     ascending L2 distance or descending inner product; slots past the valid
-    rows carry (+inf L2 / -inf IP, -1) and ``|score| >= 1e38`` has index -1."""
+    rows carry (+inf L2 / -inf IP, -1) and ``|score| >= 1e38`` has index -1.
+    ``small_q`` as in :func:`~repro_torch.kernels.l2_topk.l2_topk`."""
     if metric not in ("l2", "ip"):
         raise ValueError(f"sq_l2_topk: unknown metric {metric!r}")
     if not 1 <= k <= MAX_K:
@@ -182,16 +196,21 @@ def sq_l2_topk(queries, codes, vmin, vmax, valid, k: int, metric: str = "l2"):
     if nq > _MAX_GRID_Y:
         raise ValueError(f"sq_l2_topk: at most {_MAX_GRID_Y} queries per call, got {nq}")
     fns = _kernels()
-    table, total, tiles = segment_table([codes], [valid], fns["tile_rows"], dev)
-    vmin_c = vmin.contiguous()
-    scale = sq_scale(vmin, vmax).contiguous()
-    scores = torch.empty((nq, max(total, 1)), dtype=torch.float32, device=dev)
+    small_q = small_q_arg("sq_l2_topk", small_q, fns["small_q"], fns["small_q_max"])
+    table, geo = segment_table([codes], [valid], fns["tile_rows"], fns["chunk_rows"], dev)
+    vmin_c, vmax_c = vmin.contiguous(), vmax.contiguous()
+    ld = max(geo["rows"], 1)
+    scores = torch.empty((nq, ld), dtype=torch.float32, device=dev)
+    cand = candidate_buffer(nq, geo, k, dev)
     out_v = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int64, device=dev)
     rc = fns["scan"](
-        queries.data_ptr(), nq, d, table.data_ptr(), 1, tiles, vmin_c.data_ptr(),
-        scale.data_ptr(), scores.data_ptr(), max(total, 1), k, int(metric == "ip"),
-        out_v.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        queries.data_ptr(), nq, d, table.data_ptr(), 1, geo["tiles"], geo["rows"],
+        pointer_align([queries]), pointer_align([codes]), pointer_align([vmin_c, vmax_c]),
+        small_q, vmin_c.data_ptr(), vmax_c.data_ptr(),
+        scores.data_ptr(), ld, k, int(metric == "ip"), geo["chunks"], int(geo["multi_chunk"]),
+        cand.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"sq_l2_topk: kernel launch failed with CUDA error {rc}")

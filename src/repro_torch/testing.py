@@ -9,6 +9,7 @@ reference's score at that slot.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 #: (rtol, atol) for float32 scores on the card, per metric, against a plain
@@ -61,6 +62,200 @@ def assert_scan_close(got, want, queries, bases, valids, k: int, metric: str,
             row_scores(queries, base, q_rows, rows, metric), wv[:, blk][q_rows, slots],
             rtol=rtol, atol=atol,
         )
+
+
+# --------------------------------------------------------------------------
+# Plain emulations of the scan kernels' arithmetic and select
+# (csrc/scan_common.cuh), for the CPU tests
+# --------------------------------------------------------------------------
+
+#: Depth of the tensor-core score pass's fresh partial sums (one 8-deep
+#: wgmma step) and rows of the select's chunk (``kChunkRows``) in
+#: ``csrc/scan_common.cuh``.
+SCAN_DEPTH = 8
+SELECT_CHUNK = 16384
+#: Bits below the leading bit of an instruction's largest addend that the
+#: model of a ``wgmma ... .tf32`` instruction keeps (see
+#: :func:`_tensor_core_step`): fitted to an NVIDIA H100's scores
+#: (``tests/test_torch_cuda.py::test_tensor_core_scores_match_the_3xtf32_model``).
+TC_ALIGN_BITS = 27
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10-bit mantissa), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` and the kernel's integer rounding do
+    on finite values: add half a TF32 ulp to the magnitude bits, clear the
+    13 low bits."""
+    u = x.to(torch.float32).contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    r = (u + 0x1000) & 0xFFFFE000
+    r = torch.where(r >= 2**31, r - 2**32, r)
+    return r.to(torch.int32).view(torch.float32).reshape(x.shape)
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo) with hi = tf32_rna(x), lo = tf32_rna(x - hi)."""
+    x = x.to(torch.float32)
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
+
+
+def _kernel_norms(a: torch.Tensor) -> torch.Tensor:
+    """Row sums of squares in float32 in the tensor-core path's order: in
+    each 32-column ring stage, each 16-column half is an FMA chain from 0
+    (one ``fmaf`` = one rounding of the exact float64 sum) added to that
+    half's running total; the two halves' totals are added last."""
+    a = a.to(torch.float32)
+    halves = [torch.zeros(a.shape[0], dtype=torch.float32) for _ in range(2)]
+    for c0 in range(0, a.shape[1], 32):
+        for h in (0, 1):
+            p = torch.zeros(a.shape[0], dtype=torch.float32)
+            for c in range(c0 + 16 * h, min(c0 + 16 * h + 16, a.shape[1])):
+                v = a[:, c].double()
+                p = (v * v + p.double()).float()
+            halves[h] = halves[h] + p
+    return halves[0] + halves[1]
+
+
+def _round_toward_zero(t: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32, rounding toward zero."""
+    r = t.to(torch.float32)
+    over = r.to(torch.float64).abs() > t.abs()
+    return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _tensor_core_step(part, a, b) -> torch.Tensor:
+    """One tensor-core instruction's 8-deep slice for every (query, row):
+    ``part + sum_k a[:, k] b[:, k]`` as modelled -- the products exact, every
+    addend (the accumulator too) truncated toward zero to a multiple of
+    2^(e - TC_ALIGN_BITS), where 2^(e-1) <= |largest addend| < 2^e, their
+    sum exact, and the sum truncated to float32."""
+    prods = a.double()[:, None, :] * b.double()[None, :, :]
+    terms = torch.cat([part.double()[:, :, None], prods], 2)
+    mag = terms.abs()
+    e = torch.where(mag > 0, torch.frexp(mag).exponent, -1000).amax(2, keepdim=True)
+    unit = torch.ldexp(torch.ones_like(e, dtype=torch.float64), (e - TC_ALIGN_BITS).double())
+    return _round_toward_zero((torch.trunc(terms / unit) * unit).sum(2))
+
+
+def scan_scores_tf32(queries, base, metric: str = "l2", passes: int = 3,
+                     depth: int = SCAN_DEPTH) -> torch.Tensor:
+    """Plain emulation of the tensor-core score pass.  q.x comes from TF32
+    splits (passes=3: lo_q.hi_x + hi_q.lo_x + hi_q.hi_x, the kernel's
+    3xTF32; passes=1: hi_q.hi_x, plain TF32), one instruction of 8 products
+    at a time into the step's float32 partial (:func:`_tensor_core_step`:
+    aligned, truncated addends and a sum truncated toward zero); every
+    ``depth`` of K the partial is added to the running float32 total (round
+    to nearest) and a fresh one begins.  Row norms are summed in the kernel's order
+    (16-deep FMA chains), and the score is (|q|^2 - 2 q.x) + |x|^2 (L2) or
+    -q.x (IP) in float32.  A model: on an H100 it gave 99.8% of the
+    kernel's scores bit for bit on nonnegative data at D = 768, the rest
+    within a few ulps (signed addends that cancel fit less well), and
+    ``tests/test_torch_cuda.py`` holds the kernel to it on the card."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    q = queries.to(torch.float32)
+    x = base.to(torch.float32)
+    qh, ql = split_tf32(q)
+    xh, xl = split_tf32(x)
+    terms = ((ql, xh), (qh, xl), (qh, xh)) if passes == 3 else ((qh, xh),)
+    acc = torch.zeros((q.shape[0], x.shape[0]), dtype=torch.float32)
+    part = torch.zeros_like(acc)
+    d = q.shape[1]
+    for k0 in range(0, d, 8):
+        sl = slice(k0, k0 + 8)
+        for a, b in terms:
+            part = _tensor_core_step(part, a[:, sl], b[:, sl])
+        if (k0 + 8) % depth == 0 or k0 + 8 >= d:
+            acc = acc + part
+            part = torch.zeros_like(acc)
+    if metric == "ip":
+        return -acc
+    return (_kernel_norms(q)[:, None] - 2.0 * acc) + _kernel_norms(x)[None, :]
+
+
+#: What ``model_tie`` requires of the card: this share of the scores
+#: bit-exact against ``scan_scores_tf32``, none further than this many ulps.
+MODEL_TIE = (0.99, 4.0)
+
+
+def model_tie(kernel: str, nq: int, dev) -> dict:
+    """How closely the tensor-core score pass of ``kernel`` (``"l2_topk"``
+    or ``"sq_l2_topk"``; nq > 8 takes that path) follows
+    :func:`scan_scores_tf32`, on seeded nonnegative data (so no partial sum
+    cancels): ``nq`` queries against 1,000 rows of 768, k = 1,000 so every
+    score comes back.  Per metric, the share of scores equal to the model's
+    bit for bit and the largest distance in float32 ulps -- of |q.x| for
+    IP, of the largest of |q.x|, |q|^2 and |x|^2 for L2 (the magnitudes the
+    expression rounds at)."""
+    from .kernels import l2_topk as l2_mod
+    from .kernels import sq_codec as sq_mod
+
+    rng = np.random.default_rng(nq)
+    n, d = 1000, 768
+    q = torch.from_numpy(rng.random((nq, d), dtype=np.float32))
+    if kernel == "l2_topk":
+        x = torch.from_numpy(rng.random((n, d), dtype=np.float32))
+
+        def run(metric):
+            return l2_mod.l2_topk(q.to(dev), [x.to(dev)], [None], n, metric)
+    else:
+        codes = torch.from_numpy(rng.integers(0, 256, (n, d), dtype=np.uint8))
+        lo = torch.from_numpy(rng.random(d, dtype=np.float32) * 0.1)
+        hi = lo + 1.0
+        x = sq_mod.sq_decode_plain(codes, lo, hi)
+
+        def run(metric):
+            return sq_mod.sq_l2_topk(q.to(dev), codes.to(dev), lo.to(dev), hi.to(dev), None, n,
+                                     metric)
+    qx = -scan_scores_tf32(q, x, "ip")
+    big = torch.maximum(qx.abs(), torch.maximum((q * q).sum(1)[:, None], (x * x).sum(1)[None, :]))
+    out = {}
+    for metric, model, mag in (("ip", qx, qx.abs()), ("l2", scan_scores_tf32(q, x, "l2"), big)):
+        vals, idx = run(metric)
+        got = torch.empty((nq, n)).scatter_(1, idx.cpu(), vals.cpu())
+        ulps = (got - model).abs() / (torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag)
+        out[metric] = ((got == model).double().mean().item(), ulps.max().item())
+    return out
+
+
+def topk_select_two_stage(scores, k: int, metric: str = "l2", chunk: int = SELECT_CHUNK):
+    """Plain emulation of the kernel's two-stage select over one segment's
+    ascending keys ``scores`` [nq, n]: stage A keeps each ``chunk``-row
+    chunk's best min(k, rows) by (key, row), stage B merges the chunk lists
+    in chunk order by a stable sort (list order is row order among equal
+    keys).  Same contract as ``kernels.l2_topk.topk_select_plain``."""
+    nq, n = scores.shape
+    fill = float("inf") if metric == "l2" else float("-inf")
+    out_v = torch.full((nq, k), fill, dtype=torch.float32)
+    out_i = torch.full((nq, k), -1, dtype=torch.int64)
+    if n == 0:
+        return out_v, out_i
+    cand_v, cand_i = [], []
+    for r0 in range(0, n, chunk):
+        part = scores[:, r0 : r0 + chunk]
+        v, i = torch.sort(part, dim=1, stable=True)
+        keep = min(k, part.shape[1])
+        cand_v.append(v[:, :keep])
+        cand_i.append(i[:, :keep] + r0)
+    v, order = torch.sort(torch.cat(cand_v, 1), dim=1, stable=True)
+    i = torch.gather(torch.cat(cand_i, 1), 1, order)
+    k_eff = min(k, n)
+    v, i = v[:, :k_eff], i[:, :k_eff]
+    out_i[:, :k_eff] = torch.where(v.abs() >= 1e38, -1, i)
+    out_v[:, :k_eff] = -v if metric == "ip" else v
+    return out_v, out_i
+
+
+def assert_ties_by_row(vals, idx, ties, equal: bool) -> None:
+    """One query's answer ``(vals [k], idx [k])`` in which the equal rows
+    ``ties`` (ascending, across select-chunk edges) lead: the leading slots
+    hold tied rows, and where the scan scored them all equal (``equal``,
+    read from an answer with k >= len(ties)) the lowest rows come first."""
+    lead = idx[: min(len(idx), len(ties))].tolist()
+    if not set(lead) <= set(ties):
+        raise AssertionError(f"tied rows {ties} do not lead the answer: {lead}")
+    if equal and lead != list(ties[: len(lead)]):
+        raise AssertionError(f"ties broken out of row order across chunks: {lead}")
 
 
 def assert_topk_near_tie(got, want, rtol: float, atol: float) -> None:

@@ -18,10 +18,13 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import pq_adc as pq_mod  # noqa: E402
 from repro_torch.kernels import sq_codec as sq_mod  # noqa: E402
 from repro_torch.testing import (  # noqa: E402
+    MODEL_TIE,
     SCORE_TOL,
     assert_assign_close,
     assert_scan_close,
+    assert_ties_by_row,
     assert_topk_near_tie,
+    model_tie,
 )
 
 pytestmark = pytest.mark.cuda
@@ -61,6 +64,177 @@ def test_l2_topk_matches_plain(dev, metric, k, nq, d):
     assert l2_mod.l2_topk.launches == before + 1
     want = l2_mod.l2_topk_plain(q, bases, valids, k, metric)
     assert_scan_close(got, want, q, bases, valids, k, metric, *SCORE_TOL[metric])
+
+
+# The redesigned scans: nq across the small-nq path's threshold and the
+# 128-query tensor-core tile, d with and without 16-byte rows, segments across the
+# select's chunk of C rows, ties planted across chunk edges.
+SCAN_NQ = [1, 4, 5, 7, 8, 9, 16, 17, 100, 128, 129, 300]
+SCAN_D = [768, 96, 100, 19]
+C = 16384  # kChunkRows in csrc/scan_common.cuh
+TIE_ROWS = [3, C - 2, C - 1, C, C + 1, 2 * C + 7, 3 * C + 4]
+
+
+def _kernel_launches(fn):
+    """Kernels that one call of ``fn`` ran on the card (copies excluded)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.self_device_time_total > 0 and not e.key.startswith(("Memcpy", "Memset")))
+
+
+def _tied_segments(rng, d, dev):
+    """Segments of 0, 1, C - 1, C, C + 1 and 3C + 5 rows (one all-invalid
+    segment of 700), with one row repeated at TIE_ROWS of the last."""
+    sizes = [0, 1, 700, C - 1, C, C + 1, 3 * C + 5]
+    bases, valids = _segments(rng, sizes, d, dev, all_invalid=(2,))
+    # a row of a quarter of the usual norm, so query 0 = that row sits at L2
+    # distance ~0 without the float32 rounding of norms near d
+    bases[-1][TIE_ROWS] = 0.25 * bases[-1][TIE_ROWS[0]]
+    if valids[-1] is not None:
+        valids[-1][TIE_ROWS] = True
+    return bases, valids
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("d", SCAN_D)
+@pytest.mark.parametrize("nq", SCAN_NQ)
+def test_l2_topk_redesign_matches_plain(dev, metric, d, nq):
+    rng = np.random.default_rng(nq * 1000 + d)
+    bases, valids = _tied_segments(rng, d, dev)
+    tied = bases[-1][TIE_ROWS[0]]
+    q = torch.from_numpy(rng.standard_normal((nq, d)).astype(np.float32)).to(dev)
+    q[0] = tied  # at L2 distance ~0 the tied rows lead query 0
+    equal = None
+    for k in (1024, 100, 1):
+        got = l2_mod.l2_topk(q, bases, valids, k, metric)
+        torch.cuda.synchronize()
+        want = l2_mod.l2_topk_plain(q, bases, valids, k, metric)
+        assert_scan_close(got, want, q, bases, valids, k, metric, *SCORE_TOL[metric])
+        if metric != "l2":
+            continue
+        blk = slice((len(bases) - 1) * k, len(bases) * k)
+        if equal is None:
+            equal = torch.unique(got[0][0, blk][:len(TIE_ROWS)]).numel() == 1
+        assert_ties_by_row(got[0][0, blk], got[1][0, blk], TIE_ROWS, equal)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("d", SCAN_D)
+@pytest.mark.parametrize("nq", SCAN_NQ)
+def test_sq_l2_topk_redesign_matches_plain(dev, metric, d, nq):
+    rng = np.random.default_rng(nq * 1000 + d + 1)
+    for n in (0, 1, C - 1, C + 1, 3 * C + 5):
+        x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dev)
+        lo = x.min(0).values if n else torch.zeros(d, device=dev)
+        hi = x.max(0).values if n else torch.ones(d, device=dev)
+        codes = sq_mod.sq_encode(x, lo, hi)
+        ties = [r for r in TIE_ROWS if r < n]
+        if ties:  # the code nearest the column centres: a row of small norm
+            codes[ties] = sq_mod.sq_encode(((lo + hi) / 2)[None, :], lo, hi)
+        decoded = sq_mod.sq_decode_plain(codes, lo, hi)
+        q = torch.from_numpy(rng.standard_normal((nq, d)).astype(np.float32)).to(dev)
+        if ties:
+            q[0] = decoded[ties[0]]
+        valid = torch.from_numpy(rng.random(n) > 0.2).to(dev)
+        valid[ties] = True
+        equal = None
+        for k in (1024, 100, 1):
+            got = sq_mod.sq_l2_topk(q, codes, lo, hi, valid, k, metric)
+            torch.cuda.synchronize()
+            want = sq_mod.sq_l2_topk_plain(q, codes, lo, hi, valid, k, metric)
+            assert_scan_close(got, want, q, [decoded], [valid], k, metric, *SCORE_TOL[metric])
+            if ties and metric == "l2":
+                if equal is None:
+                    equal = torch.unique(got[0][0, :len(ties)]).numel() == 1
+                assert_ties_by_row(got[0][0], got[1][0], ties, equal)
+
+
+@pytest.mark.parametrize("nq", [1, 100])
+def test_scan_launches_two_kernels_per_chunk_fitting_call(dev, nq):
+    """A call whose segments each fit in one select chunk makes two kernel
+    launches (score pass, select); a longer segment adds the merge stage."""
+    rng = np.random.default_rng(nq)
+    q = torch.from_numpy(rng.standard_normal((nq, 64)).astype(np.float32)).to(dev)
+    small = [torch.from_numpy(rng.standard_normal((n, 64)).astype(np.float32)).to(dev)
+             for n in (2048, 128, C)]
+    assert _kernel_launches(lambda: l2_mod.l2_topk(q, small, [None] * 3, 100)) == 2
+    big = small + [torch.from_numpy(rng.standard_normal((C + 1, 64)).astype(np.float32)).to(dev)]
+    assert _kernel_launches(lambda: l2_mod.l2_topk(q, big, [None] * 4, 100)) == 3
+    x = torch.from_numpy(rng.standard_normal((2048, 64)).astype(np.float32)).to(dev)
+    lo, hi = x.min(0).values, x.max(0).values
+    codes = sq_mod.sq_encode(x, lo, hi)
+    assert _kernel_launches(lambda: sq_mod.sq_l2_topk(q, codes, lo, hi, None, 100)) == 2
+
+
+@pytest.mark.parametrize("k", [1, 100, 1024])
+@pytest.mark.parametrize("n", [C - 1, C + 1, 3 * C + 5])
+def test_pq_adc_topk_ties_across_chunks_are_bit_exact(dev, n, k):
+    """Exact ties (equal codes) at both sides of every chunk edge: the
+    two-stage select keeps the lowest rows, bit-exact against the plain
+    stable sort."""
+    rng = np.random.default_rng(n + k)
+    m, ksub = 48, 256
+    luts = torch.from_numpy(rng.standard_normal((7, m, ksub)).astype(np.float32)).to(dev)
+    codes = torch.from_numpy(rng.integers(0, ksub, (n, m))).to(dev, torch.uint8)
+    codes[[r for r in TIE_ROWS if r < n]] = codes[TIE_ROWS[0]].clone()
+    valid = torch.from_numpy(rng.random(n) > 0.1).to(dev)
+    got = pq_mod.pq_adc_topk(luts, codes, k, valid)
+    want = pq_mod.pq_adc_topk_plain(luts, codes, k, valid)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("d", [16_000, 10_001])
+def test_scan_serves_rows_wider_than_shared_memory(dev, d):
+    """Rows too wide for the small-nq path to stage the queries (and SQ's
+    scale / vmin) in shared memory, on both score paths: small integers
+    (SQ: codes 0..7 with vmin 0 and vmax 255, so scale is 1), whose products
+    and sums float32 holds exactly, so both scans equal their plain
+    versions bit for bit."""
+    rng = np.random.default_rng(d)
+    bases = [torch.from_numpy(rng.integers(-2, 3, (n, d)).astype(np.float32)).to(dev)
+             for n in (700, 3000)]
+    valids = [None, torch.from_numpy(rng.random(3000) > 0.2).to(dev)]
+    codes = torch.from_numpy(rng.integers(0, 8, (3000, d), dtype=np.uint8)).to(dev)
+    lo, hi = torch.zeros(d, device=dev), torch.full((d,), 255.0, device=dev)
+    for nq, small_q in ((1, None), (4, None), (8, 8), (8, None), (100, None)):
+        q = torch.from_numpy(rng.integers(-2, 3, (nq, d)).astype(np.float32)).to(dev)
+        for metric in ("l2", "ip"):
+            case = (nq, small_q, metric)
+            got = l2_mod.l2_topk(q, bases, valids, 100, metric, small_q=small_q)
+            want = l2_mod.l2_topk_plain(q, bases, valids, 100, metric)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), case
+            got = sq_mod.sq_l2_topk(q, codes, lo, hi, valids[1], 100, metric, small_q=small_q)
+            want = sq_mod.sq_l2_topk_plain(q, codes, lo, hi, valids[1], 100, metric)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), case
+
+
+def test_scan_rejects_small_q_outside_its_paths(dev):
+    q = torch.zeros((2, 8), device=dev)
+    with pytest.raises(ValueError):
+        l2_mod.l2_topk(q, [torch.zeros((4, 8), device=dev)], [None], 1, small_q=9)
+    codes = torch.zeros((4, 8), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):
+        sq_mod.sq_l2_topk(q, codes, torch.zeros(8, device=dev), torch.ones(8, device=dev), None, 1,
+                          small_q=-1)
+
+
+@pytest.mark.parametrize("kernel", ["l2_topk", "sq_l2_topk"])
+@pytest.mark.parametrize("nq", [16, 100])
+def test_tensor_core_scores_match_the_3xtf32_model(dev, kernel, nq):
+    """Ties the CPU model of the tensor-core score pass
+    (``testing.scan_scores_tf32``), which ``test_torch_scan_numerics.py``
+    holds to float64, to the card: ``testing.model_tie``'s share of
+    bit-exact scores and largest ulps within ``MODEL_TIE``."""
+    share, ulps = MODEL_TIE
+    for metric, (exact, far) in model_tie(kernel, nq, dev).items():
+        assert exact >= share and far <= ulps, (
+            f"{metric}: {exact:.4f} of the scores bit-exact, {far:.2f} ulps at most")
 
 
 def test_l2_topk_rejects_k_above_limit(dev):

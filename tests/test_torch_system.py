@@ -144,8 +144,7 @@ def test_quickstart_answers_match_reference(runs, name):
     np.testing.assert_array_equal(np.isfinite(gs), np.isfinite(ws))
     fin = np.isfinite(ws)
     np.testing.assert_allclose(gs[fin], ws[fin], rtol=RTOL, atol=ATOL)
-    if name != "winter_dropped":  # the reference's drop also spends a TSO tick on
-        assert got.query_ts == want.query_ts  # a tombstones_folded message (compaction's)
+    assert got.query_ts == want.query_ts
     assert (got.fields is None) == (want.fields is None)
     for f, vals in (want.fields or {}).items():
         np.testing.assert_array_equal(got.fields[f], vals)
