@@ -9,13 +9,18 @@
    on the card.  ``l2_topk``: L2 and IP, k in {1, 100, 1024}, ragged and
    all-invalid segments.  ``merge_topk``: duplicate, negative and >int32
    pks, inf/NaN/-0.0 scores, pools wider than one launch (bit-exact).
-   ``kmeans_assign``: N in {1, 700, 100,000} x C in {1, 16, 128, 256,
-   1,000} x D in {16, 768} and duplicate centroids (earliest wins).
+   ``kmeans_assign``: N in {1, 700, 2,048, 100,000} x C in {1, 8, 16, 17,
+   128, 129, 256, 1,000} x D in {16, 19, 768}, through every score path C
+   and D allow (``small_c=``), duplicate centroids on both sides of a
+   centroid-tile edge (earliest wins), and rows near their centroids held
+   to float64.
    ``sq_encode``: bit-exact, with exact .5 boundaries and a constant
    column.  ``sq_decode``: bit-exact, d % 16 == 0 and odd d, one row, a
    misaligned view, n * d above 2^31.  ``sq_l2_topk``: L2/IP, k in {1, 100, 1024}, nq in {1, 100},
-   ragged and all-invalid.  ``pq_adc_topk``: m in {8, 48}, ksub 256, masks,
-   k in {1, 100, 1024}, bit-exact scores.  Scores are held to
+   ragged and all-invalid.  ``pq_adc_topk``: nq in {1, 3, 4, 5, 8, 100}
+   (ragged query groups) x m in {8, 20, 48} x ksub in {16, 256}, uint8 and
+   int32 codes, aligned and offset views, masks, k in {1, 100, 1024}, a
+   table of exactly one block's shared memory; bit-exact scores.  Scores are held to
    ``repro_torch.testing.SCORE_TOL``, set from the measured float32 error.
    The redesigned scans also: both score paths at nq 1..300, rows of d
    16,000 and 10,001 bit-exact on exact data, and the tensor-core scores
@@ -51,7 +56,10 @@
    rows/s, the flush time, each build, request latencies and two profiled
    requests with the host split.
 6. Each path runs with every launch counter at 0 and fails unless each of
-   its kernels was launched.  Prints phase and build times, request
+   its kernels was launched; ``kmeans_assign``'s calls are also counted per
+   (N, C, D) shape, and the kernel is timed at every shape the paths
+   launched, beside its plain version and its bound, with the sum of
+   launches x (time - bound).  Prints phase and build times, request
    latencies, profiled requests, one JSON line of kernel measurements, the
    card's name and power limit, and as the last line
    ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
@@ -60,6 +68,7 @@
 from __future__ import annotations
 
 import argparse
+import collections
 import gc
 import json
 import statistics
@@ -117,8 +126,16 @@ INDEXED_SEGMENTS = {
 N_CENTERS, NOISE = 1_024, 0.5
 SLICE_ROWS = 2_048  # the system's default (src/repro/core/query_node.py:38)
 KMEANS_SAMPLE = 100_000  # rows an IVF build's Lloyd steps run on (index/kmeans.py)
-# kmeans_assign's kernel-phase grid: rows x centroids (x D in {16, DIM}).
-ASSIGN_ROWS, ASSIGN_CENTROIDS = (1, 700, KMEANS_SAMPLE), (1, 16, 128, 256, 1_000)
+# kmeans_assign's kernel-phase grid: rows (the 128-row tile, the slice
+# builds, a Lloyd step's sample) x centroids (the byte-bound path's sizes,
+# the 128-centroid tile and several tiles) x D (with and without 16-byte
+# rows, the PQ subspaces' 16).
+ASSIGN_ROWS = (1, 700, SLICE_ROWS, KMEANS_SAMPLE)
+ASSIGN_CENTROIDS = (1, 8, 16, 17, 128, 129, 256, 1_000)
+ASSIGN_D = (16, 19, DIM)
+# pq_adc_topk's kernel-phase grid: query groups full and ragged, m with
+# 16-byte, 4-byte and single-code loads, tables of 16 and 256 entries.
+PQ_NQ, PQ_M, PQ_KSUB = (1, 3, 4, 5, 8, 100), (8, 20, 48), (16, 256)
 # sq_decode's kernel phase: a row count with n * DIM above 2^31.
 DECODE_ROWS_64BIT = 2_800_000
 # Facade path: the ManuSystem deployment (2 shards, 2 loggers, 1 data node,
@@ -149,6 +166,34 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
         fn()
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time per call of ``fn`` over ``reps`` calls queued behind
+    a sleep kernel: the stream is held while the host enqueues them, so the
+    calls run back to back and the host time between launches does not
+    count -- the measure for calls whose kernels are shorter than their
+    launch overhead.  CUDA events around the queued calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    hold_s = min(2.0, 1e-3 + 2 * reps * (time.perf_counter() - t))  # > the enqueue time
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(hold_s * 2e9))  # cycles at up to 2 GHz
+    t = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    enqueue_s = time.perf_counter() - t
+    end.synchronize()
+    if enqueue_s > hold_s:
+        raise AssertionError(f"device_ms: the host took {enqueue_s:.4f} s to enqueue, longer "
+                             f"than the {hold_s:.4f} s hold")
     return start.elapsed_time(end) / reps
 
 
@@ -321,13 +366,14 @@ def model_tie_phase(testing, dev) -> dict:
 
 
 def tensor_core_counts(_build) -> dict:
-    """HMMA / HGMMA instructions in the built scan libraries' SASS
-    (``cuobjdump -sass``), where the toolkit has cuobjdump."""
+    """HMMA / HGMMA instructions in the built libraries of the tensor-core
+    score pass's users (``cuobjdump -sass``), where the toolkit has
+    cuobjdump."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = {}
-    for name in ("l2_topk", "sq_codec"):
+    for name in ("l2_topk", "sq_codec", "kmeans_assign"):
         try:
             sass = subprocess.run([tool, "-sass", str(_build._lib_path(name))], capture_output=True,
                                   text=True, timeout=120).stdout
@@ -524,28 +570,66 @@ def index_kernel_phase(torch, km_mod, sq_mod, pq_mod, testing, dev, gen) -> dict
            "pq_adc_topk": 0.0}
     tol = testing.SCORE_TOL
     n_assign = 0
-    for d in (16, DIM):
+    near_err = {}
+    largest = km_mod.SMALL_C_MAX
+
+    def assign_paths(c, d):  # small_c forcing each path (c, d) can take, and the default
+        return ((0, c) if c <= largest or d <= km_mod.NARROW_D else (0,)) + (None,)
+
+    for d in ASSIGN_D:
         xs = {n: torch.randn((n, d), generator=gen, device=dev) for n in ASSIGN_ROWS}
         for c in ASSIGN_CENTROIDS:
             cent = torch.randn((c, d), generator=gen, device=dev)
             for x in xs.values():
-                got = km_mod.kmeans_assign(x, cent)
                 want = km_mod.kmeans_assign_plain(x, cent)
-                torch.cuda.synchronize()
-                testing.assert_assign_close(got, want, x, cent, *tol["l2"])
-                err["kmeans_assign"] = max(err["kmeans_assign"], (got[1] - want[1]).abs().max().item())
-                n_assign += 1
-        # The same centroids again in later tiles: the earliest copy wins.
-        base = torch.randn((100, d), generator=gen, device=dev)
-        cent = torch.cat([base, base, base]).contiguous()
+                for small_c in assign_paths(c, d):
+                    got = km_mod.kmeans_assign(x, cent, small_c=small_c)
+                    torch.cuda.synchronize()
+                    testing.assert_assign_close(got, want, x, cent, *tol["l2"])
+                    err["kmeans_assign"] = max(err["kmeans_assign"], (got[1] - want[1]).abs().max().item())
+                    n_assign += 1
+        # Each centroid twice, the copy c / 2 later: across 128-centroid tile
+        # edges on the tensor-core path (at 256 centroid 127's copy also sits
+        # right after the edge), across the narrow-row path's 256-centroid
+        # chunk (300), within one tile on the byte-bound path.  Every row's
+        # nearest centroid has a copy, which ties exactly; the earliest must
+        # win.
         x = xs[ASSIGN_ROWS[-1]]
-        got = km_mod.kmeans_assign(x, cent)
-        want = km_mod.kmeans_assign_plain(x, cent)
-        torch.cuda.synchronize()
-        if not bool((got[0] < 100).all()):
-            raise AssertionError("kmeans_assign: a later duplicate centroid won a tie")
-        testing.assert_assign_close(got, want, x, cent, *tol["l2"])
-        n_assign += 1
+        for c in (largest, 256, 300):
+            base = torch.randn((c // 2, d), generator=gen, device=dev)
+            cent = torch.cat([base, base])
+            if c == 256:
+                cent[128] = cent[127]
+            want = km_mod.kmeans_assign_plain(x, cent)
+            for small_c in assign_paths(c, d):
+                got = km_mod.kmeans_assign(x, cent, small_c=small_c)
+                torch.cuda.synchronize()
+                if not bool((got[0] < c // 2).all()):
+                    raise AssertionError(f"kmeans_assign (C={c}, d={d}, small_c={small_c}): a later "
+                                         "copy of a centroid won a tie")
+                testing.assert_assign_close(got, want, x, cent, *tol["l2"])
+                n_assign += 1
+        # Rows 0.1 sigma from their centroid: d2 ~ 0.01 d against norms ~ d,
+        # where the expansion cancels and two float32 versions may differ by
+        # both their errors, so the kernel is held to float64 here (the plain
+        # version's error printed beside it).
+        for c in (largest, 256):
+            cent = torch.randn((c, d), generator=gen, device=dev)
+            pick = torch.randint(0, c, (ASSIGN_ROWS[-1],), generator=gen, device=dev)
+            x = cent[pick] + 0.1 * torch.randn((ASSIGN_ROWS[-1], d), generator=gen, device=dev)
+            for small_c in assign_paths(c, d):
+                got = km_mod.kmeans_assign(x, cent, small_c=small_c)
+                torch.cuda.synchronize()
+                key = "kmeans_assign near rows vs float64"
+                near_err[key] = max(near_err.get(key, 0.0), testing.assign_error_float64(
+                    got, x, cent, *tol["l2"]))
+                n_assign += 1
+            plain = km_mod.kmeans_assign_plain(x, cent)
+            x64, c64 = x.double(), cent.double()[plain[0]]
+            exact = ((x64 - c64) ** 2).sum(1)
+            key = "kmeans_assign_plain near rows vs float64"
+            near_err[key] = max(near_err.get(key, 0.0), (plain[1].double() - exact).abs().max().item())
+            del x64, c64
         del xs
 
     x = torch.randn((SEG_ROWS, DIM), generator=gen, device=dev)
@@ -608,22 +692,43 @@ def index_kernel_phase(torch, km_mod, sq_mod, pq_mod, testing, dev, gen) -> dict
                     n_sq += 1
 
     n_pq = 0
-    for m in (8, 48):
-        c = torch.randint(0, 256, (SEG_ROWS, m), generator=gen, device=dev, dtype=torch.int32)
-        c[:64] = c[0]  # exact ties
-        valid = torch.rand(SEG_ROWS, generator=gen, device=dev) > 0.1
-        for nq in (1, 100):
-            luts = torch.randn((nq, m, 256), generator=gen, device=dev)
-            for k in (1, 100, 1024):
-                for codes in (c.to(torch.uint8), c):
-                    got = pq_mod.pq_adc_topk(luts, codes, k, valid)
-                    want = pq_mod.pq_adc_topk_plain(luts, codes, k, valid)
-                    torch.cuda.synchronize()
-                    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-                        raise AssertionError(f"pq_adc_topk differs from its plain version (m={m}, k={k})")
-                    n_pq += 1
-    log(f"kernel phase: kmeans_assign {n_assign} cases agree (rtol, atol {tol['l2']}, "
-        f"near-ties exempt, earliest duplicate wins); sq_encode bit-exact (.5 boundaries, "
+    valid = torch.rand(SEG_ROWS, generator=gen, device=dev) > 0.1
+    for m in PQ_M:
+        for ksub in PQ_KSUB:
+            c = torch.randint(0, ksub, (SEG_ROWS, m), generator=gen, device=dev, dtype=torch.int32)
+            c[:64] = c[0].clone()  # exact ties
+            for nq in PQ_NQ:
+                luts = torch.randn((nq, m, ksub), generator=gen, device=dev)
+                ks = (1, 100, 1024) if nq in (1, 100) and ksub == 256 else (K,)
+                for k in ks:
+                    for codes in (c.to(torch.uint8), c):
+                        want = pq_mod.pq_adc_topk_plain(luts, codes, k, valid)
+                        views = [(luts, codes)]
+                        if k == K:  # offset views: narrower table and code loads
+                            views.append((offset_view(torch, luts, 1), offset_view(torch, codes, 1)))
+                        for lt, ct in views:
+                            got = pq_mod.pq_adc_topk(lt, ct, k, valid)
+                            torch.cuda.synchronize()
+                            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                                raise AssertionError(
+                                    f"pq_adc_topk differs from its plain version (nq={nq}, m={m}, "
+                                    f"ksub={ksub}, k={k}, {ct.dtype}, offsets {lt.data_ptr() % 16} / "
+                                    f"{ct.data_ptr() % 16})")
+                            n_pq += 1
+    # A table of exactly one block's shared memory: one query per block.
+    m = pq_mod.MAX_LUT_BYTES // (4 * 256)
+    luts = torch.randn((5, m, 256), generator=gen, device=dev)
+    c = torch.randint(0, 256, (3000, m), generator=gen, device=dev, dtype=torch.int32)
+    for codes in (c.to(torch.uint8), c):
+        got = pq_mod.pq_adc_topk(luts, codes, K)
+        want = pq_mod.pq_adc_topk_plain(luts, codes, K)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"pq_adc_topk differs from its plain version at a {m} x 256 table")
+        n_pq += 1
+    log(f"kernel phase: kmeans_assign {n_assign} cases agree, every score path (rtol, atol "
+        f"{tol['l2']}, near-ties exempt, earliest copy wins across tile edges; rows near their "
+        f"centroids within it of float64, largest |err| {json.dumps(near_err)}); sq_encode bit-exact (.5 boundaries, "
         f"constant column); sq_decode {n_dec} cases bit-exact (n * d up to "
         f"{DECODE_ROWS_64BIT * DIM}); sq_l2_topk {n_sq} cases agree; pq_adc_topk {n_pq} cases "
         f"bit-exact; max |err| {err}")
@@ -640,6 +745,15 @@ class Ticks:
     def next(self) -> int:
         self.ts += 1
         return self.ts
+
+
+def offset_view(torch, t, elems: int):
+    """``t``'s values in a contiguous view ``elems`` elements past an
+    aligned allocation."""
+    flat = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    view = flat[elems:].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 def mixture(torch, gen, dev, n: int, centers):
@@ -810,6 +924,9 @@ def indexed_path(torch, mods, gen, dev, phases, counts):
             results[(nq, pin)] = out
     phases["ivf_requests_s"] = time.perf_counter() - t0
     launches = counts.read()
+    # IVF builds on the tensor cores, slices byte-bound, PQ subspaces narrow rows
+    assign_shapes = counts.read_shapes(launches, "indexed",
+                                       ("tensor_cores", "byte_bound", "narrow_rows"))
     n_requests = sum(reps[nq] + 1 for nq in queries) * 2
     log(f"indexed path launches: {launches} ({n_requests} requests, {N_SEALED} builds, "
         f"{n_slices} slice indexes)")
@@ -820,7 +937,7 @@ def indexed_path(torch, mods, gen, dev, phases, counts):
         "name": name, "x": x, "queries": queries, "nodes": nodes, "store": store,
         "built": built, "builds": builds, "doomed": doomed, "request": request,
         "latency": latency, "results": results, "launches": launches,
-        "n_requests": n_requests,
+        "assign_shapes": assign_shapes, "n_requests": n_requests,
     }
 
 
@@ -888,10 +1005,12 @@ def check_indexed(torch, run, testing, dev, phases) -> None:
     phases["ivf_recall_and_rebuild_s"] = time.perf_counter() - t0
 
 
-def index_kernel_times(torch, run, km_mod, sq_mod, pq_mod, dev, gen) -> dict:
-    """The four index kernels at the indexed path's shapes: kernel, plain
-    version and (where one PyTorch call computes the same function) the
-    library call, with the bound from this run's shapes."""
+def index_kernel_times(torch, run, sq_mod, pq_mod, dev, gen, card) -> dict:
+    """``sq_encode``, ``sq_l2_topk`` and ``pq_adc_topk`` at the indexed
+    path's shapes: kernel, plain version and (where one PyTorch call
+    computes the same function) the library call, with the bound from this
+    run's shapes (``kmeans_assign`` is timed per shape by
+    ``assign_shape_times``)."""
     from repro_torch import testing
 
     handles = {}
@@ -906,18 +1025,6 @@ def index_kernel_times(torch, run, km_mod, sq_mod, pq_mod, dev, gen) -> dict:
         t_b, t_o = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_FLOPS
         return {"bound_ms": max(t_b, t_o) * 1e3, "bound_by": "bytes" if t_b >= t_o else "operations"}
 
-    # kmeans_assign: one Lloyd step of an IVF build (100,000 sampled rows,
-    # 128 centroids, D = 768).
-    xs = x[:KMEANS_SAMPLE].contiguous()
-    cent = handles[0].index.centroids.contiguous()
-    n, c = xs.shape[0], cent.shape[0]
-    out["kmeans_assign"] = {
-        "ms": cuda_ms(torch, lambda: km_mod.kmeans_assign(xs, cent), 10),
-        "plain_ms": cuda_ms(torch, lambda: km_mod.kmeans_assign_plain(xs, cent), 10),
-        "library_ms": None,
-        **bound(4 * n * DIM + 4 * c * DIM + 12 * n, 2 * n * c * DIM + 2 * (n + c) * DIM + 3 * n * c),
-        "shape": f"N={n} C={c} D={DIM}",
-    }
     # sq_encode: segment 5's SQ build (131,072 x 768).
     x5 = x[5 * SEG_ROWS:6 * SEG_ROWS].contiguous()
     lo, hi = x5.min(0).values, x5.max(0).values
@@ -946,12 +1053,25 @@ def index_kernel_times(torch, run, km_mod, sq_mod, pq_mod, dev, gen) -> dict:
             "shape": f"nq={nq} N={SEG_ROWS} D={DIM} uint8 k={K}",
         }
         luts = testing.lut_tables(q, pqi.codebooks).contiguous()
+        codes = pqi.codes
+        lookups = nq * SEG_ROWS * m
+        terms = {  # least time per term, seconds
+            "bytes": (4 * nq * m * ksub + SEG_ROWS * m * codes.element_size() + SEG_ROWS
+                      + 12 * nq * K) / PEAK_BYTES_S,
+            "f32 adds": lookups / PEAK_F32_FLOPS,
+            # shared memory serves 32 four-byte entries per clock per SM
+            "lookups": lookups / (card["sms"] * 32 * card["sm_clock_hz"]),
+        }
+        term = max(terms, key=terms.get)
         out[f"pq_adc_topk nq={nq}"] = {
-            "ms": cuda_ms(torch, lambda: pq_mod.pq_adc_topk(luts, pqi.codes, K, valid), reps),
-            "plain_ms": cuda_ms(torch, lambda: pq_mod.pq_adc_topk_plain(luts, pqi.codes, K, valid), reps),
+            "ms": cuda_ms(torch, lambda: pq_mod.pq_adc_topk(luts, codes, K, valid), reps),
+            "device_ms": device_ms(torch, lambda: pq_mod.pq_adc_topk(luts, codes, K, valid), reps),
+            "plain_ms": cuda_ms(torch, lambda: pq_mod.pq_adc_topk_plain(luts, codes, K, valid), reps),
             "library_ms": None,
-            **bound(4 * nq * m * ksub + SEG_ROWS * m + SEG_ROWS + 12 * nq * K, nq * SEG_ROWS * m),
-            "shape": f"nq={nq} N={SEG_ROWS} M={m} KSUB={ksub} uint8 codes k={K}",
+            "bound_ms": terms[term] * 1e3, "bound_by": "bytes" if term == "bytes" else "operations",
+            "bound_term": term, "terms_ms": {t: v * 1e3 for t, v in terms.items()},
+            "query_group": pq_mod.query_group(nq, m, ksub),
+            "shape": f"nq={nq} N={SEG_ROWS} M={m} KSUB={ksub} {codes.dtype} codes k={K}",
         }
     for kname, row in out.items():
         log(f"{kname}: " + json.dumps(row))
@@ -1104,6 +1224,7 @@ def facade_path(torch, gen, dev, phases, counts, testing) -> dict:
             results[(kind, nq)] = first
     phases["facade_requests_s"] = time.perf_counter() - t0
     launches = counts.read()
+    assign_shapes = counts.read_shapes(launches, "facade", ("tensor_cores", "byte_bound"))
     log(f"facade path launches: {launches}")
     for kname in FACADE_KERNELS:
         if launches[kname] <= 0:
@@ -1173,7 +1294,77 @@ def facade_path(torch, gen, dev, phases, counts, testing) -> dict:
             + ", ".join(f"{k} {v:.3f}" for k, v in sorted(split.items())))
     phases["facade_profile_s"] = time.perf_counter() - t0
     return {"manu": manu, "coll": coll, "name": name, "latency": latency, "launches": launches,
-            "builds": builds, "held": held}
+            "assign_shapes": assign_shapes, "builds": builds, "held": held}
+
+
+def assign_bound(n: int, c: int, d: int) -> dict:
+    """kmeans_assign's bound: the rows and centroids read once and the
+    assignment and distance written once against the 3xTF32 product
+    (3 x 2 N C D over the TF32 rate); the f32 bound of earlier runs (the
+    product, norms and d2 over the f32 rate) beside it."""
+    return scan_bound(c, 4 * n * d + 4 * c * d + 12 * n, n, d,
+                      2 * n * c * d + 2 * (n + c) * d + 3 * n * c)
+
+
+def assign_shape_times(torch, km_mod, shapes: dict, gen, dev) -> dict:
+    """kmeans_assign at every (N, C, D) the paths launched it at, on seeded
+    data of that shape: the kernel's and the plain version's device time
+    (``device_ms``), the kernel's CUDA-event time, the bound, the score path
+    the default threshold takes and the launches.  Logs each row and the sum
+    of launches x (time - bound) over the shapes."""
+    rows = {}
+    for (n, c, d), launches in sorted(shapes.items(), key=lambda kv: -kv[0][0] * kv[0][1] * kv[0][2]):
+        x = torch.randn((n, d), generator=gen, device=dev)
+        cent = torch.randn((c, d), generator=gen, device=dev)
+        reps = 10 if n * c * d > 10**9 else 50
+        row = {
+            "launches": launches,
+            "path": ("tensor cores" if c > km_mod.default_small_c(d)
+                     else "narrow rows" if d <= km_mod.NARROW_D else "byte-bound"),
+            "ms": device_ms(torch, lambda: km_mod.kmeans_assign(x, cent), reps),
+            "event_ms": cuda_ms(torch, lambda: km_mod.kmeans_assign(x, cent), reps),
+            "plain_ms": device_ms(torch, lambda: km_mod.kmeans_assign_plain(x, cent), reps),
+            "library_ms": None, **assign_bound(n, c, d),
+        }
+        rows[(n, c, d)] = row
+        log(f"kmeans_assign N={n} C={c} D={d}: " + json.dumps(row))
+    loss = sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in rows.values())
+    log(f"kmeans_assign: {sum(r['launches'] for r in rows.values())} launches over {len(rows)} "
+        f"shapes; sum of launches x (ms - bound_ms) {loss:.3f} ms")
+    return rows
+
+
+def assign_crossover(torch, km_mod, gen, dev) -> dict:
+    """kmeans_assign's CUDA-core path (small_c = C: the byte-bound path on
+    rows wider than NARROW_D floats, the narrow-row path on narrower ones)
+    against the tensor cores (small_c = 0), device time: C 8, 16 and 32 on
+    rows of the slice builds' 2,048 at d 768 down to 16, and C 8 to 256 on
+    131,072 x 16 (a PQ subspace's rows).  The default rule (every C at
+    d <= NARROW_D; else C <= ``kSmallC`` with d >= ``kRowFloatsPerC`` x C)
+    should sit where the faster path changes."""
+    out = {}
+    shapes = [(SLICE_ROWS, c, d) for d in (DIM, 128, 64, 32, 16) for c in (8, 16, 32)]
+    shapes += [(SEG_ROWS, c, 16) for c in (8, 16, 32, 256)]
+    for n, c, d in shapes:
+        x = torch.randn((n, d), generator=gen, device=dev)
+        cent = torch.randn((c, d), generator=gen, device=dev)
+        cores = device_ms(torch, lambda: km_mod.kmeans_assign(x, cent, small_c=c), 50)
+        tc = device_ms(torch, lambda: km_mod.kmeans_assign(x, cent, small_c=0), 50)
+        name = "narrow rows" if d <= km_mod.NARROW_D else "byte-bound"
+        out[f"N={n} C={c} D={d}"] = {"cuda_core_ms": cores, "tensor_core_ms": tc,
+                                     "faster": name if cores < tc else "tensor cores"}
+    log("kmeans_assign score paths: " + json.dumps(out))
+    return out
+
+
+def card_info(torch) -> dict:
+    """SM count and the largest SM clock (``nvidia-smi``), for the shared
+    memory lookup rate."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    mhz = float(smi.stdout.strip().splitlines()[0].split()[0])
+    return {"sms": torch.cuda.get_device_properties(0).multi_processor_count,
+            "sm_clock_hz": mhz * 1e6}
 
 
 def sq_decode_times(torch, held, sq_mod, dev) -> dict:
@@ -1197,14 +1388,41 @@ def sq_decode_times(torch, held, sq_mod, dev) -> dict:
 
 class LaunchCounts:
     """The kernel wrappers' launch counters, set to 0 before a path runs
-    and read after it."""
+    and read after it; and ``assign_shapes``, the index builds' calls of
+    ``ops.kmeans_assign`` per (N, C, D), counted by wrapping the op (the
+    wrapper's own counter is unchanged)."""
 
-    def __init__(self, wrappers: dict):
+    def __init__(self, wrappers: dict, ops):
         self.wrappers = wrappers
+        self.assign_shapes = collections.Counter()
+        op = ops.kmeans_assign
+
+        def counted(x, centroids):
+            self.assign_shapes[(x.shape[0], centroids.shape[0], x.shape[1])] += 1
+            return op(x, centroids)
+
+        ops.kmeans_assign = counted
 
     def reset(self) -> None:
         for fn in self.wrappers.values():
             fn.launches = 0
+        assign = self.wrappers["kmeans_assign"]
+        assign.path_launches = dict.fromkeys(assign.path_launches, 0)
+        self.assign_shapes.clear()
+
+    def read_shapes(self, launches: dict, label: str, paths_taken) -> collections.Counter:
+        """The shapes counted since the reset, which must add up to the
+        kernel's launches; logs the launches per score path, of which the
+        path must have taken each in ``paths_taken``."""
+        if sum(self.assign_shapes.values()) != launches["kmeans_assign"]:
+            raise AssertionError(f"kmeans_assign launched {launches['kmeans_assign']} times, the op "
+                                 f"was called {sum(self.assign_shapes.values())} times")
+        paths = self.wrappers["kmeans_assign"].path_launches
+        log(f"{label} path: kmeans_assign launches per score path {paths}, per (N, C, D) "
+            + json.dumps({str(k): v for k, v in sorted(self.assign_shapes.items())}))
+        if any(paths[p] <= 0 for p in paths_taken):
+            raise AssertionError(f"kmeans_assign did not take each of {paths_taken} on the {label} path")
+        return self.assign_shapes.copy()
 
     def read(self) -> dict:
         return {name: fn.launches for name, fn in self.wrappers.items()}
@@ -1247,7 +1465,8 @@ def main() -> int:
         "kmeans_assign": km_mod.kmeans_assign, "sq_encode": sq_mod.sq_encode,
         "sq_decode": sq_mod.sq_decode, "sq_l2_topk": sq_mod.sq_l2_topk,
         "pq_adc_topk": pq_mod.pq_adc_topk,
-    })
+    }, ops)
+    card = card_info(torch)
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
@@ -1270,7 +1489,7 @@ def main() -> int:
     for kname in ("l2_topk", "sq_l2_topk"):
         max_err[kname] = max([max_err[kname]] + [v for k, v in scan_err.items()
                                                  if k.startswith(kname + " ") and "plain" in k])
-    log("tensor-core instructions in the built scans (cuobjdump -sass): "
+    log("tensor-core instructions in the built libraries (cuobjdump -sass): "
         + json.dumps(tensor_core_counts(_build)))
     phases["kernel_phase_s"] = time.perf_counter() - t0
 
@@ -1458,11 +1677,11 @@ def main() -> int:
         "bound_ms": (12 * 100 * m_pool + 12 * 100 * K) / PEAK_BYTES_S * 1e3,
     }
     log(f"merge_topk nq=100 M={m_pool} k={K}: " + json.dumps(mt))
-    it = index_kernel_times(torch, run, km_mod, sq_mod, pq_mod, dev, gen)
+    it = index_kernel_times(torch, run, sq_mod, pq_mod, dev, gen, card)
     phases["kernel_timing_s"] = time.perf_counter() - t0
     per = {k: n / run["n_requests"] for k, n in run["launches"].items()}
     log(f"indexed path launches per request (builds and slice indexes included): {per}")
-    ivf_latency, ivf_launches = run["latency"], run["launches"]
+    ivf_latency, ivf_launches, ivf_shapes = run["latency"], run["launches"], run["assign_shapes"]
     # The earlier paths' tables, stores and nodes go before the facade's.
     del run, data, nodes, broker, store, bases, valids, x, results
     gc.collect()
@@ -1472,6 +1691,10 @@ def main() -> int:
     fac = facade_path(torch, gen, dev, phases, counts, testing)
     t0 = time.perf_counter()
     it["sq_decode"] = sq_decode_times(torch, fac["held"], sq_mod, dev)
+    # kmeans_assign at every shape the paths launched it at (FLAT builds none)
+    assign_rows = assign_shape_times(torch, km_mod, ivf_shapes + fac["assign_shapes"], gen, dev)
+    it["kmeans_assign"] = assign_rows[(KMEANS_SAMPLE, IVF_PARAMS["nlist"], DIM)]
+    assign_crossover(torch, km_mod, gen, dev)
     phases["kernel_timing_s"] += time.perf_counter() - t0
 
     for key, times in {**latency, **ivf_latency, **fac["latency"]}.items():
@@ -1517,6 +1740,12 @@ def main() -> int:
         index_row("pq_adc_topk", "pq_adc_topk nq=100", "src/repro/kernels/pq_adc.py:84",
                   "pq_adc.cu"),
     ]
+    # Where the main path loses most to the bounds: launches x (time - bound)
+    # per kernel, kmeans_assign summed over its shapes.
+    loss = {row["name"]: row["launches"] * (row["ms"] - row["bound_ms"]) for row in kernels}
+    loss["kmeans_assign"] = sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in assign_rows.values())
+    log("launches x (ms - bound_ms) per kernel: "
+        + json.dumps(dict(sorted(loss.items(), key=lambda kv: -kv[1]))))
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

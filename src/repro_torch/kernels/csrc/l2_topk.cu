@@ -19,77 +19,9 @@
 // total; at nq <= 4 one warp per row streams the base with 16-byte loads
 // and f32 FMAs.  The largest score error against the plain float32 version
 // and against float64 is printed by chip_smoke.py's kernel phase and kept in
-// PERF.md.  Here the rows are f32.
+// PERF.md.  Here the rows are f32 (F32Rows in scan_common.cuh, shared with
+// kmeans_assign.cu).
 #include "scan_common.cuh"
-
-namespace {
-
-struct F32Rows {
-  static constexpr bool kCodes = false;
-  static constexpr int kXBytes = BN * kLdF * 4;  // 18 KB
-  static constexpr int kParFloats = 0;
-  static constexpr int kSmallQ = 4;  // measured: chip_smoke.py's path_crossover
-
-  int tile_vec(int d, int xalign) const { return d % 4 == 0 && xalign >= 16; }
-  int small_vec(int d, int xalign) const { return d % 4 == 0 && xalign >= 16; }
-
-  // Rows r0 .. r0 + BN of columns k0 .. k0 + BK, zero past n and d; vec: 16
-  // bytes per copy (d % 4 == 0, 16-byte aligned).
-  __device__ __forceinline__ void load_tile(unsigned char* tile_bytes, const void* base,
-                                            long long r0, long long n, int k0, int d, bool vec,
-                                            int tid) const {
-    float* tile = reinterpret_cast<float*>(tile_bytes);
-    const float* src = reinterpret_cast<const float*>(base);
-    if (vec) {
-      for (int i = tid; i < BN * (BK / 4); i += kThreads) {
-        const int row = i >> 3, c = (i & 7) * 4;
-        const long long r = r0 + row;
-        const bool ok = r < n && k0 + c < d;
-        cp_async16(tile + row * kLdF + c, ok ? src + r * d + k0 + c : src, ok);
-      }
-    } else {
-      for (int i = tid; i < BN * BK; i += kThreads) {
-        const int row = i / BK, c = i % BK;
-        const long long r = r0 + row;
-        tile[row * kLdF + c] = (r < n && k0 + c < d) ? src[r * d + k0 + c] : 0.f;
-      }
-    }
-  }
-
-  __device__ __forceinline__ float at(const unsigned char* tile, int row, int c,
-                                      const float* /*ps*/) const {
-    return reinterpret_cast<const float*>(tile)[row * kLdF + c];
-  }
-
-  template <int NQ, bool kStaged>
-  __device__ __forceinline__ void dot_row(const void* base, long long r, int d, bool vec, int lane,
-                                          const float* const (&qrow)[NQ], const float* /*par*/,
-                                          int /*dpad*/, float (&acc)[NQ], float& xn) const {
-    const float* __restrict__ x = reinterpret_cast<const float*>(base) + r * d;
-    if (vec) {
-      const float4* __restrict__ x4 = reinterpret_cast<const float4*>(x);
-#pragma unroll 4
-      for (int c = lane; c < d / 4; c += 32) {
-        const float4 v = __ldg(x4 + c);
-        xn = fmaf(v.x, v.x, fmaf(v.y, v.y, fmaf(v.z, v.z, fmaf(v.w, v.w, xn))));
-#pragma unroll
-        for (int j = 0; j < NQ; ++j) {
-          const float4 w = *reinterpret_cast<const float4*>(qrow[j] + 4 * c);
-          acc[j] = fmaf(v.x, w.x, fmaf(v.y, w.y, fmaf(v.z, w.z, fmaf(v.w, w.w, acc[j]))));
-        }
-      }
-    } else {
-      for (int c = lane; c < d; c += 32) {
-        const float v = x[c];
-        xn = fmaf(v, v, xn);
-#pragma unroll
-        for (int j = 0; j < NQ; ++j) acc[j] = fmaf(v, qrow[j][c], acc[j]);
-      }
-    }
-  }
-};
-
-}  // namespace
 
 extern "C" int repro_l2_topk_max_k() { return kMaxK; }
 // The wrapper builds the table's tile and chunk offsets with these.

@@ -1,8 +1,12 @@
 // The segmented distance scan shared by l2_topk.cu (f32 rows) and
 // sq_codec.cu (uint8 SQ codes, dequantized on load), and the two-stage
 // per-segment top-k select that l2_topk.cu, sq_codec.cu and pq_adc.cu all
-// run over a [nq, N] score scratch.  Included by exactly one translation
-// unit per shared library, so everything here has internal linkage.
+// run over a [nq, N] score scratch.  kmeans_assign.cu runs the same two
+// score passes with the rows as the base and the centroids as the queries,
+// through another epilogue (Epi: ScoreEpi here writes the score scratch)
+// and one segment passed by value (Segs: TableSegs here reads the packed
+// device table).  Included by exactly one translation unit per shared
+// library, so everything here has internal linkage.
 //
 // Score pass, nq > Rows::kSmallQ (wgmma_scores_kernel): one block per (base tile
 // of BN = 128 rows, query tile of BQ = 16 * NT <= 128 queries) over every
@@ -120,6 +124,49 @@ __device__ __forceinline__ int owner_segment(const long long* start, int S, long
   return lo;
 }
 
+// The rows one score tile (or one small-path row) belongs to: the segment's
+// base and valid mask (null = all valid), its row count, the first local
+// row r of the tile (or the row), and the score column of local row r.
+struct SegRows {
+  const void* base;
+  const unsigned char* valid;
+  long long n;
+  long long r;
+  long long col;
+};
+
+// Every segment of the packed device table (the scans).
+struct TableSegs {
+  const long long* tab;
+  int S;
+
+  __device__ __forceinline__ SegRows tile(long long t) const {
+    const SegTable tb = seg_table(tab, S);
+    const int s = owner_segment(tb.tile_start, S, t);
+    const long long r0 = (t - tb.tile_start[s]) * BN;
+    return {reinterpret_cast<const void*>(tb.base[s]),
+            reinterpret_cast<const unsigned char*>(tb.valid[s]), tb.rows[s], r0,
+            tb.col_off[s] + r0};
+  }
+  // Row `col` of the class, by its score column.
+  __device__ __forceinline__ SegRows row(long long col) const {
+    const SegTable tb = seg_table(tab, S);
+    const int s = owner_segment(tb.col_off, S, col);
+    return {reinterpret_cast<const void*>(tb.base[s]),
+            reinterpret_cast<const unsigned char*>(tb.valid[s]), tb.rows[s], col - tb.col_off[s],
+            col};
+  }
+};
+
+// One segment of n rows, every row valid, passed by value (no table copy).
+struct OneSeg {
+  const void* base;
+  long long n;
+
+  __device__ __forceinline__ SegRows tile(long long t) const { return {base, nullptr, n, t * BN, t * BN}; }
+  __device__ __forceinline__ SegRows row(long long r) const { return {base, nullptr, n, r, r}; }
+};
+
 // Inverse of float_key.
 __device__ __forceinline__ float key_float(unsigned int k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
@@ -220,15 +267,139 @@ __device__ __forceinline__ void load_q_sw128(float* tile, int rows, const float*
 //   at(tile, row, c, ps)              base element (row, k0 + c) as f32
 //   tile_vec(d, xalign)               whether load_tile may copy 16 bytes
 //   kSmallQ           the nq at or below which the small-nq path runs by default
+// and, for the small-nq path (below), load_params, dot_row and small_vec.
+
+// f32 rows (l2_topk.cu, kmeans_assign.cu).
+struct F32Rows {
+  static constexpr bool kCodes = false;
+  static constexpr int kXBytes = BN * kLdF * 4;  // 18 KB
+  static constexpr int kParFloats = 0;
+  static constexpr int kSmallQ = 4;  // l2_topk, measured: chip_smoke.py's path_crossover
+
+  int tile_vec(int d, int xalign) const { return d % 4 == 0 && xalign >= 16; }
+  int small_vec(int d, int xalign) const { return d % 4 == 0 && xalign >= 16; }
+
+  // Rows r0 .. r0 + BN of columns k0 .. k0 + BK, zero past n and d; vec: 16
+  // bytes per copy (d % 4 == 0, 16-byte aligned).
+  __device__ __forceinline__ void load_tile(unsigned char* tile_bytes, const void* base,
+                                            long long r0, long long n, int k0, int d, bool vec,
+                                            int tid) const {
+    float* tile = reinterpret_cast<float*>(tile_bytes);
+    const float* src = reinterpret_cast<const float*>(base);
+    if (vec) {
+      for (int i = tid; i < BN * (BK / 4); i += kThreads) {
+        const int row = i >> 3, c = (i & 7) * 4;
+        const long long r = r0 + row;
+        const bool ok = r < n && k0 + c < d;
+        cp_async16(tile + row * kLdF + c, ok ? src + r * d + k0 + c : src, ok);
+      }
+    } else {
+      for (int i = tid; i < BN * BK; i += kThreads) {
+        const int row = i / BK, c = i % BK;
+        const long long r = r0 + row;
+        tile[row * kLdF + c] = (r < n && k0 + c < d) ? src[r * d + k0 + c] : 0.f;
+      }
+    }
+  }
+
+  __device__ __forceinline__ float at(const unsigned char* tile, int row, int c,
+                                      const float* /*ps*/) const {
+    return reinterpret_cast<const float*>(tile)[row * kLdF + c];
+  }
+
+  template <int NQ, bool kStaged>
+  __device__ __forceinline__ void dot_row(const void* base, long long r, int d, bool vec, int lane,
+                                          const float* const (&qrow)[NQ], const float* /*par*/,
+                                          int /*dpad*/, float (&acc)[NQ], float& xn) const {
+    const float* __restrict__ x = reinterpret_cast<const float*>(base) + r * d;
+    if (vec) {
+      const float4* __restrict__ x4 = reinterpret_cast<const float4*>(x);
+#pragma unroll 4
+      for (int c = lane; c < d / 4; c += 32) {
+        const float4 v = __ldg(x4 + c);
+        xn = fmaf(v.x, v.x, fmaf(v.y, v.y, fmaf(v.z, v.z, fmaf(v.w, v.w, xn))));
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          const float4 w = *reinterpret_cast<const float4*>(qrow[j] + 4 * c);
+          acc[j] = fmaf(v.x, w.x, fmaf(v.y, w.y, fmaf(v.z, w.z, fmaf(v.w, w.w, acc[j]))));
+        }
+      }
+    } else {
+      for (int c = lane; c < d; c += 32) {
+        const float v = x[c];
+        xn = fmaf(v, v, xn);
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) acc[j] = fmaf(v, qrow[j][c], acc[j]);
+      }
+    }
+  }
+};
+
+// Epi (the epilogue) provides
+//   kWalk        false: a block serves one query tile (blockIdx.y); true: one
+//                block walks every query tile in order (grid.y = 1)
+//   State        per-thread state carried across the walked tiles
+//   x_norms()    whether the pass needs |x|^2
+//   tile<BQ>(st, acc, xn_s, qn_s, frag_row, t4, seg, q0, nq)   one tile's
+//                fragments (tensor-core path)
+//   finish(st, frag_row, t4, seg)   after the last tile
+//   row<NQ>(acc, xn, qn_s, nq, lane, seg)   one row's sums, in every lane
+//                (small-nq path)
+// The scans' epilogue writes (|q|^2 - 2 q.x) + |x|^2 (L2) or -q.x (IP) in
+// the host's operation order, invalid rows at +inf, into the score scratch.
+struct ScoreEpi {
+  float* scores;
+  long long ld;
+  int ip;
+  static constexpr bool kWalk = false;
+  struct State {};
+
+  __device__ __forceinline__ bool x_norms() const { return !ip; }
+
+  template <int BQ>
+  __device__ __forceinline__ void tile(State&, const float (&acc)[BQ / 2], const float* xn_s,
+                                       const float* qn_s, int frag_row, int t4, const SegRows& sg,
+                                       int q0, int nq) const {
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int rl = frag_row + (i >> 1) * 8;
+        const int ql = 8 * j + 2 * t4 + (i & 1);
+        if (sg.r + rl >= sg.n || q0 + ql >= nq) continue;
+        const float qx = acc[4 * j + i];
+        float sc = ip ? -qx : __fadd_rn(__fsub_rn(qn_s[ql], __fmul_rn(2.f, qx)), xn_s[rl]);
+        if (sg.valid != nullptr && sg.valid[sg.r + rl] == 0) sc = INFINITY;
+        scores[(long long)(q0 + ql) * ld + sg.col + rl] = sc;
+      }
+  }
+
+  __device__ __forceinline__ void finish(State&, int, int, const SegRows&) const {}
+
+  template <int NQ>
+  __device__ __forceinline__ void row(const float (&acc)[NQ], float xn, const float* qn_s, int nq,
+                                      int lane, const SegRows& sg) const {
+    const bool dead = sg.valid != nullptr && sg.valid[sg.r] == 0;
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      if (j != lane || j >= nq) continue;
+      float sc = ip ? -acc[j] : __fadd_rn(__fsub_rn(qn_s[j], __fmul_rn(2.f, acc[j])), xn);
+      scores[(long long)j * ld + sg.col] = dead ? INFINITY : sc;
+    }
+  }
+};
+
 // Tensor-core score pass through wgmma: the block's two warpgroups each own
 // 64 base rows, whose TF32 splits go in registers as the A operand; the
 // query tile (BQ = 16 * NT rows) is split once per stage in shared memory
-// into a hi and a lo tile that wgmma reads as B.
-template <int NT, class Rows>
+// into a hi and a lo tile that wgmma reads as B.  With Epi::kWalk the block
+// runs the whole pass once per query tile, in order, over the same rows (a
+// ring that ran on across tile edges instead cost the scans 7% on an NVIDIA
+// H100 80GB HBM3 at 700 W, chip_ab.py).
+template <int NT, class Rows, class Segs, class Epi>
 __global__ void __launch_bounds__(kThreads, 1)
-wgmma_scores_kernel(const float* __restrict__ q, int nq, int d, const long long* __restrict__ tab,
-                    int S, float* __restrict__ scores, long long ld, int ip, int vec_q, int vec_x,
-                    int vec_p, Rows rows_of) {
+wgmma_scores_kernel(const float* __restrict__ q, int nq, int d, Segs segs, int vec_q, int vec_x,
+                    int vec_p, Rows rows_of, Epi epi) {
   constexpr int BQ = 16 * NT;
   constexpr int kQTile = BQ * BK * 4;                  // one swizzled tile, 1024-byte multiple
   constexpr int kSlot = 2 * kQTile + Rows::kXBytes;    // q hi | q lo | base tile
@@ -243,138 +414,129 @@ wgmma_scores_kernel(const float* __restrict__ q, int nq, int d, const long long*
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int frag_row = warp * 16 + g;  // warpgroup warp / 4 owns rows 64 (warp / 4) ..
-  const SegTable tb = seg_table(tab, S);
-  const long long tile = blockIdx.x;
-  const int s = owner_segment(tb.tile_start, S, tile);
-  const long long n_s = tb.rows[s];
-  const long long r0 = (tile - tb.tile_start[s]) * BN;
-  const void* base = reinterpret_cast<const void*>(tb.base[s]);
-  const unsigned char* __restrict__ valid = reinterpret_cast<const unsigned char*>(tb.valid[s]);
-  const int q0 = blockIdx.y * BQ;
-  const float* qb = q + (long long)q0 * d;
+  const SegRows sg = segs.tile(blockIdx.x);
+  const long long n_s = sg.n;
+  const long long r0 = sg.r;
+  const void* base = sg.base;
   const int KT = (d + BK - 1) / BK;
+  typename Epi::State es{};
 
-  auto qhi = [&](int slot) { return reinterpret_cast<float*>(smem + slot * kSlot); };
-  auto qlo = [&](int slot) { return reinterpret_cast<float*>(smem + slot * kSlot + kQTile); };
-  auto xtile = [&](int slot) { return smem + slot * kSlot + 2 * kQTile; };
-  auto pslot = [&](int slot) { return par + slot * Rows::kParFloats; };
-  auto load_stage = [&](int slot, int k0) {
-    rows_of.load_tile(xtile(slot), base, r0, n_s, k0, d, vec_x != 0, tid);
-    load_q_sw128(qhi(slot), BQ, qb, nq - q0, k0, d, vec_q != 0, tid);
-    if constexpr (Rows::kCodes) rows_of.load_stage_params(pslot(slot), k0, d, vec_p != 0, tid);
-  };
-  // Thread (nrow, half) owns 16 columns of one row of each stage: it sums
-  // their squares for the norms, and splits the query row's in place.  (SQ:
-  // the first warp also turns the stage's vmax into scale.)
-  const int nrow = tid >> 1, half = tid & 1;
-  float xnorm = 0.f, qnorm = 0.f;
-  auto split_q = [&](int slot) {
-    if constexpr (Rows::kCodes) rows_of.finish_stage_params(pslot(slot), tid);
-    if (nrow >= BQ) return;
-    float* hi = qhi(slot);
-    float* lo = qlo(slot);
-    float p = 0.f;
-#pragma unroll
-    for (int c4 = 0; c4 < 4; ++c4) {
-      const int at = sw128_at(nrow, half * 16 + c4 * 4);
-      float4 v = *reinterpret_cast<float4*>(hi + at);
-      float4 h, l;
-      unsigned int uh, ul;
-      split_tf32(v.x, uh, ul); h.x = __uint_as_float(uh); l.x = __uint_as_float(ul);
-      split_tf32(v.y, uh, ul); h.y = __uint_as_float(uh); l.y = __uint_as_float(ul);
-      split_tf32(v.z, uh, ul); h.z = __uint_as_float(uh); l.z = __uint_as_float(ul);
-      split_tf32(v.w, uh, ul); h.w = __uint_as_float(uh); l.w = __uint_as_float(ul);
-      p = fmaf(v.x, v.x, p); p = fmaf(v.y, v.y, p); p = fmaf(v.z, v.z, p); p = fmaf(v.w, v.w, p);
-      *reinterpret_cast<float4*>(hi + at) = h;
-      *reinterpret_cast<float4*>(lo + at) = l;
-    }
-    qnorm += p;
-    fence_async_smem();
-  };
-
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < KT) load_stage(st, st * BK);
-    cp_async_commit();
-  }
-  cp_async_wait<kStages - 2>();
-  __syncthreads();
-  split_q(0);
-
-  float acc[BQ / 2], part[BQ / 2];
-#pragma unroll
-  for (int i = 0; i < BQ / 2; ++i) acc[i] = part[i] = 0.f;
-
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<kStages - 3>();
-    __syncthreads();  // stage kt + 1 landed, stage kt split, stage kt - 1's slot free
-    if (kt + kStages - 1 < KT) load_stage((kt + kStages - 1) % kStages, (kt + kStages - 1) * BK);
-    cp_async_commit();
-    const int slot = kt % kStages;
-    const unsigned char* xt = xtile(slot);
-    const float* ps = pslot(slot);
-    unsigned int ahi[BK / 8][4], alo[BK / 8][4];
-#pragma unroll
-    for (int ks = 0; ks < BK / 8; ++ks) {
-      const int c = ks * 8 + t4;
-      split_tf32(rows_of.at(xt, frag_row, c, ps), ahi[ks][0], alo[ks][0]);
-      split_tf32(rows_of.at(xt, frag_row + 8, c, ps), ahi[ks][1], alo[ks][1]);
-      split_tf32(rows_of.at(xt, frag_row, c + 4, ps), ahi[ks][2], alo[ks][2]);
-      split_tf32(rows_of.at(xt, frag_row + 8, c + 4, ps), ahi[ks][3], alo[ks][3]);
-    }
-    const unsigned long long dh = sw128_desc(qhi(slot)), dl = sw128_desc(qlo(slot));
-    // CUDA-core work first: the next stage's query split and this stage's
-    // row norms (the tensor cores run the other warpgroup meanwhile).
-    if (kt + 1 < KT) split_q((kt + 1) % kStages);
-    if (!ip) {
+  for (int q0 = blockIdx.y * BQ; q0 < nq; q0 += gridDim.y * BQ) {
+    const float* qb = q + (long long)q0 * d;
+    auto qhi = [&](int slot) { return reinterpret_cast<float*>(smem + slot * kSlot); };
+    auto qlo = [&](int slot) { return reinterpret_cast<float*>(smem + slot * kSlot + kQTile); };
+    auto xtile = [&](int slot) { return smem + slot * kSlot + 2 * kQTile; };
+    auto pslot = [&](int slot) { return par + slot * Rows::kParFloats; };
+    auto load_stage = [&](int slot, int k0) {
+      rows_of.load_tile(xtile(slot), base, r0, n_s, k0, d, vec_x != 0, tid);
+      load_q_sw128(qhi(slot), BQ, qb, nq - q0, k0, d, vec_q != 0, tid);
+      if constexpr (Rows::kCodes) rows_of.load_stage_params(pslot(slot), k0, d, vec_p != 0, tid);
+    };
+    // Thread (nrow, half) owns 16 columns of one row of each stage: it sums
+    // their squares for the norms, and splits the query row's in place.  (SQ:
+    // the first warp also turns the stage's vmax into scale.)
+    const int nrow = tid >> 1, half = tid & 1;
+    float xnorm = 0.f, qnorm = 0.f;
+    auto split_q = [&](int slot) {
+      if constexpr (Rows::kCodes) rows_of.finish_stage_params(pslot(slot), tid);
+      if (nrow >= BQ) return;
+      float* hi = qhi(slot);
+      float* lo = qlo(slot);
       float p = 0.f;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const float v = rows_of.at(xt, nrow, half * 16 + j, ps);
-        p = fmaf(v, v, p);
+      for (int c4 = 0; c4 < 4; ++c4) {
+        const int at = sw128_at(nrow, half * 16 + c4 * 4);
+        float4 v = *reinterpret_cast<float4*>(hi + at);
+        float4 h, l;
+        unsigned int uh, ul;
+        split_tf32(v.x, uh, ul); h.x = __uint_as_float(uh); l.x = __uint_as_float(ul);
+        split_tf32(v.y, uh, ul); h.y = __uint_as_float(uh); l.y = __uint_as_float(ul);
+        split_tf32(v.z, uh, ul); h.z = __uint_as_float(uh); l.z = __uint_as_float(ul);
+        split_tf32(v.w, uh, ul); h.w = __uint_as_float(uh); l.w = __uint_as_float(ul);
+        p = fmaf(v.x, v.x, p); p = fmaf(v.y, v.y, p); p = fmaf(v.z, v.z, p); p = fmaf(v.w, v.w, p);
+        *reinterpret_cast<float4*>(hi + at) = h;
+        *reinterpret_cast<float4*>(lo + at) = l;
       }
-      xnorm += p;
-    }
-    // Each 8-deep step goes into a fresh fragment (small terms first) that
-    // is then added to the running total; the other warpgroup's products
-    // keep the tensor cores busy meanwhile.  32 bytes of K per step: +2 in
-    // the descriptors.
+      qnorm += p;
+      fence_async_smem();
+    };
+
 #pragma unroll
-    for (int ks = 0; ks < BK / 8; ++ks) {
-      fence_operands<BQ / 2>(part);
-      wgmma_fence();
-      wgmma_tf32<BQ>(part, alo[ks], dh + 2 * ks, 0);
-      wgmma_tf32<BQ>(part, ahi[ks], dl + 2 * ks, 1);
-      wgmma_tf32<BQ>(part, ahi[ks], dh + 2 * ks, 1);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_operands<BQ / 2>(part);
-#pragma unroll
-      for (int i = 0; i < BQ / 2; ++i) acc[i] += part[i];
+    for (int st = 0; st < kStages - 1; ++st) {
+      if (st < KT) load_stage(st, st * BK);
+      cp_async_commit();
     }
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    split_q(0);
+
+    float acc[BQ / 2], part[BQ / 2];
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) acc[i] = part[i] = 0.f;
+
+    for (int kt = 0; kt < KT; ++kt) {
+      cp_async_wait<kStages - 3>();
+      __syncthreads();  // stage kt + 1 landed, stage kt split, stage kt - 1's slot free
+      if (kt + kStages - 1 < KT) load_stage((kt + kStages - 1) % kStages, (kt + kStages - 1) * BK);
+      cp_async_commit();
+      const int slot = kt % kStages;
+      const unsigned char* xt = xtile(slot);
+      const float* ps = pslot(slot);
+      unsigned int ahi[BK / 8][4], alo[BK / 8][4];
+#pragma unroll
+      for (int ks = 0; ks < BK / 8; ++ks) {
+        const int c = ks * 8 + t4;
+        split_tf32(rows_of.at(xt, frag_row, c, ps), ahi[ks][0], alo[ks][0]);
+        split_tf32(rows_of.at(xt, frag_row + 8, c, ps), ahi[ks][1], alo[ks][1]);
+        split_tf32(rows_of.at(xt, frag_row, c + 4, ps), ahi[ks][2], alo[ks][2]);
+        split_tf32(rows_of.at(xt, frag_row + 8, c + 4, ps), ahi[ks][3], alo[ks][3]);
+      }
+      const unsigned long long dh = sw128_desc(qhi(slot)), dl = sw128_desc(qlo(slot));
+      // CUDA-core work first: the next stage's query split and this stage's
+      // row norms (the tensor cores run the other warpgroup meanwhile).
+      if (kt + 1 < KT) split_q((kt + 1) % kStages);
+      if (epi.x_norms()) {
+        float p = 0.f;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float v = rows_of.at(xt, nrow, half * 16 + j, ps);
+          p = fmaf(v, v, p);
+        }
+        xnorm += p;
+      }
+      // Each 8-deep step goes into a fresh fragment (small terms first) that
+      // is then added to the running total; the other warpgroup's products
+      // keep the tensor cores busy meanwhile.  32 bytes of K per step: +2 in
+      // the descriptors.
+#pragma unroll
+      for (int ks = 0; ks < BK / 8; ++ks) {
+        fence_operands<BQ / 2>(part);
+        wgmma_fence();
+        wgmma_tf32<BQ>(part, alo[ks], dh + 2 * ks, 0);
+        wgmma_tf32<BQ>(part, ahi[ks], dl + 2 * ks, 1);
+        wgmma_tf32<BQ>(part, ahi[ks], dh + 2 * ks, 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands<BQ / 2>(part);
+#pragma unroll
+        for (int i = 0; i < BQ / 2; ++i) acc[i] += part[i];
+      }
+    }
+    cp_async_wait<0>();
+
+    norm_part[half][nrow] = xnorm;
+    if (nrow < BQ) norm_part[half][BN + nrow] = qnorm;
+    __syncthreads();
+    if (tid < BN) xn_s[tid] = norm_part[0][tid] + norm_part[1][tid];
+    if (tid < BQ) qn_s[tid] = norm_part[0][BN + tid] + norm_part[1][BN + tid];
+    __syncthreads();
+    // Every thread is past its last read of the ring and of norm_part here, so
+    // a walked next tile may refill them; its first barrier comes before any
+    // write to xn_s / qn_s.
+    epi.template tile<BQ>(es, acc, xn_s, qn_s, frag_row, t4, sg, q0, nq);
+    if constexpr (!Epi::kWalk) break;
   }
-  cp_async_wait<0>();
-
-  norm_part[half][nrow] = xnorm;
-  if (nrow < BQ) norm_part[half][BN + nrow] = qnorm;
-  __syncthreads();
-  if (tid < BN) xn_s[tid] = norm_part[0][tid] + norm_part[1][tid];
-  if (tid < BQ) qn_s[tid] = norm_part[0][BN + tid] + norm_part[1][BN + tid];
-  __syncthreads();
-
-  const long long col0 = tb.col_off[s] + r0;
-#pragma unroll
-  for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int rl = frag_row + (i >> 1) * 8;
-      const int ql = 8 * j + 2 * t4 + (i & 1);
-      if (r0 + rl >= n_s || q0 + ql >= nq) continue;
-      const float qx = acc[4 * j + i];
-      float sc = ip ? -qx : __fadd_rn(__fsub_rn(qn_s[ql], __fmul_rn(2.f, qx)), xn_s[rl]);
-      if (valid != nullptr && valid[r0 + rl] == 0) sc = INFINITY;
-      scores[(long long)(q0 + ql) * ld + col0 + rl] = sc;
-    }
+  epi.finish(es, frag_row, t4, sg);
 }
 
 // ------------------------------------------------ score pass, small nq
@@ -388,11 +550,10 @@ wgmma_scores_kernel(const float* __restrict__ q, int nq, int d, const long long*
 // computes scale from vmin / vmax per element); and small_vec(d, xalign):
 // whether dot_row may use its wide loads.
 
-template <int NQ, bool kStaged, class Rows>
+template <int NQ, bool kStaged, class Rows, class Segs, class Epi>
 __global__ void __launch_bounds__(kThreads)
-small_scores_kernel(const float* __restrict__ q, int nq, int d, const long long* __restrict__ tab,
-                    int S, long long n_rows, float* __restrict__ scores, long long ld, int ip,
-                    int vec_x, Rows rows_of) {
+small_scores_kernel(const float* __restrict__ q, int nq, int d, Segs segs, long long n_rows,
+                    int vec_q, int vec_x, Rows rows_of, Epi epi) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float qn_s[NQ];
   const int dpad = (d + BK - 1) / BK * BK;
@@ -401,9 +562,18 @@ small_scores_kernel(const float* __restrict__ q, int nq, int d, const long long*
   const float* par = nullptr;
   const float* qrow[NQ];
   if constexpr (kStaged) {
-    for (int i = tid; i < NQ * dpad; i += kThreads) {
-      const int j = i / dpad, c = i % dpad;
-      q_s[i] = (j < nq && c < d) ? q[(long long)j * d + c] : 0.f;
+    if (vec_q) {  // d % 4 == 0 and q 16-byte aligned: a float4 per load
+      float4* q4 = reinterpret_cast<float4*>(q_s);
+      for (int i = tid; i < NQ * dpad / 4; i += kThreads) {
+        const int j = 4 * i / dpad, c = 4 * i % dpad;
+        q4[i] = (j < nq && c < d) ? __ldg(reinterpret_cast<const float4*>(q + (long long)j * d + c))
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    } else {
+      for (int i = tid; i < NQ * dpad; i += kThreads) {
+        const int j = i / dpad, c = i % dpad;
+        q_s[i] = (j < nq && c < d) ? q[(long long)j * d + c] : 0.f;
+      }
     }
     if constexpr (Rows::kCodes) {
       rows_of.load_params(q_s + NQ * dpad, d, dpad, tid);
@@ -416,40 +586,31 @@ small_scores_kernel(const float* __restrict__ q, int nq, int d, const long long*
 #pragma unroll
     for (int j = 0; j < NQ; ++j) qrow[j] = q + (long long)(j < nq ? j : 0) * d;
   }
-  if (warp < NQ) {
-    const float* qw = kStaged ? q_s + warp * dpad : q + (long long)(warp < nq ? warp : 0) * d;
+  for (int j = warp; j < NQ; j += kThreads / 32) {  // |q_j|^2, one warp per query
+    const float* qw = kStaged ? q_s + j * dpad : q + (long long)(j < nq ? j : 0) * d;
     float p = 0.f;
     for (int c = lane; c < d; c += 32) p = fmaf(qw[c], qw[c], p);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
-    if (lane == 0) qn_s[warp] = p;
+    if (lane == 0) qn_s[j] = p;
   }
   __syncthreads();
 
-  const SegTable tb = seg_table(tab, S);
   const long long nwarps = (long long)gridDim.x * (kThreads / 32);
   for (long long r = (long long)blockIdx.x * (kThreads / 32) + warp; r < n_rows; r += nwarps) {
-    const int s = owner_segment(tb.col_off, S, r);
-    const long long rr = r - tb.col_off[s];
+    const SegRows sg = segs.row(r);
     float acc[NQ], xn = 0.f;
 #pragma unroll
     for (int j = 0; j < NQ; ++j) acc[j] = 0.f;
-    rows_of.template dot_row<NQ, kStaged>(reinterpret_cast<const void*>(tb.base[s]), rr, d,
-                                          vec_x != 0, lane, qrow, par, dpad, acc, xn);
+    rows_of.template dot_row<NQ, kStaged>(sg.base, sg.r, d, vec_x != 0, lane, qrow, par, dpad,
+                                          acc, xn);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
       xn += __shfl_xor_sync(0xffffffffu, xn, o);
 #pragma unroll
       for (int j = 0; j < NQ; ++j) acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], o);
     }
-    const unsigned char* valid = reinterpret_cast<const unsigned char*>(tb.valid[s]);
-    const bool dead = valid != nullptr && valid[rr] == 0;
-#pragma unroll
-    for (int j = 0; j < NQ; ++j) {
-      if (j != lane || j >= nq) continue;
-      float sc = ip ? -acc[j] : __fadd_rn(__fsub_rn(qn_s[j], __fmul_rn(2.f, acc[j])), xn);
-      scores[(long long)j * ld + r] = dead ? INFINITY : sc;
-    }
+    epi.template row<NQ>(acc, xn, qn_s, nq, lane, sg);
   }
 }
 
@@ -758,48 +919,52 @@ inline int select_topk(const float* scores, long long ld, const long long* tab, 
 
 // ---------------------------------------------------------------- launch
 
-template <int NT, class Rows>
-int launch_wgmma(const float* q, int nq, int d, const long long* tab, int S, long long total_tiles,
-                 float* scores, long long ld, int ip, int vec_q, int vec_x, int vec_p,
-                 cudaStream_t stream, Rows rows_of) {
+// grid.y: one block per query tile, or (Epi::kWalk) one block walking them all.
+template <int NT, class Rows, class Segs, class Epi>
+int launch_wgmma(const float* q, int nq, int d, Segs segs, long long total_tiles, int vec_q,
+                 int vec_x, int vec_p, cudaStream_t stream, Rows rows_of, Epi epi) {
   constexpr int BQ = 16 * NT;
   constexpr int smem = 1024 + kStages * (2 * BQ * BK * 4 + Rows::kXBytes + 4 * Rows::kParFloats);
-  const int e = set_smem(wgmma_scores_kernel<NT, Rows>, smem);
+  const int e = set_smem(wgmma_scores_kernel<NT, Rows, Segs, Epi>, smem);
   if (e != 0) return e;
-  dim3 grid((unsigned int)total_tiles, (unsigned int)((nq + BQ - 1) / BQ));
-  wgmma_scores_kernel<NT, Rows><<<grid, kThreads, smem, stream>>>(q, nq, d, tab, S, scores, ld, ip,
-                                                                   vec_q, vec_x, vec_p, rows_of);
+  dim3 grid((unsigned int)total_tiles, Epi::kWalk ? 1u : (unsigned int)((nq + BQ - 1) / BQ));
+  wgmma_scores_kernel<NT, Rows, Segs, Epi><<<grid, kThreads, smem, stream>>>(
+      q, nq, d, segs, vec_q, vec_x, vec_p, rows_of, epi);
   return (int)cudaGetLastError();
 }
 
-template <int NQ, bool kStaged, class Rows>
-int launch_small_as(const float* q, int nq, int d, const long long* tab, int S, long long n_rows,
-                    float* scores, long long ld, int ip, int vec_x, int smem, cudaStream_t stream,
-                    Rows rows_of) {
-  const int e = set_smem(small_scores_kernel<NQ, kStaged, Rows>, smem);
+// A warp per row, grid-stride over at most max_blocks blocks of 8 warps.
+template <int NQ, bool kStaged, class Rows, class Segs, class Epi>
+int launch_small_as(const float* q, int nq, int d, Segs segs, long long n_rows, int vec_q,
+                    int vec_x, int smem, long long max_blocks, cudaStream_t stream, Rows rows_of,
+                    Epi epi) {
+  const int e = set_smem(small_scores_kernel<NQ, kStaged, Rows, Segs, Epi>, smem);
   if (e != 0) return e;
   long long blocks = (n_rows + kThreads / 32 - 1) / (kThreads / 32);
-  if (blocks > 132 * 8) blocks = 132 * 8;  // 8 blocks of 8 warps per SM, grid-stride
-  small_scores_kernel<NQ, kStaged, Rows><<<(unsigned int)blocks, kThreads, smem, stream>>>(
-      q, nq, d, tab, S, n_rows, scores, ld, ip, vec_x, rows_of);
+  if (blocks > max_blocks) blocks = max_blocks;
+  small_scores_kernel<NQ, kStaged, Rows, Segs, Epi>
+      <<<(unsigned int)blocks, kThreads, smem, stream>>>(q, nq, d, segs, n_rows, vec_q, vec_x,
+                                                         rows_of, epi);
   return (int)cudaGetLastError();
 }
 
 // The queries (and SQ's scale / vmin) go to shared memory where they fit
 // beside the kernel's static arrays, else each row reads them from global
-// memory (16-byte query loads then need an aligned q).
-template <int NQ, class Rows>
-int launch_small(const float* q, int nq, int d, const long long* tab, int S, long long n_rows,
-                 float* scores, long long ld, int ip, int qalign, int xalign, cudaStream_t stream,
-                 Rows rows_of) {
+// memory (16-byte query loads then need an aligned q).  The scans launch at
+// most 132 x 8 blocks (8 of 8 warps per SM).
+template <int NQ, class Rows, class Segs, class Epi>
+int launch_small(const float* q, int nq, int d, Segs segs, long long n_rows, int qalign,
+                 int xalign, cudaStream_t stream, Rows rows_of, Epi epi,
+                 long long max_blocks = 132 * 8) {
   const int dpad = (d + BK - 1) / BK * BK;
   const long long staged = 4ll * NQ * dpad + (Rows::kCodes ? 8ll * dpad : 0);
   const int vx = rows_of.small_vec(d, xalign);
+  const int vq = d % 4 == 0 && qalign >= 16;
   if (staged + 1024 <= kMaxSmem)
-    return launch_small_as<NQ, true>(q, nq, d, tab, S, n_rows, scores, ld, ip, vx, (int)staged,
-                                     stream, rows_of);
-  return launch_small_as<NQ, false>(q, nq, d, tab, S, n_rows, scores, ld, ip,
-                                    vx && qalign >= 16, 0, stream, rows_of);
+    return launch_small_as<NQ, true>(q, nq, d, segs, n_rows, vq, vx, (int)staged, max_blocks,
+                                     stream, rows_of, epi);
+  return launch_small_as<NQ, false>(q, nq, d, segs, n_rows, vq, vx && vq, 0, max_blocks, stream,
+                                    rows_of, epi);
 }
 
 // Score pass over every row of the table, then the select.  qalign /
@@ -814,26 +979,28 @@ int launch_scan(const float* q, int nq, int d, const long long* tab, int S,
                 int multi_chunk, unsigned long long* cand, float* out_v, long long* out_i,
                 cudaStream_t stream, Rows rows_of) {
   if (n_rows > 0) {
+    const TableSegs segs{tab, S};
+    const ScoreEpi epi{scores, ld, ip};
     int e;
     if (nq <= small_q) {
-      if (nq == 1) e = launch_small<1>(q, nq, d, tab, S, n_rows, scores, ld, ip, qalign, xalign, stream, rows_of);
-      else if (nq == 2) e = launch_small<2>(q, nq, d, tab, S, n_rows, scores, ld, ip, qalign, xalign, stream, rows_of);
-      else if (nq <= 4) e = launch_small<4>(q, nq, d, tab, S, n_rows, scores, ld, ip, qalign, xalign, stream, rows_of);
-      else e = launch_small<8>(q, nq, d, tab, S, n_rows, scores, ld, ip, qalign, xalign, stream, rows_of);
+      if (nq == 1) e = launch_small<1>(q, nq, d, segs, n_rows, qalign, xalign, stream, rows_of, epi);
+      else if (nq == 2) e = launch_small<2>(q, nq, d, segs, n_rows, qalign, xalign, stream, rows_of, epi);
+      else if (nq <= 4) e = launch_small<4>(q, nq, d, segs, n_rows, qalign, xalign, stream, rows_of, epi);
+      else e = launch_small<8>(q, nq, d, segs, n_rows, qalign, xalign, stream, rows_of, epi);
     } else {
       const int vq = d % 4 == 0 && qalign >= 16;
       const int vx = rows_of.tile_vec(d, xalign);
       const int vp = d % 4 == 0 && palign >= 16;
       const int nt = nq >= 128 ? 8 : (nq + 15) / 16;
       switch (nt) {
-        case 1: e = launch_wgmma<1>(q, nq, d, tab, S, total_tiles, scores, ld, ip, vq, vx, vp, stream, rows_of); break;
-        case 2: e = launch_wgmma<2>(q, nq, d, tab, S, total_tiles, scores, ld, ip, vq, vx, vp, stream, rows_of); break;
-        case 3: e = launch_wgmma<3>(q, nq, d, tab, S, total_tiles, scores, ld, ip, vq, vx, vp, stream, rows_of); break;
-        case 4: e = launch_wgmma<4>(q, nq, d, tab, S, total_tiles, scores, ld, ip, vq, vx, vp, stream, rows_of); break;
-        case 5: e = launch_wgmma<5>(q, nq, d, tab, S, total_tiles, scores, ld, ip, vq, vx, vp, stream, rows_of); break;
-        case 6: e = launch_wgmma<6>(q, nq, d, tab, S, total_tiles, scores, ld, ip, vq, vx, vp, stream, rows_of); break;
-        case 7: e = launch_wgmma<7>(q, nq, d, tab, S, total_tiles, scores, ld, ip, vq, vx, vp, stream, rows_of); break;
-        default: e = launch_wgmma<8>(q, nq, d, tab, S, total_tiles, scores, ld, ip, vq, vx, vp, stream, rows_of); break;
+        case 1: e = launch_wgmma<1>(q, nq, d, segs, total_tiles, vq, vx, vp, stream, rows_of, epi); break;
+        case 2: e = launch_wgmma<2>(q, nq, d, segs, total_tiles, vq, vx, vp, stream, rows_of, epi); break;
+        case 3: e = launch_wgmma<3>(q, nq, d, segs, total_tiles, vq, vx, vp, stream, rows_of, epi); break;
+        case 4: e = launch_wgmma<4>(q, nq, d, segs, total_tiles, vq, vx, vp, stream, rows_of, epi); break;
+        case 5: e = launch_wgmma<5>(q, nq, d, segs, total_tiles, vq, vx, vp, stream, rows_of, epi); break;
+        case 6: e = launch_wgmma<6>(q, nq, d, segs, total_tiles, vq, vx, vp, stream, rows_of, epi); break;
+        case 7: e = launch_wgmma<7>(q, nq, d, segs, total_tiles, vq, vx, vp, stream, rows_of, epi); break;
+        default: e = launch_wgmma<8>(q, nq, d, segs, total_tiles, vq, vx, vp, stream, rows_of, epi); break;
       }
     }
     if (e != 0) return e;

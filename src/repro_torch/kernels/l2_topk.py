@@ -54,13 +54,14 @@ def _kernel():
     return _c_fn, _geometry
 
 
-def small_q_arg(name: str, small_q, default: int, largest: int) -> int:
-    """The nq threshold of the byte-bound score path: the kernel's
-    ``default`` or the caller's, at most ``largest``."""
+def small_q_arg(name: str, small_q, default: int, largest: int, *, arg: str = "small_q") -> int:
+    """The threshold of the byte-bound score path (nq for the scans, C for
+    ``kmeans_assign``): the kernel's ``default`` or the caller's, at most
+    ``largest``."""
     if small_q is None:
         return default
     if not 0 <= small_q <= largest:
-        raise ValueError(f"{name}: small_q={small_q} outside [0, {largest}]")
+        raise ValueError(f"{name}: {arg}={small_q} outside [0, {largest}]")
     return small_q
 
 

@@ -15,7 +15,7 @@ import ctypes
 import torch
 
 from . import _build
-from .l2_topk import _MAX_GRID_Y, candidate_buffer, segment_table
+from .l2_topk import _MAX_GRID_Y, candidate_buffer, pointer_align, segment_table
 
 #: Largest k the scan takes (``kMaxK`` in ``csrc/scan_common.cuh``).
 MAX_K = 1024
@@ -33,10 +33,10 @@ def _kernel():
         lib = _build.load("pq_adc")
         fn = lib.repro_pq_adc_topk
         fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
         lib.repro_pq_adc_max_k.restype = ctypes.c_int
@@ -47,6 +47,16 @@ def _kernel():
         _chunk_rows = lib.repro_pq_adc_chunk_rows()
         _c_fn = fn
     return _c_fn, _chunk_rows
+
+
+def query_group(nq: int, m: int, ksub: int) -> int:
+    """Queries one block of the score pass serves: the G in 4, 2, 1 whose G
+    tables (G * m * ksub * 4 bytes) fit in ``MAX_LUT_BYTES`` of shared
+    memory, and no more than ``nq`` rounded up to a power of two needs."""
+    for g in (4, 2):
+        if g < 2 * nq and g * 4 * m * ksub <= MAX_LUT_BYTES:
+            return g
+    return 1
 
 
 def pq_adc_topk(luts, codes, k: int, valid=None):
@@ -98,7 +108,8 @@ def pq_adc_topk(luts, codes, k: int, valid=None):
     out_v = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int64, device=dev)
     rc = launch(
-        luts.data_ptr(), nq, m, ksub, codes.data_ptr(), codes.element_size(),
+        luts.data_ptr(), nq, m, ksub, query_group(nq, m, ksub), pointer_align([luts]),
+        codes.data_ptr(), codes.element_size(), pointer_align([codes]),
         0 if valid is None else valid.data_ptr(), n, table.data_ptr(), k, scores.data_ptr(),
         geo["chunks"], int(geo["multi_chunk"]), cand.data_ptr(), out_v.data_ptr(),
         out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,

@@ -246,6 +246,38 @@ def topk_select_two_stage(scores, k: int, metric: str = "l2", chunk: int = SELEC
     return out_v, out_i
 
 
+def assign_tf32(x, centroids):
+    """Plain model of ``kmeans_assign``'s tensor-core path
+    (``csrc/kmeans_assign.cu``): x.c from :func:`scan_scores_tf32`'s
+    3xTF32 product (the rows as the base, the centroids as the queries),
+    norms in the kernel's order, d2 = (|x|^2 - 2 x.c) + |c|^2 in float32,
+    and the earliest centroid winning equal d2.  ``(assign [n] int64,
+    min_d2 [n] float32)``."""
+    x = x.to(torch.float32)
+    c = centroids.to(torch.float32)
+    xc = -scan_scores_tf32(c, x, "ip").T
+    d2 = (_kernel_norms(x)[:, None] - 2.0 * xc) + _kernel_norms(c)[None, :]
+    min_d2, assign = torch.min(d2, dim=1)
+    return assign, min_d2
+
+
+def adc_scores_grouped(luts, codes, group: int) -> torch.Tensor:
+    """Plain model of the ADC score pass (``csrc/pq_adc.cu``): the tables of
+    each group of ``group`` queries interleaved as [m, ksub, group] (the
+    kernel's shared-memory layout, 0 past nq), each row's codes gathered
+    once per group, and the group's ``group`` sums added over m = 0..M-1 in
+    order.  [nq, n] float32."""
+    nq, m, ksub = luts.shape
+    pad = -nq % group
+    tables = torch.cat([luts, luts.new_zeros((pad, m, ksub))]) if pad else luts
+    tables = tables.reshape(-1, group, m, ksub).permute(0, 2, 3, 1).contiguous()
+    codes = codes.to(torch.int64)
+    out = torch.zeros((tables.shape[0], codes.shape[0], group), dtype=torch.float32)
+    for j in range(m):
+        out += tables[:, j].index_select(1, codes[:, j])
+    return out.permute(0, 2, 1).reshape(-1, codes.shape[0])[:nq]
+
+
 def assert_ties_by_row(vals, idx, ties, equal: bool) -> None:
     """One query's answer ``(vals [k], idx [k])`` in which the equal rows
     ``ties`` (ascending, across select-chunk edges) lead: the leading slots
@@ -306,6 +338,23 @@ def assert_assign_close(got, want, x, centroids, rtol: float, atol: float) -> No
         d_got = ((xr - centroids[ga[rows]]) ** 2).sum(1)
         d_want = ((xr - centroids[wa[rows]]) ** 2).sum(1)
         torch.testing.assert_close(d_got, d_want, rtol=rtol, atol=atol)
+
+
+def assign_error_float64(got, x, centroids, rtol: float, atol: float) -> float:
+    """Check a nearest-centroid assignment ``got`` = (assign, min_d2)
+    against float64: each returned distance within the tolerance of the
+    float64 distance to the chosen centroid, which must itself lie within
+    the tolerance of the float64 nearest.  For rows near their centroids,
+    where the expansion cancels (d2 far below |x|^2 and |c|^2) and two
+    float32 versions may differ by their two errors together.  Returns the
+    largest distance error."""
+    ga, gd = got
+    x64, c64 = x.double(), centroids.double()
+    d64 = ((x64 * x64).sum(1, keepdim=True) - 2.0 * (x64 @ c64.T)) + (c64 * c64).sum(1)[None, :]
+    chosen = d64.gather(1, ga[:, None])[:, 0]
+    torch.testing.assert_close(gd.double(), chosen, rtol=rtol, atol=atol)
+    torch.testing.assert_close(chosen, d64.min(1).values, rtol=rtol, atol=atol)
+    return (gd.double() - chosen).abs().max().item()
 
 
 # --------------------------------------------------------------------------

@@ -21,6 +21,7 @@ from repro_torch.testing import (  # noqa: E402
     MODEL_TIE,
     SCORE_TOL,
     assert_assign_close,
+    assign_error_float64,
     assert_scan_close,
     assert_ties_by_row,
     assert_topk_near_tie,
@@ -317,27 +318,113 @@ def test_query_node_on_card_matches_cpu(dev):
         assert torch.equal(gp.cpu(), cp)
 
 
-@pytest.mark.parametrize("n,c,d", [(1, 1, 16), (700, 16, 768), (5000, 130, 16), (3000, 256, 768)])
-def test_kmeans_assign_matches_plain(dev, n, c, d):
-    rng = np.random.default_rng(n + c + d)
-    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dev)
+# kmeans_assign: C across the byte-bound path's sizes and the tensor-core
+# path's 128-centroid tile (17: two 16-wide column groups; 129 and up: the
+# block walks several tiles), n across the 128-row tile and the interim slice
+# size, d with and without 16-byte rows; each through every score path C can
+# take (small_c) and the default.
+ASSIGN_C = [1, 8, 16, 17, 128, 129, 256, 1000]
+ASSIGN_N = [1, 700, 2048, 100_000]
+ASSIGN_D = [16, 19, 768]
+
+
+def _assign_paths(c, d):
+    """small_c values that force each score path (c, d) can take: 0 (the
+    tensor cores) and c (a CUDA-core path: narrow rows at any c, else the
+    byte-bound path up to its largest c)."""
+    return (0, c) if c <= km_mod.SMALL_C_MAX or d <= km_mod.NARROW_D else (0,)
+
+
+@pytest.mark.parametrize("d", ASSIGN_D)
+@pytest.mark.parametrize("c", ASSIGN_C)
+def test_kmeans_assign_matches_plain(dev, c, d):
+    rng = np.random.default_rng(c * 1000 + d)
     cent = torch.from_numpy(rng.standard_normal((c, d)).astype(np.float32)).to(dev)
-    before = km_mod.kmeans_assign.launches
-    got = km_mod.kmeans_assign(x, cent)
-    torch.cuda.synchronize()
-    assert km_mod.kmeans_assign.launches == before + 1
-    assert_assign_close(got, km_mod.kmeans_assign_plain(x, cent), x, cent, *SCORE_TOL["l2"])
+    for n in ASSIGN_N:
+        x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dev)
+        want = km_mod.kmeans_assign_plain(x, cent)
+        for small_c in _assign_paths(c, d) + (None,):
+            before = km_mod.kmeans_assign.launches
+            got = km_mod.kmeans_assign(x, cent, small_c=small_c)
+            torch.cuda.synchronize()
+            assert km_mod.kmeans_assign.launches == before + 1
+            assert_assign_close(got, want, x, cent, *SCORE_TOL["l2"])
 
 
-def test_kmeans_assign_earliest_duplicate_wins(dev):
-    rng = np.random.default_rng(3)
-    x = torch.from_numpy(rng.standard_normal((900, 32)).astype(np.float32)).to(dev)
-    cent = torch.from_numpy(rng.standard_normal((40, 32)).astype(np.float32)).to(dev)
-    cent = torch.cat([cent, cent, cent]).contiguous()  # copies in later tiles
-    ga, gd = km_mod.kmeans_assign(x, cent)
-    wa, wd = km_mod.kmeans_assign_plain(x, cent)
-    assert bool((ga < 40).all())
-    assert_assign_close((ga, gd), (wa, wd), x, cent, *SCORE_TOL["l2"])
+@pytest.mark.parametrize("c,copies,d", [(40, 3, 32), (8, 2, 16), (16, 2, 768), (128, 2, 16),
+                                        (128, 2, 768), (150, 2, 16), (150, 2, 768)])
+def test_kmeans_assign_earliest_duplicate_wins(dev, c, copies, d):
+    """Each of c centroids ``copies`` times, copy after copy: within the
+    byte-bound path's one tile, on both sides of the narrow-row path's
+    256-centroid chunk edge, and on the tensor-core path on both sides of a
+    128-centroid tile edge (at 2 x 128 centroid 127's copy also right after
+    the edge, at 128).  Every row's nearest centroid has a copy, which ties
+    exactly; the earliest must win."""
+    rng = np.random.default_rng(c + d)
+    base = torch.from_numpy(rng.standard_normal((c, d)).astype(np.float32))
+    cent = torch.cat([base] * copies)
+    if c == 128:
+        cent[128] = cent[127]
+    cent = cent.contiguous().to(dev)
+    x = torch.from_numpy(rng.standard_normal((5000, d)).astype(np.float32)).to(dev)
+    want = km_mod.kmeans_assign_plain(x, cent)
+    for small_c in _assign_paths(len(cent), d) + (None,):
+        got = km_mod.kmeans_assign(x, cent, small_c=small_c)
+        torch.cuda.synchronize()
+        assert bool((got[0] < c).all()), small_c
+        assert_assign_close(got, want, x, cent, *SCORE_TOL["l2"])
+
+
+@pytest.mark.parametrize("d", [16, 19, 768])
+@pytest.mark.parametrize("c", [32, 256])
+def test_kmeans_assign_near_rows_hold_float64(dev, c, d):
+    """Rows 0.1 sigma from their centroid, where d2 ~ 0.01 d sits far below
+    the norms and the expansion cancels: two float32 versions may differ
+    there by both their errors, so each path is held to float64."""
+    rng = np.random.default_rng(c * d)
+    cent = torch.from_numpy(rng.standard_normal((c, d)).astype(np.float32)).to(dev)
+    x = cent[torch.from_numpy(rng.integers(0, c, 20_000)).to(dev)] + 0.1 * torch.from_numpy(
+        rng.standard_normal((20_000, d)).astype(np.float32)).to(dev)
+    for small_c in _assign_paths(c, d):
+        got = km_mod.kmeans_assign(x, cent, small_c=small_c)
+        torch.cuda.synchronize()
+        assign_error_float64(got, x, cent, *SCORE_TOL["l2"])
+
+
+def test_kmeans_assign_rejects_small_c_outside_its_paths(dev):
+    wide = torch.zeros((4, km_mod.NARROW_D + 1), device=dev)
+    for small_c in (-1, km_mod.SMALL_C_MAX + 1):
+        with pytest.raises(ValueError):
+            km_mod.kmeans_assign(wide, wide, small_c=small_c)
+    narrow = torch.zeros((4, km_mod.NARROW_D), device=dev)
+    with pytest.raises(ValueError):
+        km_mod.kmeans_assign(narrow, narrow, small_c=-1)
+
+
+def _offset_view(t, elems: int):
+    """``t``'s values in a contiguous view ``elems`` elements past an
+    aligned allocation (narrower loads in the kernel)."""
+    flat = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    view = flat[elems:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def test_pq_adc_topk_table_at_the_shared_memory_limit(dev):
+    """A table of exactly MAX_LUT_BYTES runs one query per block (G = 1),
+    bit-exact; one subquantizer more is refused."""
+    rng = np.random.default_rng(11)
+    m, ksub, nq, n = pq_mod.MAX_LUT_BYTES // (4 * 256), 256, 5, 3000
+    assert 4 * m * ksub == pq_mod.MAX_LUT_BYTES and pq_mod.query_group(nq, m, ksub) == 1
+    luts = torch.from_numpy(rng.standard_normal((nq, m, ksub)).astype(np.float32)).to(dev)
+    codes = torch.from_numpy(rng.integers(0, ksub, (n, m))).to(dev)
+    for dtype in (torch.uint8, torch.int32):
+        got = pq_mod.pq_adc_topk(luts, codes.to(dtype), 100)
+        want = pq_mod.pq_adc_topk_plain(luts, codes.to(dtype), 100)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    wider = torch.zeros((1, m + 1, ksub), device=dev)
+    with pytest.raises(ValueError):
+        pq_mod.pq_adc_topk(wider, torch.zeros((4, m + 1), dtype=torch.uint8, device=dev), 1)
 
 
 def test_sq_encode_is_bit_exact(dev):
@@ -379,23 +466,32 @@ def test_sq_l2_topk_matches_plain(dev, metric, k, nq, n):
     assert_scan_close(got, want, q, [decoded], [valid], k, metric, *SCORE_TOL[metric])
 
 
-@pytest.mark.parametrize("code_dtype", [torch.uint8, torch.int32])
-@pytest.mark.parametrize("k", [1, 100, 1024])
-@pytest.mark.parametrize("m", [8, 48])
-def test_pq_adc_topk_is_bit_exact(dev, m, k, code_dtype):
-    rng = np.random.default_rng(m + k)
-    n, nq, ksub = 20_000, 33, 256
-    luts = torch.from_numpy(rng.standard_normal((nq, m, ksub)).astype(np.float32)).to(dev)
-    codes = torch.from_numpy(rng.integers(0, ksub, (n, m))).to(dev, code_dtype)
-    codes[:50] = codes[0]  # exact ties
+@pytest.mark.parametrize("m", [8, 20, 48])
+@pytest.mark.parametrize("nq", [1, 3, 4, 5, 8, 33, 100])
+def test_pq_adc_topk_is_bit_exact(dev, nq, m):
+    """Query groups full and ragged (G = 4), m with 16-byte, 4-byte and
+    single-code loads (aligned and offset views of codes and tables), tables
+    of 16 and 256 entries, uint8 and int32 codes, exact ties, k across the
+    select's sizes: bit-exact against the plain version."""
+    rng = np.random.default_rng(nq * 100 + m)
+    n = 20_000  # two select chunks
     valid = torch.from_numpy(rng.random(n) > 0.2).to(dev)
-    before = pq_mod.pq_adc_topk.launches
-    got = pq_mod.pq_adc_topk(luts, codes, k, valid)
-    torch.cuda.synchronize()
-    assert pq_mod.pq_adc_topk.launches == before + 1
-    want = pq_mod.pq_adc_topk_plain(luts, codes, k, valid)
-    assert torch.equal(got[0], want[0])
-    assert_topk_near_tie(got, want, 0.0, 0.0)
+    for ksub in (16, 256):
+        luts = torch.from_numpy(rng.standard_normal((nq, m, ksub)).astype(np.float32)).to(dev)
+        codes = torch.from_numpy(rng.integers(0, ksub, (n, m))).to(dev)
+        codes[:50] = codes[0].clone()  # exact ties
+        for code_dtype in (torch.uint8, torch.int32):
+            c = codes.to(code_dtype)
+            offset = (_offset_view(luts, 1), _offset_view(c, 1))
+            for k, (lt, ct) in [(1, (luts, c)), (100, (luts, c)), (1024, (luts, c)), (100, offset)]:
+                before = pq_mod.pq_adc_topk.launches
+                got = pq_mod.pq_adc_topk(lt, ct, k, valid)
+                torch.cuda.synchronize()
+                assert pq_mod.pq_adc_topk.launches == before + 1
+                want = pq_mod.pq_adc_topk_plain(luts, c, k, valid)
+                case = (ksub, code_dtype, k, lt.data_ptr() % 16, ct.data_ptr() % 16)
+                assert torch.equal(got[0], want[0]), case
+                assert_topk_near_tie(got, want, 0.0, 0.0)
 
 
 @pytest.mark.parametrize("n,d,offset", [(1, 1, 0), (1, 768, 0), (700, 19, 0), (1001, 768, 0),
