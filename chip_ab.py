@@ -8,11 +8,15 @@ Times, with the package under ``DIR/src`` (default: this checkout):
 and 100; ``sq_l2_topk`` over 131,072 x 768 codes at nq 1 and 100;
 ``pq_adc_topk`` over 131,072 x 48 uint8 codes with 256-entry tables at nq
 1 and 100; ``kmeans_assign`` at an IVF Lloyd step (100,000 x 128 x 768), a
-PQ subspace (131,072 x 256 x 16) and an interim slice (2,048 x 16 x 768).
-Each on seeded data, k = 100, as CUDA-event time of back-to-back calls
-(``event_ms``) and as device time with the calls queued behind a sleep
-kernel (``device_ms``, see ``chip_smoke.device_ms``).  Prints one JSON
-line.  To compare two trees on one card, run it in one machine once per
+PQ subspace (131,072 x 256 x 16) and an interim slice (2,048 x 16 x 768);
+``merge_topk`` at every (nq, M, k) the three paths of ``chip_smoke.py``
+launch it at (``MERGE_SHAPES``, the three most launched first), on pools
+with the main path's structure (``chip_smoke.merge_pool``), beside an empty
+kernel's device time; ``sq_decode`` at the 65,536 x 768 chunks an IVF-SQ
+index decodes.  Each on seeded data, k = 100, as CUDA-event time of
+back-to-back calls (``event_ms``) and as device time with the calls queued
+behind a sleep kernel (``device_ms``, see ``chip_smoke.device_ms``).
+Prints one JSON line.  To compare two trees on one card, run it in one machine once per
 tree, in turns (parent, change, change, parent), e.g. with the parent
 unpacked by ``git archive`` under ``build/``.
 """
@@ -26,6 +30,14 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+# merge_topk's (nq, M, k) on the FLAT, indexed and facade paths of
+# chip_smoke.py (its per-shape launch counts), the three most launched
+# first: the global reduce, the FLAT node reduce, the facade node reduce.
+MERGE_SHAPES = (
+    (1, 200, 100), (1, 400, 100), (1, 4800, 100), (1, 8192, 100), (1, 300, 100), (1, 716, 100),
+    (1, 3200, 100), (1, 1700, 100), (100, 200, 100), (100, 400, 100), (100, 4800, 100),
+    (100, 8192, 100), (100, 300, 100), (100, 716, 100), (100, 3200, 100), (100, 1700, 100),
+)
 
 
 def main() -> int:
@@ -47,6 +59,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import kmeans_assign as km
     from repro_torch.kernels import l2_topk as l2
+    from repro_torch.kernels import merge_topk as mt
     from repro_torch.kernels import pq_adc as pq
     from repro_torch.kernels import sq_codec as sq
 
@@ -84,6 +97,15 @@ def main() -> int:
         xa = torch.randn((n, d), generator=gen, device=dev)
         ca = torch.randn((c, d), generator=gen, device=dev)
         both(f"kmeans_assign {n}x{c}x{d}", lambda: km.kmeans_assign(xa, ca), 20)
+    out["empty kernel"] = {"device_ms": cs.empty_kernel_ms(torch)}
+    for nq, m, k in MERGE_SHAPES:
+        ps, pp = cs.merge_pool(torch, gen, dev, nq, m, k)
+        both(f"merge_topk nq={nq} M={m} k={k}", lambda: mt.merge_topk(ps, pp, k, "l2"), 100)
+    codes = torch.randint(0, 256, (cs.DECODE_CHUNK_ROWS, cs.DIM), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    lo = torch.randn(cs.DIM, generator=gen, device=dev)
+    hi = lo + 4 * torch.rand(cs.DIM, generator=gen, device=dev)
+    both(f"sq_decode {cs.DECODE_CHUNK_ROWS}x{cs.DIM}", lambda: sq.sq_decode(codes, lo, hi), 50)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -8,14 +8,17 @@
 2. Kernel phase: each of the seven kernels against its plain PyTorch version
    on the card.  ``l2_topk``: L2 and IP, k in {1, 100, 1024}, ragged and
    all-invalid segments.  ``merge_topk``: duplicate, negative and >int32
-   pks, inf/NaN/-0.0 scores, pools wider than one launch (bit-exact).
+   pks, inf/NaN/-0.0 scores, pools wider than one launch, and each of the
+   kernel's regimes (a warp per query, a warp per chunk then one over the
+   lists, a block per query) at M from 1 to 8,192 with every pk repeated
+   or every candidate dead (bit-exact).
    ``kmeans_assign``: N in {1, 700, 2,048, 100,000} x C in {1, 8, 16, 17,
    128, 129, 256, 1,000} x D in {16, 19, 768}, through every score path C
    and D allow (``small_c=``), duplicate centroids on both sides of a
    centroid-tile edge (earliest wins), and rows near their centroids held
    to float64.
    ``sq_encode``: bit-exact, with exact .5 boundaries and a constant
-   column.  ``sq_decode``: bit-exact, d % 16 == 0 and odd d, one row, a
+   column.  ``sq_decode``: bit-exact, d % 4 == 0 and odd d, one row, a
    misaligned view, n * d above 2^31.  ``sq_l2_topk``: L2/IP, k in {1, 100, 1024}, nq in {1, 100},
    ragged and all-invalid.  ``pq_adc_topk``: nq in {1, 3, 4, 5, 8, 100}
    (ragged query groups) x m in {8, 20, 48} x ksub in {16, 256}, uint8 and
@@ -24,7 +27,8 @@
    ``repro_torch.testing.SCORE_TOL``, set from the measured float32 error.
    The redesigned scans also: both score paths at nq 1..300, rows of d
    16,000 and 10,001 bit-exact on exact data, and the tensor-core scores
-   against the CPU model ``testing.scan_scores_tf32`` (``model_tie``).
+   against the CPU model ``testing.scan_scores_tf32`` (``model_tie``, on
+   nonnegative and on signed rows).
 3. FLAT path at VectorDBBench's Performance768D1M scale (1M x 768, top-100;
    synthetic data from --seed): an L2 and a cosine collection, each as
    seven 131,072-row sealed segments written to and loaded from the binlog
@@ -56,10 +60,13 @@
    rows/s, the flush time, each build, request latencies and two profiled
    requests with the host split.
 6. Each path runs with every launch counter at 0 and fails unless each of
-   its kernels was launched; ``kmeans_assign``'s calls are also counted per
-   (N, C, D) shape, and the kernel is timed at every shape the paths
-   launched, beside its plain version and its bound, with the sum of
-   launches x (time - bound).  Prints phase and build times, request
+   its kernels was launched; ``kmeans_assign``'s launches are also counted
+   per (N, C, D), ``merge_topk``'s per (nq, M, k) and ``sq_decode``'s per
+   (n, d), each adding up to the wrapper's count, and the three kernels are
+   timed at every shape the paths launched (device time of calls queued
+   behind a sleep kernel), beside their plain versions, their bounds and an
+   empty kernel's time, with the sum of launches x (time - bound).  Prints
+   phase and build times, request
    latencies, profiled requests, one JSON line of kernel measurements, the
    card's name and power limit, and as the last line
    ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
@@ -106,6 +113,10 @@ SELECT_CHUNK = 16384
 WIDE_D = (16_000, 10_001)
 TIE_ROWS = (3, SELECT_CHUNK - 2, SELECT_CHUNK - 1, SELECT_CHUNK, SELECT_CHUNK + 1,
             2 * SELECT_CHUNK + 7, 3 * SELECT_CHUNK + 4)
+# merge_topk's kernel-phase widths: around the warp's 32 columns and the
+# one-warp limit (256), the main path's pools (400, 716, 1,700, 4,800),
+# the chunk sizes' edges (1,024, 1,025) and the widest launch.
+MERGE_WIDTHS = (1, 31, 32, 33, 256, 257, 400, 716, 800, 1024, 1025, 1700, 4800, 8192)
 # Log timestamps: sealed rows, WAL inserts, deletes, and the two pins.
 TS_SEALED, TS_GROW, TS_DELETE = 1_000, 2_000, 3_000
 TS_BEFORE, TS_AFTER = 2_500, 3_500
@@ -136,8 +147,10 @@ ASSIGN_D = (16, 19, DIM)
 # pq_adc_topk's kernel-phase grid: query groups full and ragged, m with
 # 16-byte, 4-byte and single-code loads, tables of 16 and 256 entries.
 PQ_NQ, PQ_M, PQ_KSUB = (1, 3, 4, 5, 8, 100), (8, 20, 48), (16, 256)
-# sq_decode's kernel phase: a row count with n * DIM above 2^31.
+# sq_decode's kernel phase: a row count with n * DIM above 2^31; and the
+# rows per call of an IVF-SQ index's first search (index/ivf.py _CHUNK).
 DECODE_ROWS_64BIT = 2_800_000
+DECODE_CHUNK_ROWS = 65_536
 # Facade path: the ManuSystem deployment (2 shards, 2 loggers, 1 data node,
 # 1 index node, 2 query nodes, 131,072-row seals, the default slice size),
 # the rows streamed after the flush, and the sealed segments that makes.
@@ -174,7 +187,11 @@ def device_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     a sleep kernel: the stream is held while the host enqueues them, so the
     calls run back to back and the host time between launches does not
     count -- the measure for calls whose kernels are shorter than their
-    launch overhead.  CUDA events around the queued calls."""
+    launch overhead.  CUDA events around the queued calls.  The hold is
+    set from one call's host time; where the host took longer to enqueue
+    than the hold lasted (a longer host stall, or a launch queue that
+    filled up behind the held stream and blocked the host), the
+    measurement is repeated with a longer hold and half the calls."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -182,19 +199,22 @@ def device_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     fn()
     torch.cuda.synchronize()
     hold_s = min(2.0, 1e-3 + 2 * reps * (time.perf_counter() - t))  # > the enqueue time
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(hold_s * 2e9))  # cycles at up to 2 GHz
-    t = time.perf_counter()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    enqueue_s = time.perf_counter() - t
-    end.synchronize()
-    if enqueue_s > hold_s:
-        raise AssertionError(f"device_ms: the host took {enqueue_s:.4f} s to enqueue, longer "
-                             f"than the {hold_s:.4f} s hold")
-    return start.elapsed_time(end) / reps
+    for _ in range(4):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(hold_s * 2e9))  # cycles at up to 2 GHz
+        t = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        enqueue_s = time.perf_counter() - t
+        end.synchronize()
+        if enqueue_s <= hold_s:
+            return start.elapsed_time(end) / reps
+        hold_s = min(4.0, 2 * enqueue_s)
+        reps = max(1, reps // 2)
+    raise AssertionError(f"device_ms: the host took {enqueue_s:.4f} s to enqueue, longer "
+                         f"than the {hold_s:.4f} s hold")
 
 
 def profile_request(torch, fn, label: str):
@@ -284,9 +304,53 @@ def kernel_phase(torch, l2_mod, merge_mod, ops, assert_scan_close, tol, dev, gen
             fin = torch.isfinite(wv)
             e = (gv[fin] - wv[fin]).abs().max().item() if fin.any() else 0.0
             err["merge_topk"] = max(err["merge_topk"], e)
+    n_regimes = merge_regime_cases(torch, merge_mod, gen, dev)
     log(f"kernel phase: l2_topk 24 cases agree (rtol, atol: l2 {tol['l2']}, ip {tol['ip']}), "
-        f"merge_topk {2 * len(cases)} cases bit-exact (widths up to {wide}); max |err| {err}")
+        f"merge_topk {2 * len(cases) + n_regimes} cases bit-exact (widths up to {wide}); max |err| {err}")
     return err
+
+
+def merge_regime_cases(torch, merge_mod, gen, dev) -> int:
+    """merge_topk bit-exact against its plain version in each regime of the
+    kernel: one warp per query (M <= 256, several per block: nq = 33
+    fills no block evenly), a warp per chunk then one over the chunks' lists
+    (every wider pool on the main path) and the block kernel (k = 1024 on
+    pools above 1,024 columns); pools with mixed candidates (ties, -0.0,
+    inf / NaN scores, pk < 0, pks past int32), with every pk repeated
+    (twice, the later copy scoring the same or 1 apart) and with every
+    candidate dead, at k = 1, 100 and 1024 (above the survivors where pks
+    repeat or die), both metrics.  Returns the number of cases."""
+    n = 0
+    nq = 33
+    for m in MERGE_WIDTHS:
+        for kind in ("mixed", "repeated", "dead"):
+            s = torch.randn((nq, m), generator=gen, device=dev)
+            s[:, ::5] = torch.round(s[:, ::5])
+            p = torch.randint(0, max(1, m // 3), (nq, m), generator=gen, device=dev)
+            if kind == "mixed":
+                s[:, 3::11] = -0.0
+                s[:, 5::13] = float("inf")
+                s[:, 6::17] = float("nan")
+                p[:, 7::9] = -1
+                p[:, ::23] += 2**40
+            elif kind == "repeated":  # column c + h repeats column c's pk
+                h = (m + 1) // 2
+                p[:, :h] = torch.randperm(h, generator=gen, device=dev)
+                p[:, h:] = p[:, :m - h]
+                s[:, h:] = s[:, :m - h] + torch.rand((nq, m - h), generator=gen, device=dev).round()
+            else:
+                p[:, ::2] = -1
+                s[:, 1::2] = float("nan")
+            for k in (1, 100, 1024):
+                for metric in ("l2", "ip"):
+                    gv, gp = merge_mod.merge_topk(s, p, k, metric)
+                    wv, wp = merge_mod.merge_topk_plain(s, p, k, metric)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(gp, wp) and torch.equal(gv.view(torch.int32), wv.view(torch.int32))):
+                        raise AssertionError(f"merge_topk differs from its plain version (nq={nq}, M={m}, "
+                                             f"k={k}, {kind}, {metric})")
+                    n += 1
+    return n
 
 
 def scan_bound(nq: int, n_bytes: float, n: int, d: int, f32_ops: float) -> dict:
@@ -350,11 +414,12 @@ def wide_rows_phase(torch, l2_mod, sq_mod, gen, dev) -> int:
 
 def model_tie_phase(testing, dev) -> dict:
     """The tensor-core score pass of both exact scans against the CPU model
-    ``testing.scan_scores_tf32`` (``testing.model_tie``, nq 16 and 100):
-    fails below ``testing.MODEL_TIE``'s share of bit-exact scores or past
-    its ulps."""
-    tie = {f"{kname} nq={nq}": testing.model_tie(kname, nq, dev)
-           for kname in ("l2_topk", "sq_l2_topk") for nq in (16, 100)}
+    ``testing.scan_scores_tf32`` (``testing.model_tie``, nq 16 and 100, on
+    nonnegative rows and on centred rows whose partial sums cancel): fails
+    below ``testing.MODEL_TIE``'s share of bit-exact scores or past its
+    ulps."""
+    tie = {f"{kname} nq={nq}{' signed' if signed else ''}": testing.model_tie(kname, nq, dev, signed)
+           for kname in ("l2_topk", "sq_l2_topk") for nq in (16, 100) for signed in (False, True)}
     log("tensor-core scores vs the 3xTF32 model (share bit-exact, largest ulps): " + json.dumps(tie))
     share, ulps = testing.MODEL_TIE
     for key, per in tie.items():
@@ -645,12 +710,13 @@ def index_kernel_phase(torch, km_mod, sq_mod, pq_mod, testing, dev, gen) -> dict
     if not torch.equal(codes[:, 0].long(), (even + even.remainder(2)).clamp(max=255)):
         raise AssertionError("sq_encode does not round .5 to even")
 
-    # sq_decode, bit-exact: the 16-code path (d % 16 == 0, aligned), the
-    # scalar path (odd d, a misaligned view), one row, ragged row counts,
-    # and n * d above 2^31 (64-bit indexing).
+    # sq_decode, bit-exact: the 4-code path (d % 4 == 0, d = 100 too), the
+    # scalar path (odd d, d above the staged 4,096, a misaligned view), one
+    # row, row counts no grid step divides, and n * d above 2^31 (64-bit
+    # indexing).
     n_dec = 0
-    for n, d in ((SEG_ROWS, DIM), (1, DIM), (1, 1), (700, 19), (1_001, DIM), (513, 48),
-                 (DECODE_ROWS_64BIT, DIM)):
+    for n, d in ((SEG_ROWS, DIM), (1, DIM), (1, 1), (700, 19), (1_001, DIM), (513, 48), (999, 100),
+                 (3, 4_100), (DECODE_CHUNK_ROWS, DIM), (DECODE_ROWS_64BIT, DIM)):
         c = torch.randint(0, 256, (n, d), generator=gen, device=dev, dtype=torch.uint8)
         lo = torch.randn(d, generator=gen, device=dev)
         hi = lo + 4 * torch.rand(d, generator=gen, device=dev)
@@ -662,12 +728,13 @@ def index_kernel_phase(torch, km_mod, sq_mod, pq_mod, testing, dev, gen) -> dict
             raise AssertionError(f"sq_decode differs from its plain version (n={n}, d={d})")
         del c, got, want
         n_dec += 1
-    flat = torch.randint(0, 256, (3 + 257 * DIM,), generator=gen, device=dev, dtype=torch.uint8)
-    c = flat[3:].view(257, DIM)  # contiguous, 3 bytes off the 16-byte grid
-    lo, hi = torch.zeros(DIM, device=dev), torch.ones(DIM, device=dev)
-    if not torch.equal(sq_mod.sq_decode(c, lo, hi), sq_mod.sq_decode_plain(c, lo, hi)):
-        raise AssertionError("sq_decode differs from its plain version on a misaligned view")
-    n_dec += 1
+    for off in (3, 4):  # contiguous views 3 and 4 bytes off the 16-byte grid
+        flat = torch.randint(0, 256, (off + 257 * DIM,), generator=gen, device=dev, dtype=torch.uint8)
+        c = flat[off:].view(257, DIM)
+        lo, hi = torch.zeros(DIM, device=dev), torch.ones(DIM, device=dev)
+        if not torch.equal(sq_mod.sq_decode(c, lo, hi), sq_mod.sq_decode_plain(c, lo, hi)):
+            raise AssertionError(f"sq_decode differs from its plain version on a view {off} bytes off")
+        n_dec += 1
     torch.cuda.empty_cache()
 
     n_sq = 0
@@ -925,8 +992,7 @@ def indexed_path(torch, mods, gen, dev, phases, counts):
     phases["ivf_requests_s"] = time.perf_counter() - t0
     launches = counts.read()
     # IVF builds on the tensor cores, slices byte-bound, PQ subspaces narrow rows
-    assign_shapes = counts.read_shapes(launches, "indexed",
-                                       ("tensor_cores", "byte_bound", "narrow_rows"))
+    shapes = counts.read_shapes(launches, "indexed", ("tensor_cores", "byte_bound", "narrow_rows"))
     n_requests = sum(reps[nq] + 1 for nq in queries) * 2
     log(f"indexed path launches: {launches} ({n_requests} requests, {N_SEALED} builds, "
         f"{n_slices} slice indexes)")
@@ -937,7 +1003,7 @@ def indexed_path(torch, mods, gen, dev, phases, counts):
         "name": name, "x": x, "queries": queries, "nodes": nodes, "store": store,
         "built": built, "builds": builds, "doomed": doomed, "request": request,
         "latency": latency, "results": results, "launches": launches,
-        "assign_shapes": assign_shapes, "n_requests": n_requests,
+        "shapes": shapes, "n_requests": n_requests,
     }
 
 
@@ -1224,7 +1290,7 @@ def facade_path(torch, gen, dev, phases, counts, testing) -> dict:
             results[(kind, nq)] = first
     phases["facade_requests_s"] = time.perf_counter() - t0
     launches = counts.read()
-    assign_shapes = counts.read_shapes(launches, "facade", ("tensor_cores", "byte_bound"))
+    shapes = counts.read_shapes(launches, "facade", ("tensor_cores", "byte_bound"))
     log(f"facade path launches: {launches}")
     for kname in FACADE_KERNELS:
         if launches[kname] <= 0:
@@ -1294,7 +1360,7 @@ def facade_path(torch, gen, dev, phases, counts, testing) -> dict:
             + ", ".join(f"{k} {v:.3f}" for k, v in sorted(split.items())))
     phases["facade_profile_s"] = time.perf_counter() - t0
     return {"manu": manu, "coll": coll, "name": name, "latency": latency, "launches": launches,
-            "assign_shapes": assign_shapes, "builds": builds, "held": held}
+            "shapes": shapes, "builds": builds, "held": held}
 
 
 def assign_bound(n: int, c: int, d: int) -> dict:
@@ -1367,62 +1433,144 @@ def card_info(torch) -> dict:
             "sm_clock_hz": mhz * 1e6}
 
 
-def sq_decode_times(torch, held, sq_mod, dev) -> dict:
-    """sq_decode at the facade path's shape: the codes of one 131,072-row
-    IVF-SQ segment, as ``_decoded_norms`` decodes them (in two chunks)."""
-    index = next(h.index for h in held.values() if h.segment.num_rows == SEG_ROWS)
-    codes, vmin, vmax = index.codes, index.vmin, index.vmax
-    n, d = codes.shape
-    scale = sq_mod.sq_scale(vmin, vmax)
-    t_b, t_o = (5 * n * d + 8 * d) / PEAK_BYTES_S, 2 * n * d / PEAK_F32_FLOPS
-    row = {
-        "ms": cuda_ms(torch, lambda: sq_mod.sq_decode(codes, vmin, vmax), 20),
-        "plain_ms": cuda_ms(torch, lambda: sq_mod.sq_decode_plain(codes, vmin, vmax), 20),
-        "library_ms": cuda_ms(torch, lambda: torch.addcmul(vmin[None, :], codes.float(), scale[None, :]), 20),
-        "bound_ms": max(t_b, t_o) * 1e3, "bound_by": "bytes" if t_b >= t_o else "operations",
-        "shape": f"N={n} D={d} uint8",
-    }
-    log("sq_decode: " + json.dumps(row))
-    return row
+def merge_pool(torch, gen, dev, nq: int, m: int, k: int):
+    """A seeded pool with the main path's structure: ceil(M / k)
+    concatenated partials of k columns, each sorted ascending, pks drawn
+    from 2M values (so pks repeat across partials), the last 5% of each
+    partial dead (+inf, pk -1) as a partial's missing slots are."""
+    s = torch.randn((nq, m), generator=gen, device=dev).abs()
+    p = torch.randint(0, 2 * m, (nq, m), generator=gen, device=dev)
+    for lo in range(0, m, k):
+        hi = min(lo + k, m)
+        s[:, lo:hi] = torch.sort(s[:, lo:hi], dim=1).values
+        dead = hi - max(1, (hi - lo) // 20)
+        s[:, dead:hi] = float("inf")
+        p[:, dead:hi] = -1
+    return s, p
+
+
+def empty_kernel_ms(torch) -> float:
+    """Device time per launch of a kernel that does nothing
+    (``torch.cuda._sleep(0)``), queued as ``device_ms`` queues the kernels:
+    the floor under a launch-bound kernel."""
+    return device_ms(torch, lambda: torch.cuda._sleep(0), 200)
+
+
+def merge_shape_times(torch, merge_mod, shapes: dict, gen, dev, floor_ms: float) -> dict:
+    """merge_topk at every (nq, M, k) the paths launched it at, on a
+    ``merge_pool`` of that shape: device time of the kernel and of the
+    plain version (``device_ms``), the kernel's CUDA-event time, the bytes
+    bound (12 bytes per candidate read and per slot written) and the
+    empty-kernel floor.  Logs each row and the sum of launches x (time -
+    bound) over the shapes."""
+    rows = {}
+    for (nq, m, k), launches in sorted(shapes.items(), key=lambda kv: -kv[1]):
+        s, p = merge_pool(torch, gen, dev, nq, m, k)
+        row = {
+            "launches": launches,
+            "ms": device_ms(torch, lambda: merge_mod.merge_topk(s, p, k, "l2"), 100),
+            "event_ms": cuda_ms(torch, lambda: merge_mod.merge_topk(s, p, k, "l2"), 100),
+            "plain_ms": device_ms(torch, lambda: merge_mod.merge_topk_plain(s, p, k, "l2"), 5),
+            "bound_ms": 12 * nq * (m + k) / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
+            "floor_ms": floor_ms, "library_ms": None,
+        }
+        rows[(nq, m, k)] = row
+        log(f"merge_topk nq={nq} M={m} k={k}: " + json.dumps(row))
+    loss = sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in rows.values())
+    log(f"merge_topk: {sum(r['launches'] for r in rows.values())} launches over {len(rows)} shapes; "
+        f"sum of launches x (ms - bound_ms) {loss:.3f} ms; empty-kernel floor {floor_ms:.5f} ms")
+    return rows
+
+
+def decode_shape_times(torch, sq_mod, shapes: dict, gen, dev) -> dict:
+    """sq_decode at every (n, d) the paths launched it at (``_decoded_norms``
+    decodes 65,536-row chunks), on seeded codes of that shape: device time
+    of the kernel, the plain version and ``torch.addcmul`` of the same
+    function (``device_ms``), the kernel's CUDA-event time and the bytes
+    bound (1 byte in and 4 out per element, vmin and vmax read once)."""
+    rows = {}
+    for (n, d), launches in sorted(shapes.items(), key=lambda kv: -kv[1]):
+        codes = torch.randint(0, 256, (n, d), generator=gen, device=dev, dtype=torch.uint8)
+        vmin = torch.randn(d, generator=gen, device=dev)
+        vmax = vmin + 4 * torch.rand(d, generator=gen, device=dev)
+        scale = sq_mod.sq_scale(vmin, vmax)
+        t_b, t_o = (5 * n * d + 8 * d) / PEAK_BYTES_S, 2 * n * d / PEAK_F32_FLOPS
+        row = {
+            "launches": launches,
+            "ms": device_ms(torch, lambda: sq_mod.sq_decode(codes, vmin, vmax), 50),
+            "event_ms": cuda_ms(torch, lambda: sq_mod.sq_decode(codes, vmin, vmax), 50),
+            "plain_ms": device_ms(torch, lambda: sq_mod.sq_decode_plain(codes, vmin, vmax), 20),
+            "library_ms": device_ms(
+                torch, lambda: torch.addcmul(vmin[None, :], codes.float(), scale[None, :]), 20),
+            "bound_ms": max(t_b, t_o) * 1e3, "bound_by": "bytes" if t_b >= t_o else "operations",
+        }
+        rows[(n, d)] = row
+        log(f"sq_decode N={n} D={d} uint8: " + json.dumps(row))
+    return rows
 
 
 class LaunchCounts:
     """The kernel wrappers' launch counters, set to 0 before a path runs
-    and read after it; and ``assign_shapes``, the index builds' calls of
-    ``ops.kmeans_assign`` per (N, C, D), counted by wrapping the op (the
-    wrapper's own counter is unchanged)."""
+    and read after it; and ``shapes``, the launches of three kernels per
+    call shape, counted by wrapping the op through which the port calls
+    each (the wrappers' own counters are unchanged): ``kmeans_assign`` per
+    (N, C, D) (``ops.kmeans_assign``), ``merge_topk`` per (nq, M, k) (one
+    launch of ``ops.merge_topk``, which chunks pools wider than the kernel
+    takes) and ``sq_decode`` per (n, d) (``ops.sq_decode``).  A shape is
+    counted only where the wrapper's counter moved, so each kernel's shapes
+    must add up to its launches: a launch that bypassed the op shows."""
+
+    SHAPED = {"kmeans_assign": "kmeans_assign", "merge_topk": "_merge_topk", "sq_decode": "sq_decode"}
 
     def __init__(self, wrappers: dict, ops):
         self.wrappers = wrappers
-        self.assign_shapes = collections.Counter()
-        op = ops.kmeans_assign
+        self.shapes = {kname: collections.Counter() for kname in self.SHAPED}
+        for kname, attr in self.SHAPED.items():
+            setattr(ops, attr, self._counted(kname, getattr(ops, attr)))
 
-        def counted(x, centroids):
-            self.assign_shapes[(x.shape[0], centroids.shape[0], x.shape[1])] += 1
-            return op(x, centroids)
+    def _counted(self, kname: str, op):
+        wrapper, counter = self.wrappers[kname], self.shapes[kname]
 
-        ops.kmeans_assign = counted
+        def shape_of(args):
+            if kname == "kmeans_assign":  # (x, centroids)
+                return (args[0].shape[0], args[1].shape[0], args[0].shape[1])
+            if kname == "merge_topk":  # (scores, pks, k, ...)
+                return (args[0].shape[0], args[0].shape[1], args[2])
+            return tuple(args[0].shape)  # sq_decode: (codes, vmin, vmax)
+
+        def counted(*args, **kwargs):
+            before = wrapper.launches
+            out = op(*args, **kwargs)
+            if wrapper.launches > before:
+                counter[shape_of(args)] += wrapper.launches - before
+            return out
+
+        return counted
 
     def reset(self) -> None:
         for fn in self.wrappers.values():
             fn.launches = 0
         assign = self.wrappers["kmeans_assign"]
         assign.path_launches = dict.fromkeys(assign.path_launches, 0)
-        self.assign_shapes.clear()
+        for counter in self.shapes.values():
+            counter.clear()
 
-    def read_shapes(self, launches: dict, label: str, paths_taken) -> collections.Counter:
-        """The shapes counted since the reset, which must add up to the
-        kernel's launches; logs the launches per score path, of which the
-        path must have taken each in ``paths_taken``."""
-        if sum(self.assign_shapes.values()) != launches["kmeans_assign"]:
-            raise AssertionError(f"kmeans_assign launched {launches['kmeans_assign']} times, the op "
-                                 f"was called {sum(self.assign_shapes.values())} times")
+    def read_shapes(self, launches: dict, label: str, paths_taken) -> dict:
+        """The shapes counted since the reset, per kernel, each adding up to
+        the kernel's launches; logs them with ``kmeans_assign``'s launches
+        per score path, of which the path must have taken each in
+        ``paths_taken``."""
+        for kname, counter in self.shapes.items():
+            if sum(counter.values()) != launches[kname]:
+                raise AssertionError(f"{label} path: {kname} launched {launches[kname]} times, "
+                                     f"{sum(counter.values())} of them through the op")
+            log(f"{label} path: {kname} launches per shape "
+                + json.dumps({str(k): v for k, v in sorted(counter.items())}))
         paths = self.wrappers["kmeans_assign"].path_launches
-        log(f"{label} path: kmeans_assign launches per score path {paths}, per (N, C, D) "
-            + json.dumps({str(k): v for k, v in sorted(self.assign_shapes.items())}))
+        log(f"{label} path: kmeans_assign launches per score path {paths}")
         if any(paths[p] <= 0 for p in paths_taken):
             raise AssertionError(f"kmeans_assign did not take each of {paths_taken} on the {label} path")
-        return self.assign_shapes.copy()
+        return {kname: counter.copy() for kname, counter in self.shapes.items()}
 
     def read(self) -> dict:
         return {name: fn.launches for name, fn in self.wrappers.items()}
@@ -1582,6 +1730,7 @@ def main() -> int:
                 results[(name, nq, pin)] = out
     phases["requests_s"] = time.perf_counter() - t0
     flat_launches = counts.read()
+    flat_shapes = counts.read_shapes(flat_launches, "FLAT", ())
     log(f"FLAT path launches: {flat_launches}")
     for kname in ("l2_topk", "merge_topk"):
         if flat_launches[kname] <= 0:
@@ -1668,20 +1817,11 @@ def main() -> int:
         log(f"l2_topk nq={nq} over {N_ROWS} x {DIM}, k={K}: " + json.dumps(kt[nq]))
     path_crossover(torch, f"l2_topk over {N_ROWS} x {DIM}",
                    lambda q, sq: l2_mod.l2_topk(q, bases, valids, K, "l2", small_q=sq), DIM, gen, dev)
-    m_pool = 4 * K  # node merge: four scan units of top-100 per node
-    ps = torch.randn((100, m_pool), generator=gen, device=dev)
-    pp = torch.randint(0, N_ROWS, (100, m_pool), generator=gen, device=dev)
-    mt = {
-        "ms": cuda_ms(torch, lambda: merge_mod.merge_topk(ps, pp, K, "l2"), 50),
-        "plain_ms": cuda_ms(torch, lambda: merge_mod.merge_topk_plain(ps, pp, K, "l2"), 50),
-        "bound_ms": (12 * 100 * m_pool + 12 * 100 * K) / PEAK_BYTES_S * 1e3,
-    }
-    log(f"merge_topk nq=100 M={m_pool} k={K}: " + json.dumps(mt))
     it = index_kernel_times(torch, run, sq_mod, pq_mod, dev, gen, card)
     phases["kernel_timing_s"] = time.perf_counter() - t0
     per = {k: n / run["n_requests"] for k, n in run["launches"].items()}
     log(f"indexed path launches per request (builds and slice indexes included): {per}")
-    ivf_latency, ivf_launches, ivf_shapes = run["latency"], run["launches"], run["assign_shapes"]
+    ivf_latency, ivf_launches, ivf_shapes = run["latency"], run["launches"], run["shapes"]
     # The earlier paths' tables, stores and nodes go before the facade's.
     del run, data, nodes, broker, store, bases, valids, x, results
     gc.collect()
@@ -1690,9 +1830,16 @@ def main() -> int:
     # ---------------------------------------------------- facade path
     fac = facade_path(torch, gen, dev, phases, counts, testing)
     t0 = time.perf_counter()
-    it["sq_decode"] = sq_decode_times(torch, fac["held"], sq_mod, dev)
-    # kmeans_assign at every shape the paths launched it at (FLAT builds none)
-    assign_rows = assign_shape_times(torch, km_mod, ivf_shapes + fac["assign_shapes"], gen, dev)
+    # merge_topk, sq_decode and kmeans_assign at every shape the paths
+    # launched them at (FLAT builds none and decodes none)
+    shapes = {kname: flat_shapes[kname] + ivf_shapes[kname] + fac["shapes"][kname]
+              for kname in LaunchCounts.SHAPED}
+    floor_ms = empty_kernel_ms(torch)
+    merge_rows = merge_shape_times(torch, merge_mod, shapes["merge_topk"], gen, dev, floor_ms)
+    mt = max(merge_rows.values(), key=lambda r: r["launches"])  # the most launched shape
+    decode_rows = decode_shape_times(torch, sq_mod, shapes["sq_decode"], gen, dev)
+    it["sq_decode"] = decode_rows[(DECODE_CHUNK_ROWS, DIM)]
+    assign_rows = assign_shape_times(torch, km_mod, shapes["kmeans_assign"], gen, dev)
     it["kmeans_assign"] = assign_rows[(KMEANS_SAMPLE, IVF_PARAMS["nlist"], DIM)]
     assign_crossover(torch, km_mod, gen, dev)
     phases["kernel_timing_s"] += time.perf_counter() - t0
@@ -1729,7 +1876,7 @@ def main() -> int:
             "replaces": "src/repro/kernels/merge_topk.py:77",
             "launches": launches["merge_topk"], "max_abs_err": max_err["merge_topk"],
             "ms": mt["ms"], "plain_ms": mt["plain_ms"], "bound_ms": mt["bound_ms"],
-            "bound_by": "bytes", "library_ms": None,
+            "bound_by": mt["bound_by"], "library_ms": None,
         },
         index_row("kmeans_assign", "kmeans_assign", "src/repro/kernels/kmeans_assign.py:67",
                   "kmeans_assign.cu"),
@@ -1743,7 +1890,9 @@ def main() -> int:
     # Where the main path loses most to the bounds: launches x (time - bound)
     # per kernel, kmeans_assign summed over its shapes.
     loss = {row["name"]: row["launches"] * (row["ms"] - row["bound_ms"]) for row in kernels}
-    loss["kmeans_assign"] = sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in assign_rows.values())
+    for kname, rows in (("kmeans_assign", assign_rows), ("merge_topk", merge_rows),
+                        ("sq_decode", decode_rows)):
+        loss[kname] = sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in rows.values())
     log("launches x (ms - bound_ms) per kernel: "
         + json.dumps(dict(sorted(loss.items(), key=lambda kv: -kv[1]))))
     print(json.dumps({"kernels": kernels}), flush=True)

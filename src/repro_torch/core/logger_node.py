@@ -327,6 +327,16 @@ class Logger:
             ),
         )
 
+    # ------------------------------------------------------ legacy facades
+    def insert(self, info: CollectionInfo, rows: dict[str, np.ndarray]) -> tuple[int, int]:
+        """Legacy surface: (lsn, row_count) via the typed pipeline."""
+        res = self.mutate(info, InsertRequest(rows))
+        return res.watermark_ts, res.row_count
+
+    def delete(self, info: CollectionInfo, pks: np.ndarray) -> int:
+        """Legacy surface: bare LSN via the typed pipeline."""
+        return self.mutate(info, DeleteRequest(pks)).watermark_ts
+
     # ---------------------------------------------------------- time ticks
     def tick(self, channels: list[str], force: bool = False) -> int:
         """Emit time-ticks on owned channels if the interval elapsed."""

@@ -231,6 +231,16 @@ class Proxy:
             session_ts=request.session_ts,
         )
 
+    # ------------------------------------------------------ legacy facades
+    def insert(self, info: CollectionInfo, rows: dict[str, np.ndarray]) -> tuple[int, int]:
+        """Legacy surface: (lsn, row_count) via the typed pipeline."""
+        res = self.mutate(info, InsertRequest(rows))
+        return res.watermark_ts, res.row_count
+
+    def delete(self, info: CollectionInfo, pks: np.ndarray) -> int:
+        """Legacy surface: bare LSN via the typed pipeline."""
+        return self.mutate(info, DeleteRequest(np.asarray(pks))).watermark_ts
+
     # -------------------------------------------------------------- search
     def search(
         self,
@@ -373,7 +383,10 @@ class Proxy:
                     # empty scope: every channel this node serves is already
                     # covered by a routed pick — zero-wait path, no call
                 try:
-                    if hedge_timeout_s is not None:
+                    # A hedge is not hedged again: its unit would bounce
+                    # between the replicas for as long as each dispatch
+                    # missed the timeout.
+                    if hedge_timeout_s is not None and not is_hedge:
                         res = _run_with_timeout(
                             lambda: dispatch(node, sids, is_hedge),
                             hedge_timeout_s,
@@ -931,13 +944,25 @@ def _accepts_channel_scope(wait_fn) -> bool:
 
 
 def _run_with_timeout(fn, timeout_s: float):
-    """Run fn in a worker thread; None on timeout (hedged-request helper)."""
+    """Run fn in a worker thread; its answer, or None unless it answered
+    within ``timeout_s`` (hedged-request helper).  The answer's own time
+    decides, not whether the thread got to run before ``join`` returned, so
+    a zero timeout makes every dispatch a straggler under any load."""
     result: list = []
+    t0 = time.perf_counter()
 
     def target():
-        result.append(fn())
+        out = fn()
+        result.append((out, time.perf_counter() - t0))
 
     t = threading.Thread(target=target, daemon=True)
     t.start()
     t.join(timeout_s)
-    return result[0] if result else None
+    if result and result[0][1] <= timeout_s:
+        return result[0][0]
+    return None
+
+
+# BatchingProxy is the scheduler's read micro-batching facade; the import
+# lives at the bottom because scheduler.py imports SearchResult from here.
+from .scheduler import BatchingProxy, RequestScheduler  # noqa: E402,F401

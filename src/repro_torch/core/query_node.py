@@ -17,6 +17,7 @@ brute tail.
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass, field
 
@@ -193,6 +194,11 @@ class QueryNode:
         self.searches_hedged = 0
         self.inflight = 0
         self.inflight_primary = 0
+        # One dispatch or log step at a time: a hedged request's straggler
+        # thread may still be scanning when the proxy's fallback dispatch
+        # (or a consistency-wait pump) reaches this node; the node's caches
+        # and counters are not built for two at once.
+        self._serve_lock = threading.RLock()
 
     # --------------------------------------------------------- subscriptions
     def subscribe(self, channel: str, from_position: int = 0) -> None:
@@ -219,6 +225,10 @@ class QueryNode:
         at-least-once) and return whether anything changed."""
         if not self.alive:
             return False
+        with self._serve_lock:
+            return self._step()
+
+    def _step(self) -> bool:
         progress = False
         if self.coord_sub is not None:
             progress |= self._drain(self.coord_sub, self._handle_coord)
@@ -773,6 +783,10 @@ class QueryNode:
         int64; -1 = empty)."""
         if not self.alive:
             raise RuntimeError(f"query node {self.node_id} is down")
+        with self._serve_lock:
+            return self._serve(request)
+
+    def _serve(self, request: NodeSearchRequest):
         self.search_count += 1
         if request.hedged:
             self.searches_hedged += 1

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import threading
 import time
+from dataclasses import dataclass
 
 LOGICAL_BITS = 18
 LOGICAL_MASK = (1 << LOGICAL_BITS) - 1
@@ -46,6 +47,29 @@ def logical_of(ts: int) -> int:
 def delta_ms(ts_a: int, ts_b: int) -> float:
     """Physical-time difference ``ts_a - ts_b`` in milliseconds."""
     return float(physical_of(ts_a) - physical_of(ts_b))
+
+
+def add_ms(ts: int, ms: float) -> int:
+    """Timestamp ``ms`` milliseconds after ``ts`` (logical reset to 0)."""
+    return pack(physical_of(ts) + int(ms), 0)
+
+
+@dataclass(frozen=True)
+class Timestamp:
+    """Unpacked view of an HLC timestamp (for debugging / display)."""
+
+    physical_ms: int
+    logical: int
+
+    @classmethod
+    def unpack(cls, ts: int) -> "Timestamp":
+        return cls(physical_of(ts), logical_of(ts))
+
+    def packed(self) -> int:
+        return pack(self.physical_ms, self.logical)
+
+    def __repr__(self) -> str:
+        return f"HLC({self.physical_ms}ms+{self.logical})"
 
 
 class Clock:

@@ -33,6 +33,18 @@ class SortedListIndex:
         self.order = np.argsort(values, kind="stable")
         self.sorted_vals = np.asarray(values)[self.order]
 
+    def range_mask(self, lo=None, hi=None, lo_open=False, hi_open=False) -> np.ndarray:
+        left = 0
+        right = self.n
+        if lo is not None:
+            left = np.searchsorted(self.sorted_vals, lo, side="right" if lo_open else "left")
+        if hi is not None:
+            right = np.searchsorted(self.sorted_vals, hi, side="left" if hi_open else "right")
+        mask = np.zeros(self.n, dtype=bool)
+        if right > left:
+            mask[self.order[left:right]] = True
+        return mask
+
     def _bounds(self, op: str, value) -> tuple[int, int]:
         """[left, right) slice of the sorted projection matching ``op value``
         (``ne`` callers complement the ``eq`` interval)."""
@@ -95,6 +107,15 @@ class LabelIndex:
         self.postings: dict[object, np.ndarray] = {}
         for i, k in enumerate(self.keys):
             self.postings[k.item() if hasattr(k, "item") else k] = self.codes == i
+
+    def eq_mask(self, value) -> np.ndarray:
+        return self.postings.get(value, np.zeros(self.n, dtype=bool)).copy()
+
+    def in_mask(self, values) -> np.ndarray:
+        mask = np.zeros(self.n, dtype=bool)
+        for v in values:
+            mask |= self.postings.get(v, False)
+        return mask
 
     def _key_mask(self, op: str, value) -> np.ndarray:
         with np.errstate(all="ignore"):

@@ -12,17 +12,20 @@
 // one element per thread and step.
 //
 // sq_decode replaces src/repro/kernels/sq_codec.py:sq_decode_pallas (body
-// _decode_kernel): out = code * scale[c] + vmin[c] in f32 per element, with
-// the scale of ops.sq_scale.  __fadd_rn(__fmul_rn(.)) keeps the two
-// roundings of the host decode (numpy, sq_decode_plain) and of the scan's
-// row loader below: an FMA-contracted code * scale + vmin, which nvcc's
-// default --fmad=true would emit, differs in the last bit.  What bounds it:
-// bytes, 1 in and 4 out per element (0.50 GB for a 131,072 x 768 segment:
-// 0.15 ms at 3.35 TB/s).  Where d % 16 == 0 and every pointer is 16-byte
-// aligned, each thread decodes 16 codes of one row from one 16-byte load
-// (scale and vmin as float4, four float4 stores); otherwise one element per
-// thread and step.  Indices are 64-bit: n * d passes 2^31 above ~2.8M rows
-// at d = 768.
+// _decode_kernel): out = code * scale[c] + vmin[c] in f32 per element.
+// __fadd_rn(__fmul_rn(.)) keeps the two roundings of the host decode
+// (numpy, sq_decode_plain) and of the scan's row loader below: an
+// FMA-contracted code * scale + vmin, which nvcc's default --fmad=true would
+// emit, differs in the last bit.  The scale is computed in the kernel from
+// vmin / vmax with ops.sq_scale's expression and roundings (sq_scale_of), so
+// a call is one launch.  What bounds it: bytes, 1 in and 4 out per element
+// (0.25 GB for the 65,536 x 768 chunks an IVF-SQ index decodes its codes
+// in: 0.075 ms at 3.35 TB/s).  Where d % 4 == 0 (and d <= 4096, codes
+// 4-byte and out 16-byte aligned) a thread decodes 4 codes of one row per
+// step from one 4-byte load, so a warp loads 128 contiguous bytes and
+// stores 512 (one float4 per lane, streaming); scale and vmin sit in
+// shared memory.  Otherwise one element per thread and step.  Indices are
+// 64-bit: n * d passes 2^31 above ~2.8M rows at d = 768.
 //
 // sq_l2_topk replaces src/repro/kernels/sq_codec.py:sq_l2_topk_pallas (body
 // _sq_scan_kernel): the l2_topk scan (scan_common.cuh) whose row loader
@@ -55,39 +58,77 @@ __device__ __forceinline__ float sq_decode_one(unsigned int code, float scale, f
   return __fadd_rn(__fmul_rn((float)code, scale), vmin);
 }
 
-// d % 16 == 0, all pointers 16-byte aligned: one 16-code chunk of one row
-// per thread and step (chunks never straddle a row).
-__global__ void sq_decode_vec16_kernel(const uint4* __restrict__ codes,
-                                       const float4* __restrict__ vmin,
-                                       const float4* __restrict__ scale,
-                                       float4* __restrict__ out, long long n_chunks,
-                                       int chunks_per_row) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < n_chunks; t += stride) {
-    const int c4 = (int)(t % chunks_per_row) * 4;  // float4 index of the chunk's first column
-    const uint4 raw = codes[t];
-    const unsigned int words[4] = {raw.x, raw.y, raw.z, raw.w};
+// scale = max(vmax - vmin, 1e-12) / 255 in f32: the expression and the
+// roundings of the wrapper's sq_scale (IEEE division, no contraction).
+__device__ __forceinline__ float sq_scale_of(float vmax, float vmin) {
+  return __fdiv_rn(fmaxf(__fsub_rn(vmax, vmin), 1e-12f), 255.f);
+}
+
+// Widest row whose scale | vmin the vec4 decoder stages in shared memory
+// (32 KB); wider rows take the scalar decoder.
+constexpr int kDecodeStageD = 4096;
+constexpr int kDecodeThreads = 256;
+constexpr int kDecodeUnroll = 4;
+
+// d % 4 == 0, codes 4-byte and out 16-byte aligned, d <= kDecodeStageD:
+// element group t (4 codes, one float4 of output, never straddling a row)
+// per thread and step, so a warp loads 128 contiguous bytes of codes and
+// stores 512 contiguous bytes.  Each block computes the row's scale and
+// stages it with vmin in shared memory once.  The group's column advances
+// by the grid stride's, mod d, with no division in the loop; stores
+// stream (__stcs), since the caller reads the rows once.
+__global__ void __launch_bounds__(kDecodeThreads)
+sq_decode_vec4_kernel(const unsigned int* __restrict__ codes, const float* __restrict__ vmin,
+                      const float* __restrict__ vmax, float4* __restrict__ out, long long n_groups,
+                      int d) {
+  extern __shared__ __align__(16) float par[];  // scale [d] | vmin [d]
+  for (int c = threadIdx.x; c < d; c += kDecodeThreads) {
+    const float mn = vmin[c];
+    par[c] = sq_scale_of(vmax[c], mn);
+    par[d + c] = mn;
+  }
+  __syncthreads();
+  const long long stride = (long long)gridDim.x * kDecodeThreads;
+  const int step_c = (int)((4 * stride) % d);
+  long long t = (long long)blockIdx.x * kDecodeThreads + threadIdx.x;
+  int c = (int)((4 * t) % d);
+  for (; t < n_groups; t += kDecodeUnroll * stride) {
+    unsigned int w[kDecodeUnroll];
+    int cs[kDecodeUnroll];
 #pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      const float4 s = scale[c4 + w];
-      const float4 m = vmin[c4 + w];
-      const unsigned int b = words[w];
-      out[t * 4 + w] = make_float4(sq_decode_one(b & 0xffu, s.x, m.x),
-                                   sq_decode_one((b >> 8) & 0xffu, s.y, m.y),
-                                   sq_decode_one((b >> 16) & 0xffu, s.z, m.z),
-                                   sq_decode_one(b >> 24, s.w, m.w));
+    for (int u = 0; u < kDecodeUnroll; ++u) {
+      const long long g = t + u * stride;
+      w[u] = g < n_groups ? __ldcs(codes + g) : 0u;
+      cs[u] = c;
+      c += step_c;
+      if (c >= d) c -= d;
+    }
+#pragma unroll
+    for (int u = 0; u < kDecodeUnroll; ++u) {
+      const long long g = t + u * stride;
+      if (g < n_groups) {
+        const float4 sc = *reinterpret_cast<const float4*>(par + cs[u]);
+        const float4 mn = *reinterpret_cast<const float4*>(par + d + cs[u]);
+        __stcs(out + g, make_float4(sq_decode_one(w[u] & 0xffu, sc.x, mn.x),
+                                    sq_decode_one((w[u] >> 8) & 0xffu, sc.y, mn.y),
+                                    sq_decode_one((w[u] >> 16) & 0xffu, sc.z, mn.z),
+                                    sq_decode_one(w[u] >> 24, sc.w, mn.w)));
+      }
     }
   }
 }
 
+// Any d and alignment: one element per thread and step, the column's
+// scale computed from vmin / vmax in global memory.
 __global__ void sq_decode_kernel(const unsigned char* __restrict__ codes,
                                  const float* __restrict__ vmin,
-                                 const float* __restrict__ scale, float* __restrict__ out,
+                                 const float* __restrict__ vmax, float* __restrict__ out,
                                  long long n_elem, int d) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n_elem; i += stride) {
     const int c = (int)(i % d);
-    out[i] = sq_decode_one(codes[i], scale[c], vmin[c]);
+    const float mn = __ldg(vmin + c);
+    out[i] = sq_decode_one(codes[i], sq_scale_of(__ldg(vmax + c), mn), mn);
   }
 }
 
@@ -106,7 +147,7 @@ struct SQRows {
   // roundings of the wrapper's sq_scale (computed here, it costs the call no
   // launch).
   __device__ __forceinline__ float scale_of(float vmax_k, float vmin_k) const {
-    return __fdiv_rn(fmaxf(__fsub_rn(vmax_k, vmin_k), 1e-12f), 255.f);
+    return sq_scale_of(vmax_k, vmin_k);
   }
 
   // par = scale[dpad] | vmin[dpad], zero past d (so padded columns decode to
@@ -240,26 +281,31 @@ extern "C" int repro_sq_encode(const float* x, const float* vmin, const float* s
   return (int)cudaGetLastError();
 }
 
-// codes [n, d] uint8, vmin / scale [d] f32 -> out [n, d] f32.  Returns the
-// CUDA error code of the launch.
-extern "C" int repro_sq_decode(const unsigned char* codes, const float* vmin, const float* scale,
+// codes [n, d] uint8, vmin / vmax [d] f32 -> out [n, d] f32, one launch
+// (the scale is computed in the kernel).  Returns the CUDA error code of
+// the launch.
+extern "C" int repro_sq_decode(const unsigned char* codes, const float* vmin, const float* vmax,
                                float* out, long long n, int d, cudaStream_t stream) {
   const long long n_elem = n * (long long)d;
   if (n_elem <= 0) return 0;
-  const int threads = 256;
-  const unsigned long long addr_bits = (unsigned long long)codes | (unsigned long long)vmin |
-                                       (unsigned long long)scale | (unsigned long long)out;
-  const bool vec = d % 16 == 0 && addr_bits % 16 == 0;
-  const long long work = vec ? n_elem / 16 : n_elem;
-  long long blocks = (work + threads - 1) / threads;
-  if (blocks > 132 * 64) blocks = 132 * 64;
+  static const int sms = [] {
+    int dev = 0, count = 132;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    return count;
+  }();
+  const bool vec = d % 4 == 0 && d <= kDecodeStageD && (unsigned long long)codes % 4 == 0 &&
+                   (unsigned long long)out % 16 == 0;
+  const long long work = vec ? n_elem / 4 : n_elem;
+  long long blocks = (work + kDecodeThreads - 1) / kDecodeThreads;
+  if (blocks > (long long)sms * 8) blocks = (long long)sms * 8;
   if (vec) {
-    sq_decode_vec16_kernel<<<(unsigned int)blocks, threads, 0, stream>>>(
-        reinterpret_cast<const uint4*>(codes), reinterpret_cast<const float4*>(vmin),
-        reinterpret_cast<const float4*>(scale), reinterpret_cast<float4*>(out), work, d / 16);
+    sq_decode_vec4_kernel<<<(unsigned int)blocks, kDecodeThreads, 2 * sizeof(float) * d, stream>>>(
+        reinterpret_cast<const unsigned int*>(codes), vmin, vmax, reinterpret_cast<float4*>(out),
+        work, d);
   } else {
-    sq_decode_kernel<<<(unsigned int)blocks, threads, 0, stream>>>(codes, vmin, scale, out,
-                                                                   n_elem, d);
+    sq_decode_kernel<<<(unsigned int)blocks, kDecodeThreads, 0, stream>>>(codes, vmin, vmax, out,
+                                                                         n_elem, d);
   }
   return (int)cudaGetLastError();
 }

@@ -68,11 +68,15 @@ def _kernels():
 
 def sq_scale(vmin, vmax) -> torch.Tensor:
     """The codec's per-dimension quantization step,
-    ``max(vmax - vmin, 1e-12) / 255`` in float32, which the encode and
-    decode kernels take from here.  The fused scan computes the same
-    expression, with the same roundings, in CUDA (``SQRows::scale_of`` in
-    ``csrc/sq_codec.cu``), so that a call costs no launch for it."""
-    return torch.clamp_min(vmax.to(torch.float32) - vmin.to(torch.float32), 1e-12) / 255.0
+    ``max(vmax - vmin, 1e-12) / 255`` in float32, which the encode kernel
+    takes from here.  The decode kernel and the fused scan compute the same
+    expression, with the same roundings, in CUDA (``sq_scale_of`` in
+    ``csrc/sq_codec.cu``), so that a call costs no launch for it.  The
+    divisor is a tensor: PyTorch on CUDA multiplies by the reciprocal of a
+    Python-number divisor, which rounds differently from the IEEE division
+    of the reference (numpy) and of the kernels."""
+    span = torch.clamp_min(vmax.to(torch.float32) - vmin.to(torch.float32), 1e-12)
+    return span / span.new_full((), 255.0)
 
 
 def _check_range(name: str, x, vmin, vmax) -> None:
@@ -120,7 +124,9 @@ def sq_encode_plain(x, vmin, vmax) -> torch.Tensor:
 
 def sq_decode(codes, vmin, vmax) -> torch.Tensor:
     """uint8 ``codes`` [n, D] -> float32 rows ``code * scale + vmin``,
-    bit-exact against :func:`sq_decode_plain` (two roundings, no FMA)."""
+    bit-exact against :func:`sq_decode_plain` (two roundings, no FMA).  On
+    the card one launch: the kernel computes the scale from ``vmin`` /
+    ``vmax``."""
     if codes.dim() != 2 or codes.dtype != torch.uint8 or not codes.is_contiguous():
         raise ValueError("sq_decode: codes must be a contiguous [n, D] uint8 tensor")
     _check_range("sq_decode", codes, vmin, vmax)
@@ -132,10 +138,9 @@ def sq_decode(codes, vmin, vmax) -> torch.Tensor:
     out = torch.empty((n, d), dtype=torch.float32, device=codes.device)
     if n == 0 or d == 0:
         return out
-    vmin_c = vmin.contiguous()
-    scale = sq_scale(vmin, vmax).contiguous()
+    vmin_c, vmax_c = vmin.contiguous(), vmax.contiguous()
     rc = _kernels()["decode"](
-        codes.data_ptr(), vmin_c.data_ptr(), scale.data_ptr(), out.data_ptr(), n, d,
+        codes.data_ptr(), vmin_c.data_ptr(), vmax_c.data_ptr(), out.data_ptr(), n, d,
         torch.cuda.current_stream(codes.device).cuda_stream,
     )
     if rc != 0:

@@ -123,22 +123,32 @@ def _round_toward_zero(t: torch.Tensor) -> torch.Tensor:
     return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
 
 
+def _exponent(t: torch.Tensor) -> torch.Tensor:
+    """frexp exponent (|t| in [2^(e-1), 2^e)), -1000 for zeros."""
+    return torch.where(t != 0, torch.frexp(t).exponent, -1000)
+
+
 def _tensor_core_step(part, a, b) -> torch.Tensor:
     """One tensor-core instruction's 8-deep slice for every (query, row):
     ``part + sum_k a[:, k] b[:, k]`` as modelled -- the products exact, every
     addend (the accumulator too) truncated toward zero to a multiple of
-    2^(e - TC_ALIGN_BITS), where 2^(e-1) <= |largest addend| < 2^e, their
-    sum exact, and the sum truncated to float32."""
-    prods = a.double()[:, None, :] * b.double()[None, :, :]
-    terms = torch.cat([part.double()[:, :, None], prods], 2)
-    mag = terms.abs()
-    e = torch.where(mag > 0, torch.frexp(mag).exponent, -1000).amax(2, keepdim=True)
+    2^(e - TC_ALIGN_BITS), their sum exact, and the sum truncated to
+    float32.  e is the largest addend exponent, where a product's exponent
+    is the sum of its inputs' (frexp) exponents, not its own: a product of
+    significands below 1 keeps the inputs' alignment (fitted on signed data,
+    where cancelling sums showed it)."""
+    a, b = a.double(), b.double()
+    prods = a[:, None, :] * b[None, :, :]
+    pe = _exponent(a)[:, None, :] + _exponent(b)[None, :, :]
+    pd = part.double()
+    e = torch.maximum(pe.amax(2, keepdim=True), _exponent(pd)[:, :, None])
     unit = torch.ldexp(torch.ones_like(e, dtype=torch.float64), (e - TC_ALIGN_BITS).double())
+    terms = torch.cat([pd[:, :, None], prods], 2)
     return _round_toward_zero((torch.trunc(terms / unit) * unit).sum(2))
 
 
 def scan_scores_tf32(queries, base, metric: str = "l2", passes: int = 3,
-                     depth: int = SCAN_DEPTH) -> torch.Tensor:
+                     depth: int = SCAN_DEPTH, return_peak: bool = False):
     """Plain emulation of the tensor-core score pass.  q.x comes from TF32
     splits (passes=3: lo_q.hi_x + hi_q.lo_x + hi_q.hi_x, the kernel's
     3xTF32; passes=1: hi_q.hi_x, plain TF32), one instruction of 8 products
@@ -147,10 +157,12 @@ def scan_scores_tf32(queries, base, metric: str = "l2", passes: int = 3,
     ``depth`` of K the partial is added to the running float32 total (round
     to nearest) and a fresh one begins.  Row norms are summed in the kernel's order
     (16-deep FMA chains), and the score is (|q|^2 - 2 q.x) + |x|^2 (L2) or
-    -q.x (IP) in float32.  A model: on an H100 it gave 99.8% of the
-    kernel's scores bit for bit on nonnegative data at D = 768, the rest
-    within a few ulps (signed addends that cancel fit less well), and
-    ``tests/test_torch_cuda.py`` holds the kernel to it on the card."""
+    -q.x (IP) in float32.  A model: on an H100 it gave 99.96% to 100% of the
+    kernel's scores bit for bit at D = 768 on nonnegative and on signed
+    data, and ``tests/test_torch_cuda.py`` holds the kernel to it on the
+    card.  ``return_peak`` also returns the largest magnitude the running
+    q.x total took (the scale at which its sum rounds; |q.x| itself when
+    every addend is nonnegative)."""
     if passes not in (1, 3):
         raise ValueError(f"passes must be 1 or 3, got {passes}")
     q = queries.to(torch.float32)
@@ -159,6 +171,7 @@ def scan_scores_tf32(queries, base, metric: str = "l2", passes: int = 3,
     xh, xl = split_tf32(x)
     terms = ((ql, xh), (qh, xl), (qh, xh)) if passes == 3 else ((qh, xh),)
     acc = torch.zeros((q.shape[0], x.shape[0]), dtype=torch.float32)
+    peak = torch.zeros_like(acc)
     part = torch.zeros_like(acc)
     d = q.shape[1]
     for k0 in range(0, d, 8):
@@ -167,10 +180,13 @@ def scan_scores_tf32(queries, base, metric: str = "l2", passes: int = 3,
             part = _tensor_core_step(part, a[:, sl], b[:, sl])
         if (k0 + 8) % depth == 0 or k0 + 8 >= d:
             acc = acc + part
+            peak = torch.maximum(peak, acc.abs())
             part = torch.zeros_like(acc)
     if metric == "ip":
-        return -acc
-    return (_kernel_norms(q)[:, None] - 2.0 * acc) + _kernel_norms(x)[None, :]
+        scores = -acc
+    else:
+        scores = (_kernel_norms(q)[:, None] - 2.0 * acc) + _kernel_norms(x)[None, :]
+    return (scores, peak) if return_peak else scores
 
 
 #: What ``model_tie`` requires of the card: this share of the scores
@@ -178,39 +194,57 @@ def scan_scores_tf32(queries, base, metric: str = "l2", passes: int = 3,
 MODEL_TIE = (0.99, 4.0)
 
 
-def model_tie(kernel: str, nq: int, dev) -> dict:
+def model_tie_inputs(kernel: str, nq: int, signed: bool = False):
+    """``model_tie``'s seeded inputs on the host: queries [nq, 768] and the
+    1,000 rows the kernel scores (``x``, decoded for SQ), plus the SQ codes
+    and range.  Nonnegative, or with ``signed`` centred on 0, so partial
+    sums cancel."""
+    rng = np.random.default_rng(nq + (1000 if signed else 0))
+    n, d = 1000, 768
+    shift = 0.5 if signed else 0.0
+    q = torch.from_numpy(rng.random((nq, d), dtype=np.float32) - np.float32(shift))
+    if kernel == "l2_topk":
+        x = torch.from_numpy(rng.random((n, d), dtype=np.float32) - np.float32(shift))
+        return {"q": q, "x": x}
+    codes = torch.from_numpy(rng.integers(0, 256, (n, d), dtype=np.uint8))
+    lo = torch.from_numpy(rng.random(d, dtype=np.float32) * np.float32(0.1) - np.float32(shift))
+    hi = lo + 1.0
+    from .kernels import sq_codec as sq_mod
+
+    return {"q": q, "x": sq_mod.sq_decode_plain(codes, lo, hi), "codes": codes, "lo": lo, "hi": hi}
+
+
+def model_tie(kernel: str, nq: int, dev, signed: bool = False) -> dict:
     """How closely the tensor-core score pass of ``kernel`` (``"l2_topk"``
     or ``"sq_l2_topk"``; nq > 8 takes that path) follows
-    :func:`scan_scores_tf32`, on seeded nonnegative data (so no partial sum
-    cancels): ``nq`` queries against 1,000 rows of 768, k = 1,000 so every
-    score comes back.  Per metric, the share of scores equal to the model's
-    bit for bit and the largest distance in float32 ulps -- of |q.x| for
-    IP, of the largest of |q.x|, |q|^2 and |x|^2 for L2 (the magnitudes the
-    expression rounds at)."""
+    :func:`scan_scores_tf32`, on seeded data (:func:`model_tie_inputs`:
+    nonnegative, so no partial sum cancels, or ``signed``, centred rows):
+    ``nq`` queries against 1,000 rows of 768, k = 1,000 so every score
+    comes back.  Per metric, the share of scores equal to the model's bit
+    for bit and the largest distance in float32 ulps of the magnitudes the
+    expression rounds at: for IP the largest the running q.x total took
+    (|q.x| on nonnegative data), for L2 the largest of that, |q|^2 and
+    |x|^2."""
     from .kernels import l2_topk as l2_mod
     from .kernels import sq_codec as sq_mod
 
-    rng = np.random.default_rng(nq)
-    n, d = 1000, 768
-    q = torch.from_numpy(rng.random((nq, d), dtype=np.float32))
+    inp = model_tie_inputs(kernel, nq, signed)
+    q, x = inp["q"], inp["x"]
+    n = x.shape[0]
     if kernel == "l2_topk":
-        x = torch.from_numpy(rng.random((n, d), dtype=np.float32))
 
         def run(metric):
             return l2_mod.l2_topk(q.to(dev), [x.to(dev)], [None], n, metric)
     else:
-        codes = torch.from_numpy(rng.integers(0, 256, (n, d), dtype=np.uint8))
-        lo = torch.from_numpy(rng.random(d, dtype=np.float32) * 0.1)
-        hi = lo + 1.0
-        x = sq_mod.sq_decode_plain(codes, lo, hi)
 
         def run(metric):
-            return sq_mod.sq_l2_topk(q.to(dev), codes.to(dev), lo.to(dev), hi.to(dev), None, n,
-                                     metric)
-    qx = -scan_scores_tf32(q, x, "ip")
-    big = torch.maximum(qx.abs(), torch.maximum((q * q).sum(1)[:, None], (x * x).sum(1)[None, :]))
+            return sq_mod.sq_l2_topk(q.to(dev), inp["codes"].to(dev), inp["lo"].to(dev),
+                                     inp["hi"].to(dev), None, n, metric)
+    neg_qx, peak = scan_scores_tf32(q, x, "ip", return_peak=True)
+    qx = -neg_qx
+    big = torch.maximum(peak, torch.maximum((q * q).sum(1)[:, None], (x * x).sum(1)[None, :]))
     out = {}
-    for metric, model, mag in (("ip", qx, qx.abs()), ("l2", scan_scores_tf32(q, x, "l2"), big)):
+    for metric, model, mag in (("ip", qx, peak), ("l2", scan_scores_tf32(q, x, "l2"), big)):
         vals, idx = run(metric)
         got = torch.empty((nq, n)).scatter_(1, idx.cpu(), vals.cpu())
         ulps = (got - model).abs() / (torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag)

@@ -227,13 +227,15 @@ def test_scan_rejects_small_q_outside_its_paths(dev):
 
 @pytest.mark.parametrize("kernel", ["l2_topk", "sq_l2_topk"])
 @pytest.mark.parametrize("nq", [16, 100])
-def test_tensor_core_scores_match_the_3xtf32_model(dev, kernel, nq):
+@pytest.mark.parametrize("signed", [False, True])
+def test_tensor_core_scores_match_the_3xtf32_model(dev, kernel, nq, signed):
     """Ties the CPU model of the tensor-core score pass
     (``testing.scan_scores_tf32``), which ``test_torch_scan_numerics.py``
     holds to float64, to the card: ``testing.model_tie``'s share of
-    bit-exact scores and largest ulps within ``MODEL_TIE``."""
+    bit-exact scores and largest ulps within ``MODEL_TIE``, on nonnegative
+    rows and on centred (signed) rows whose partial sums cancel."""
     share, ulps = MODEL_TIE
-    for metric, (exact, far) in model_tie(kernel, nq, dev).items():
+    for metric, (exact, far) in model_tie(kernel, nq, dev, signed).items():
         assert exact >= share and far <= ulps, (
             f"{metric}: {exact:.4f} of the scores bit-exact, {far:.2f} ulps at most")
 
@@ -269,6 +271,51 @@ def test_merge_topk_matches_plain(dev, metric, k, m):
     assert torch.equal(gp, wp)
     assert torch.equal(torch.isnan(gv), torch.isnan(wv))
     torch.testing.assert_close(gv, wv, rtol=0, atol=0, equal_nan=True)
+
+
+def _regime_pool(rng, nq, m, kind, dev):
+    """mixed: ties, -0.0, inf / NaN, pk < 0 and past int32; repeated: every
+    pk twice (the copy scoring the same or 1 apart); dead: no live
+    candidate."""
+    s = np.round(rng.standard_normal((nq, m)).astype(np.float32) * 4) / 4
+    p = rng.integers(0, max(1, m // 3), size=(nq, m)).astype(np.int64)
+    if kind == "mixed":
+        s[:, 3::11] = -0.0
+        s[:, 5::13] = np.inf
+        s[:, 6::17] = np.nan
+        p[:, 7::9] = -1
+        p[:, ::23] += 2**40
+    elif kind == "repeated":
+        h = (m + 1) // 2
+        p[:, :h] = rng.permutation(h)
+        p[:, h:] = p[:, :m - h]
+        s[:, h:] = s[:, :m - h] + rng.integers(0, 2, (nq, m - h))
+    else:
+        p[:, ::2] = -1
+        s[:, 1::2] = np.nan
+    return torch.from_numpy(s).to(dev), torch.from_numpy(p).to(dev)
+
+
+@pytest.mark.parametrize("m", [1, 31, 32, 33, 256, 257, 400, 716, 800, 1024, 1025, 1700, 4800,
+                               8192])
+@pytest.mark.parametrize("kind", ["mixed", "repeated", "dead"])
+def test_merge_topk_regimes_are_bit_exact(dev, m, kind):
+    """Each regime of the kernel: a warp per query (M <= 256; nq = 33
+    fills no block of 3 or 8 warps evenly), a warp per 256-, 512- or
+    1,024-column chunk then one over the chunks' lists (above 256 columns,
+    k = 1024 up to M = 1,024 too), and the block kernel (k = 1024 above
+    that); k above the survivors where pks repeat or die; both metrics."""
+    rng = np.random.default_rng(m * 3 + len(kind))
+    s, p = _regime_pool(rng, 33, m, kind, dev)
+    for k in (1, 100, 1024):
+        for metric in ("l2", "ip"):
+            before = merge_mod.merge_topk.launches
+            gv, gp = merge_mod.merge_topk(s, p, k, metric)
+            torch.cuda.synchronize()
+            assert merge_mod.merge_topk.launches == before + 1
+            wv, wp = merge_mod.merge_topk_plain(s, p, k, metric)
+            assert torch.equal(gp, wp), (k, metric)
+            assert torch.equal(gv.view(torch.int32), wv.view(torch.int32)), (k, metric)
 
 
 @pytest.mark.parametrize("k", [100, 1024])
@@ -495,10 +542,14 @@ def test_pq_adc_topk_is_bit_exact(dev, nq, m):
 
 
 @pytest.mark.parametrize("n,d,offset", [(1, 1, 0), (1, 768, 0), (700, 19, 0), (1001, 768, 0),
-                                        (513, 48, 0), (257, 768, 3), (65_536, 768, 0)])
+                                        (513, 48, 0), (257, 768, 3), (65_536, 768, 0),
+                                        (999, 100, 0), (301, 6, 0), (257, 768, 4), (3, 4100, 0),
+                                        (2, 4096, 0), (41_248, 768, 0)])
 def test_sq_decode_is_bit_exact(dev, n, d, offset):
-    """The 16-code path (d % 16 == 0, aligned) and the scalar path (odd d,
-    a view 3 bytes off the 16-byte grid), one row, ragged row counts."""
+    """The 4-code path (d % 4 == 0, codes 4-byte aligned: d = 100 and a view
+    4 bytes off the 16-byte grid too; rows up to 4,096 wide) and the scalar
+    path (d % 4 != 0, a view 3 bytes off, d = 4,100), one row, row counts
+    whose n * d no grid step divides."""
     rng = np.random.default_rng(n + d + offset)
     flat = torch.from_numpy(rng.integers(0, 256, offset + n * d).astype(np.uint8)).to(dev)
     codes = flat[offset:].view(n, d)
@@ -510,6 +561,36 @@ def test_sq_decode_is_bit_exact(dev, n, d, offset):
     torch.cuda.synchronize()
     assert sq_mod.sq_decode.launches == before + 1
     want = sq_mod.sq_decode_plain(codes, lo, hi)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_sq_scale_on_card_is_the_ieee_division(dev):
+    """``sq_scale`` on the card equals the CPU's (and numpy's) IEEE division
+    bit for bit, as the decode kernel's own scale does."""
+    rng = np.random.default_rng(17)
+    lo = torch.from_numpy(rng.standard_normal(4096).astype(np.float32))
+    hi = lo + torch.from_numpy(rng.random(4096).astype(np.float32) * 7)
+    want = np.maximum(hi.numpy() - lo.numpy(), np.float32(1e-12)) / np.float32(255.0)
+    got = sq_mod.sq_scale(lo.to(dev), hi.to(dev)).cpu()
+    assert np.array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    assert torch.equal(got, sq_mod.sq_scale(lo, hi))
+
+
+def test_sq_decode_is_one_launch_without_torch_scale(dev, monkeypatch):
+    """The kernel computes the scale itself: the wrapper calls no
+    ``sq_scale`` (three torch launches) before its one launch."""
+    def forbidden(*args):
+        raise AssertionError("sq_decode computed the scale in torch")
+
+    codes = torch.randint(0, 256, (4096, 768), dtype=torch.uint8, device=dev)
+    lo = torch.randn(768, device=dev)
+    hi = lo + 1.0
+    want = sq_mod.sq_decode_plain(codes, lo, hi)
+    monkeypatch.setattr(sq_mod, "sq_scale", forbidden)
+    before = sq_mod.sq_decode.launches
+    got = sq_mod.sq_decode(codes, lo, hi)
+    torch.cuda.synchronize()
+    assert sq_mod.sq_decode.launches == before + 1
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 

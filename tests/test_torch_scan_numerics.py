@@ -88,6 +88,23 @@ def test_3xtf32_product_holds_cosine_tol_on_normalized_rows():
     assert bad == 0, f"{bad} cosine scores outside SCORE_TOL, max |err| {worst:.3g}"
 
 
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_3xtf32_model_on_signed_rows_holds_score_tol(metric):
+    """``model_tie``'s signed inputs (centred rows, partial sums that
+    cancel) through the model: within SCORE_TOL of float64, and the running
+    q.x total's largest magnitude at least |q.x| (the scale its ulps are
+    counted in)."""
+    inp = testing.model_tie_inputs("l2_topk", 4, signed=True)
+    q, x = inp["q"], inp["x"]
+    assert bool((q < 0).any() and (x < 0).any())
+    want = _exact(q.numpy(), x.numpy(), metric)
+    got, peak = testing.scan_scores_tf32(q, x, metric, return_peak=True)
+    bad, worst = _violations(got, want, *SCORE_TOL[metric])
+    assert bad == 0, f"{bad} scores outside SCORE_TOL[{metric}], max |err| {worst:.3g}"
+    qx = -testing.scan_scores_tf32(q, x, "ip")
+    assert bool((peak >= qx.abs()).all()) and bool((peak > qx.abs()).any())
+
+
 @pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
 def test_plain_tf32_product_fails_score_tol(metric):
     """The tolerance has teeth: one TF32 product (no lo terms) misses it."""
