@@ -59,7 +59,24 @@
    at its pin (``repro_torch.testing.system_oracle``).  Prints ingest
    rows/s, the flush time, each build, request latencies and two profiled
    requests with the host split.
-6. Each path runs with every launch counter at 0 and fails unless each of
+6. Maintenance path, on the facade's system after its requests: a
+   time-travel checkpoint, a retention delete of the 65,536 oldest
+   ordinals (~25% of each shard's first segment, as a collection TTL
+   deletes) and a flush that seals the 16,384 streamed rows into two
+   fragments; ``compact()`` must plan one task per shard (that segment and
+   the shard's fragment), purge exactly the deleted rows of its sources,
+   rebuild IVF-SQ on each target and swap; a STRONG nq=100 read pinned
+   before the swap repeated after it bit for bit; STRONG requests at nq 1
+   and 100 before and after, each held to the oracle at its pin;
+   ``gc()`` must reap the fragments and keep the checkpointed sources, and
+   the query nodes must drop every retired handle; ``restore_collection``
+   at the checkpoint, searched at nq=100, held to an exact top-k in plain
+   torch; ``kill_query_node`` + ``recover_failures()`` and then
+   ``restart()``, each answering as before the kill bit for bit.  Prints
+   the compaction, rebuild, GC, restore and recovery seconds, the request
+   medians, launches per request, profiled requests and device memory
+   around the restart.
+7. Each path runs with every launch counter at 0 and fails unless each of
    its kernels was launched; ``kmeans_assign``'s launches are also counted
    per (N, C, D), ``merge_topk``'s per (nq, M, k) and ``sq_decode``'s per
    (n, d), each adding up to the wrapper's count, and the three kernels are
@@ -83,6 +100,7 @@ import subprocess
 import sys
 import time
 import traceback
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -159,6 +177,11 @@ FACADE_CONFIG = dict(num_shards=2, num_loggers=2, num_data_nodes=1, num_index_no
 FACADE_STREAM = 16_384
 FACADE_SEGMENTS = 8  # per shard: 3 x 131,072 rows and the flushed remainder
 FACADE_KERNELS = ("l2_topk", "merge_topk", "kmeans_assign", "sq_encode", "sq_decode")
+# Maintenance path: the oldest ordinals a retention delete removes (a
+# collection TTL's delete: ~25% of each shard's first sealed segment), and
+# the kernels the path must launch (rebuilds, first searches, the restore).
+RETENTION_DELETE = 65_536
+MAINTENANCE_KERNELS = FACADE_KERNELS
 KERNEL_NAMES = (
     "l2_topk", "merge_topk", "kmeans_assign", "sq_encode", "sq_decode", "sq_l2_topk", "pq_adc_topk",
 )
@@ -1360,7 +1383,284 @@ def facade_path(torch, gen, dev, phases, counts, testing) -> dict:
             + ", ".join(f"{k} {v:.3f}" for k, v in sorted(split.items())))
     phases["facade_profile_s"] = time.perf_counter() - t0
     return {"manu": manu, "coll": coll, "name": name, "latency": latency, "launches": launches,
-            "shapes": shapes, "builds": builds, "held": held}
+            "shapes": shapes, "builds": builds, "x": x, "queries": queries, "doomed": doomed,
+            "pump": pump}
+
+
+def timed_requests(torch, coll, q, kw: dict, reps: int):
+    """``reps`` + 1 requests (the first reported apart); their host times
+    (ms) and the first answer, which every repeat must equal."""
+    from repro_torch.core import SearchRequest
+
+    times, first = [], None
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = coll.search(SearchRequest.single(q, k=K, **kw))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        if first is None:
+            first = res
+        elif not torch.equal(res.pks, first.pks):
+            raise AssertionError("a repeated request changed its answer")
+    return times, first
+
+
+def maintenance_path(torch, fac, gen, dev, phases, counts, testing) -> dict:
+    """Maintenance and recovery on the facade's ManuSystem (1M rows): a
+    time-travel checkpoint, a retention delete of the oldest 65,536
+    ordinals (~25% of each shard's first segment, as a collection TTL
+    issues it) and a flush that seals the 16,384 streamed rows into two
+    fragments; ``compact()`` under the reference's policy (Milvus's
+    ``dataCoord.compaction.single.ratio.threshold`` 0.2 and
+    ``dataCoord.segment.smallProportion`` 0.5) must plan one task per shard
+    (that segment and the shard's fragment), rewrite them into one
+    seal-size target each, rebuild IVF-SQ on it and swap; a STRONG read
+    pinned before the swap is repeated after it bit for bit; requests at
+    nq 1 and 100 before and after, each held to the float64 oracle at its
+    pin; ``gc()`` reaps the retired fragments and keeps the sources the
+    checkpoint references; the collection restored at the checkpoint is
+    held to an exact top-k in plain torch; a query node is killed and
+    recovered, then the whole system restarted, each answering as before
+    the kill bit for bit.  Every launch counter starts at 0 with the
+    phase."""
+    from repro_torch.core import ConsistencyLevel, SearchRequest
+
+    manu, coll, name = fac["manu"], fac["coll"], fac["name"]
+    x, queries, doomed, builds = fac["x"], fac["queries"], fac["doomed"], fac["builds"]
+    rtol, atol = testing.SCORE_TOL["l2"]
+    n_total = x.shape[0]
+    strong = dict(consistency=ConsistencyLevel.STRONG)
+    reps = {1: 10, 100: 3}
+    out = {"latency": {}}
+    counts.reset()
+    mark = {"t": time.perf_counter(), "launches": counts.read()}
+
+    def step_done(label: str) -> None:
+        """Logs the step's seconds and launches since the last step."""
+        now = counts.read()
+        delta = {k: now[k] - mark["launches"][k] for k in now}
+        phases[f"maint_{label}_s"] = time.perf_counter() - mark["t"]
+        log(f"maintenance step {label}: {phases[f'maint_{label}_s']:.3f} s; launches {delta}")
+        mark.update(t=time.perf_counter(), launches=now)
+
+    def nodes():
+        return [n for n in manu.query_nodes.values() if n.alive]
+
+    def live_handles():
+        return {sid: h for node in nodes() for (c, sid), h in node.sealed.items()
+                if c == name and h.retired_at_ts is None}
+
+    def segment_shard(sid: int) -> int:
+        return int(manu.meta.get(f"segment/{name}/{sid}")["shard"])
+
+    def requests(label: str, deleted) -> None:
+        """The timed requests at nq 1 and 100, each first answer held to
+        the oracle at its pin, and one profiled request per nq."""
+        for nq, q in queries.items():
+            before = counts.read()
+            times, res = timed_requests(torch, coll, q, strong, reps[nq])
+            after = counts.read()
+            per = {k: (after[k] - before[k]) / (reps[nq] + 1) for k in after if after[k] > before[k]}
+            out["latency"][f"{name} maintenance {label} STRONG nq={nq}"] = times
+            swaps, by_kind, max_err = check_against_oracle(
+                torch, testing, f"{label} nq={nq}", (res.scores, res.pks), nodes(), name, q,
+                res.query_ts, deleted, None, rtol, atol)
+            log(f"check maintenance {label} STRONG nq={nq}: equals the oracle at its pin (max |err| "
+                f"{max_err:.3g} against float64; {swaps} near-tie swaps); median "
+                f"{statistics.median(times[1:]):.3f} ms over {reps[nq]}; kernel launches per "
+                f"request {per}; score error by kind "
+                + json.dumps({k: float(f"{v:.3g}") for k, v in by_kind.items()}))
+            profile_request(torch, lambda q=q: coll.search(SearchRequest.single(q, k=K, **strong)),
+                            f"{name} maintenance {label} STRONG nq={nq}")
+
+    # ---- 1. checkpoint, retention delete, flush
+    ckpt_ts = manu.tso.last_issued()
+    manu.checkpoint_collection(name)
+    ckpt_sids = set(manu.data_coord.sealed_segments(name))
+    oldest = torch.arange(RETENTION_DELETE, device=dev)
+    coll.delete(oldest.cpu().numpy())
+    deleted = torch.unique(torch.cat([doomed, oldest]))
+    sealed_before = set(manu.data_coord.sealed_segments(name))
+    coll.flush()
+    fragments = sorted(set(manu.data_coord.sealed_segments(name)) - sealed_before)
+    held = live_handles()
+    if len(fragments) != 2 or any(held[s].segment.num_rows >= SEG_ROWS // 2 for s in fragments):
+        raise AssertionError(f"flush sealed {fragments}, not two fragments")
+    first = {}
+    for sid in sorted(sealed_before):
+        first.setdefault(segment_shard(sid), sid)
+    expected = {segment_shard(f): sorted([first[segment_shard(f)], f]) for f in fragments}
+    sources = [s for srcs in expected.values() for s in srcs]
+    purge = sum(int(torch.isin(held[s].segment.pks(), deleted).sum()) for s in sources)
+    for shard, (seg_id, _frag) in sorted(expected.items()):
+        seg = held[seg_id].segment
+        frac = float(torch.isin(seg.pks(), deleted).float().mean())
+        log(f"maintenance: shard {shard} segment {seg_id} ({seg.num_rows} rows) {frac:.4f} deleted; "
+            f"fragment {_frag} ({held[_frag].segment.num_rows} rows)")
+    del seg
+    entities_before = coll.num_entities()
+    step_done("checkpoint_delete_flush")
+
+    pinned = coll.search(SearchRequest.single(queries[100], k=K, **strong))
+    requests("before compaction", deleted)
+    step_done("requests_before")
+
+    # ---- 2. compact
+    n_builds = len(builds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = coll.compact()
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
+    tasks = [e.detail for e in manu.events(kind="compaction_task")]
+    planned = {t["shard"]: sorted(t["sources"]) for t in tasks}
+    if report["tasks"] != 2 or planned != expected or report["rows_purged"] != purge:
+        raise AssertionError(f"compact() {report}, planned {planned}; expected {expected}, "
+                             f"{purge} rows purged")
+    done = [e.detail for e in manu.events(kind="compaction_done")]
+    targets = sorted(t for d in done for t in d["targets"])
+    held = live_handles()
+    if any(s in held for s in sources) or any(
+        t not in held or held[t].index is None or held[t].index.KIND != "ivf_sq" for t in targets
+    ):
+        raise AssertionError(f"after the swap the nodes serve {sorted(held)}; targets {targets}")
+    entities_after = coll.num_entities()
+    live_rows = sum(h.segment.num_rows for h in held.values())
+    if entities_after != live_rows or entities_after != entities_before - purge:
+        raise AssertionError(f"num_entities {entities_before} -> {entities_after}, live segment "
+                             f"rows {live_rows}, {purge} purged")
+    rebuilds = builds[n_builds:]
+    log(f"maintenance compact: {compact_s:.3f} s from compact() to every target's index loaded; "
+        f"{report}; tasks {planned} -> targets {targets} "
+        f"({[held[t].segment.num_rows for t in targets]} rows); rebuilds "
+        + ", ".join(f"segment {sid} {kind} {sec:.3f} s" for sid, kind, sec in rebuilds)
+        + f"; num_entities {entities_before} -> {entities_after} (the rows of the live segments; "
+        f"{n_total - len(deleted)} rows are not deleted)")
+    step_done("compact")
+
+    # ---- 3. the pinned read through the swap
+    replay = coll.search(SearchRequest.single(queries[100], k=K, time_travel_ts=pinned.query_ts))
+    if not (torch.equal(replay.pks, pinned.pks) and torch.equal(replay.scores, pinned.scores)):
+        raise AssertionError("the read pinned before the swap changed after it")
+    log(f"check maintenance pinned read: the STRONG nq=100 answer pinned at {pinned.query_ts} "
+        "is bit-identical after the swap (retired sources serve it)")
+    step_done("pinned_read")
+
+    # ---- 4. requests after the swap
+    requests("after compaction", deleted)
+    step_done("requests_after")
+
+    # ---- 5. gc
+    torch.cuda.synchronize()
+    mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    reaped = coll.gc()
+    gc_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.synchronize()
+    freed = mem - torch.cuda.memory_allocated()
+    for sid in sources:
+        objs = [m.key for p in (f"binlog/{name}/{sid}/", f"index/{name}/{sid}/")
+                for m in manu.store.list(p)]
+        if (sid in ckpt_sids) != bool(objs):
+            raise AssertionError(f"segment {sid}: objects {objs[:3]} after gc, checkpoint "
+                                 f"references it: {sid in ckpt_sids}")
+    if any(h.retired_at_ts is not None or (c == name and sid in sources)
+           for node in nodes() for (c, sid), h in node.sealed.items()):
+        raise AssertionError("a query node still holds a retired handle after gc")
+    log(f"maintenance gc: {gc_s:.3f} s; reaped segments {[s for _c, s in reaped['segments']]}, "
+        f"{reaped['objects']} objects, {reaped['bytes']} bytes; {reaped['protected']} protected by "
+        f"the checkpoint; the query nodes dropped every retired handle ({freed} bytes of device "
+        "memory freed)")
+    step_done("gc")
+
+    # ---- 6. restore at the checkpoint
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = manu.restore_collection(name, ckpt_ts)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    q = queries[100]
+    search_times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = restored.search(q, K)
+        torch.cuda.synchronize()
+        search_times.append((time.perf_counter() - t1) * 1e3)
+    scores = testing.l2_scores(q.double(), x.double())  # exact: float64
+    scores[:, doomed] = float("inf")  # deleted before the checkpoint
+    want = torch.topk(scores, K, dim=1, largest=False)
+    del scores
+    testing.assert_topk_near_tie(got, (want.values.float(), want.indices), rtol, atol)
+    n_restored = restored.num_rows()
+    if n_restored != n_total - len(doomed):
+        raise AssertionError(f"restored {n_restored} rows, {n_total - len(doomed)} live at the checkpoint")
+    log(f"maintenance restore: {restore_s:.3f} s for {n_restored} rows at the checkpoint "
+        f"({len(restored.segments)} segments); RestoredCollection.search nq=100 k={K}: median "
+        f"{statistics.median(search_times[1:]):.3f} ms (first {search_times[0]:.3f}); equals the "
+        f"exact float64 top-k (rtol={rtol}, atol={atol}; max |err| "
+        f"{(got[0].double() - want.values).abs().max().item():.3g})")
+    del restored, got, want
+    gc.collect()
+    step_done("restore")
+
+    # ---- 7. kill / recover, then restart
+    q = queries[100]
+    base = coll.search(SearchRequest.single(q, k=K, **strong))
+    torch.cuda.synchronize()
+    mem_before, victim = torch.cuda.memory_allocated(), sorted(manu.query_nodes)[-1]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    manu.kill_query_node(victim)
+    dead = manu.recover_failures()
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t0
+    res = coll.search(SearchRequest.single(q, k=K, **strong))
+    if dead != [victim] or not (torch.equal(res.pks, base.pks) and torch.equal(res.scores, base.scores)):
+        raise AssertionError(f"recover_failures {dead}: the answer differs from the pre-kill one")
+    log(f"maintenance recover_failures: {recover_s:.3f} s to re-place {victim}'s segments and "
+        f"channels; the STRONG nq=100 answer equals the pre-kill one bit for bit; device memory "
+        f"{mem_before} -> {torch.cuda.memory_allocated()} bytes allocated (peak "
+        f"{torch.cuda.max_memory_allocated()})")
+    step_done("kill_recover")
+
+    # The old processes must go with the restart: nothing but the system
+    # may hold them (handles kept here would pin their device memory).
+    del held, res
+    old = [weakref.ref(n) for n in [*manu.query_nodes.values(), *manu.index_nodes]]
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    restart = manu.restart()
+    torch.cuda.synchronize()
+    restart_s = time.perf_counter() - t0
+    coll = manu.collections[name]
+    res = coll.search(SearchRequest.single(q, k=K, **strong))
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_after, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+    if not (torch.equal(res.pks, base.pks) and torch.equal(res.scores, base.scores)):
+        raise AssertionError("after restart() the answer differs from the pre-kill one")
+    if any(ref() is not None for ref in old):
+        raise AssertionError("an old query or index node outlived restart() (its device memory with it)")
+    log(f"maintenance restart: {restart_s:.3f} s to rebuild every process from the stores and the "
+        f"log ({ {k: v for k, v in restart.items() if isinstance(v, int)} }); the STRONG nq=100 "
+        f"answer equals the pre-kill one bit for bit; every old query and index node was freed; "
+        f"device memory {mem_before} -> {mem_after} bytes allocated, max_memory_allocated {peak} "
+        "during the restart (the checkpoint-protected retired sources are reloaded and re-retired)")
+    step_done("restart")
+
+    launches = counts.read()
+    out["launches"] = launches
+    out["shapes"] = counts.read_shapes(launches, "maintenance", ())
+    log(f"maintenance path launches: {launches}")
+    for kname in MAINTENANCE_KERNELS:
+        if launches[kname] <= 0:
+            raise AssertionError(f"{kname} was not launched on the maintenance path")
+    return out
 
 
 def assign_bound(n: int, c: int, d: int) -> dict:
@@ -1829,11 +2129,16 @@ def main() -> int:
 
     # ---------------------------------------------------- facade path
     fac = facade_path(torch, gen, dev, phases, counts, testing)
+    # ----------------------------------------------- maintenance path
+    maint = maintenance_path(torch, fac, gen, dev, phases, counts, testing)
+    del fac["manu"], fac["coll"], fac["x"]
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     # merge_topk, sq_decode and kmeans_assign at every shape the paths
     # launched them at (FLAT builds none and decodes none)
     shapes = {kname: flat_shapes[kname] + ivf_shapes[kname] + fac["shapes"][kname]
-              for kname in LaunchCounts.SHAPED}
+              + maint["shapes"][kname] for kname in LaunchCounts.SHAPED}
     floor_ms = empty_kernel_ms(torch)
     merge_rows = merge_shape_times(torch, merge_mod, shapes["merge_topk"], gen, dev, floor_ms)
     mt = max(merge_rows.values(), key=lambda r: r["launches"])  # the most launched shape
@@ -1844,13 +2149,14 @@ def main() -> int:
     assign_crossover(torch, km_mod, gen, dev)
     phases["kernel_timing_s"] += time.perf_counter() - t0
 
-    for key, times in {**latency, **ivf_latency, **fac["latency"]}.items():
+    for key, times in {**latency, **ivf_latency, **fac["latency"], **maint["latency"]}.items():
         steady = times[1:]
         log(f"request {key}: first {times[0]:.3f} ms, median {statistics.median(steady):.3f} ms "
             f"over {len(steady)} (min {min(steady):.3f}, max {max(steady):.3f})")
     log("phases: " + json.dumps({k: round(v, 3) for k, v in phases.items()}))
 
-    launches = {k: flat_launches[k] + ivf_launches[k] + fac["launches"][k] for k in KERNEL_NAMES}
+    launches = {k: flat_launches[k] + ivf_launches[k] + fac["launches"][k] + maint["launches"][k]
+                for k in KERNEL_NAMES}
 
     def index_row(kname, key, replaces, source):
         row = it[key]

@@ -1,7 +1,8 @@
 """Data model, nodes, coordinators and the system facade of the port
 (mirrors ``repro.core``; what is not ported yet is not exported).
 
-The facade (``ManuSystem`` and friends) loads on first access: it imports
+The facade (``ManuSystem`` and friends) and the compaction services load on
+first access: the facade imports
 the query node, which imports ``repro_torch.index``, whose modules import
 this package, so an eager import here would make the import order matter.
 """
@@ -10,6 +11,14 @@ import importlib
 
 from .collection import FieldSchema, FieldType, Metric, Schema
 from .consistency import ConsistencyLevel, GuaranteeTs
+from .faults import (
+    Crash,
+    FaultInjector,
+    FaultRule,
+    FaultyLogBroker,
+    FaultyMetaStore,
+    FaultyObjectStore,
+)
 from .request import (
     AnnsQuery,
     ClusterState,
@@ -26,6 +35,17 @@ from .request import (
     SearchRequest,
     SegmentPlacement,
     UpsertRequest,
+)
+from .retry import (
+    RetryExhaustedError,
+    RetryingLogBroker,
+    RetryingMetaStore,
+    RetryingObjectStore,
+    RetryPolicy,
+    TransientError,
+    TransientLogError,
+    TransientMetaError,
+    TransientStoreError,
 )
 from .scheduler import (
     AdmissionRejected,
@@ -57,8 +77,26 @@ __all__ = [
     "FieldType",
     "Metric",
     "Schema",
+    "CompactionCoordinator",
+    "CompactionNode",
+    "GCReaper",
     "ConsistencyLevel",
     "GuaranteeTs",
+    "Crash",
+    "FaultInjector",
+    "FaultRule",
+    "FaultyLogBroker",
+    "FaultyMetaStore",
+    "FaultyObjectStore",
+    "RetryExhaustedError",
+    "RetryingLogBroker",
+    "RetryingMetaStore",
+    "RetryingObjectStore",
+    "RetryPolicy",
+    "TransientError",
+    "TransientLogError",
+    "TransientMetaError",
+    "TransientStoreError",
     "AnnsQuery",
     "Ranker",
     "SearchRequest",
@@ -89,7 +127,14 @@ __all__ = [
     "ManualClock",
 ]
 
-_LAZY = {"ManuCollection": ".manu", "ManuConfig": ".manu", "ManuSystem": ".manu"}
+_LAZY = {
+    "ManuCollection": ".manu",
+    "ManuConfig": ".manu",
+    "ManuSystem": ".manu",
+    "CompactionCoordinator": ".compaction",
+    "CompactionNode": ".compaction",
+    "GCReaper": ".compaction",
+}
 
 
 def __getattr__(name: str):

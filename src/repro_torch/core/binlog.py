@@ -124,22 +124,39 @@ def load_segment(
 # -- attribute-index satellites: scalar columns (pk + 1-D extras) only -------
 
 
-def write_attr_satellites(store: ObjectStore, seg: Segment) -> dict[str, str]:
-    """Build + persist attribute indexes for a sealed segment's scalar columns."""
+def _write_attr_satellites(
+    store: ObjectStore, collection: str, segment_id: int, columns: dict[str, np.ndarray]
+) -> dict[str, str]:
     from ..index.attribute import build_attribute_index
 
-    columns: dict[str, np.ndarray] = {"pk": _host(seg.pks())}
-    for f in seg.extra_fields:
-        columns[f] = seg.extra(f)
     keys: dict[str, str] = {}
     for field, arr in columns.items():
         arr = np.asarray(arr)
         if arr.ndim != 1:
             continue
-        key = attr_key(seg.collection, seg.segment_id, field)
+        key = attr_key(collection, segment_id, field)
         store.put(key, build_attribute_index(arr).save())
         keys[field] = key
     return keys
+
+
+def write_attr_satellites(store: ObjectStore, seg: Segment) -> dict[str, str]:
+    """Build + persist attribute indexes for a sealed segment's scalar columns."""
+    columns: dict[str, np.ndarray] = {"pk": _host(seg.pks())}
+    for f in seg.extra_fields:
+        columns[f] = seg.extra(f)
+    return _write_attr_satellites(store, seg.collection, seg.segment_id, columns)
+
+
+def rebuild_attr_satellites(
+    store: ObjectStore, collection: str, segment_id: int
+) -> dict[str, str]:
+    """(Re)build attr satellites straight from binlog columns (recovery path)."""
+    meta = read_binlog_meta(store, collection, segment_id)
+    columns = {"pk": read_binlog_column(store, collection, segment_id, "pk")}
+    for f in meta.get("extra_fields", ()):
+        columns[f] = read_binlog_column(store, collection, segment_id, f)
+    return _write_attr_satellites(store, collection, segment_id, columns)
 
 
 def load_attr_satellites(
@@ -155,3 +172,13 @@ def load_attr_satellites(
         if store.exists(key):
             out[f] = load_attribute_index(store.get(key))
     return out
+
+
+def list_segments(store: ObjectStore, collection: str) -> list[int]:
+    """Ids of the segments with a binlog header in ``store``."""
+    ids = set()
+    for m in store.list(f"binlog/{collection}/"):
+        parts = m.key.split("/")
+        if len(parts) >= 3 and parts[-1] == "meta":
+            ids.add(int(parts[2]))
+    return sorted(ids)

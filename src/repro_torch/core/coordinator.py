@@ -1,14 +1,15 @@
 """The coordinator layer (paper §3.2): root, data, query, index; mirrors
-``repro.core.coordinator`` (host logic, no device state).  Compaction hot
-swaps, GC and whole-system recovery (``segment_compacted`` / ``segment_gc``
-handling, ``recover_state``) wait for ROADMAP Queue 1 item 8.
+``repro.core.coordinator`` (host logic, no device state).  Time-based
+sealing (``DataCoordinator.seal_idle``) belongs to threaded mode, which is
+not ported (ROADMAP Queue 1: threaded mode).
 
 Coordinators keep all authoritative state in the meta store (etcd role) and
 communicate with workers exclusively through the coordination log channel —
 "the log system provides a simple and reliable mechanism for broadcasting
 system events" (§3.3).  Each coordinator is a deterministic state machine
 with ``step()``; multiple instances could run main+backup off the meta
-store.
+store, which we model with a single instance plus full state recovery from
+the meta store (see ``QueryCoordinator.recover_state``).
 """
 
 from __future__ import annotations
@@ -78,6 +79,20 @@ class IdAllocator:
     def high(self, collection: str) -> int:
         """Exclusive upper bound of every pk ever seen for the collection."""
         return self._next.get(collection, 0)
+
+    def forget(self, collection: str) -> None:
+        self._next.pop(collection, None)
+        if self.meta is not None:
+            self.meta.delete(f"id_alloc/{collection}")
+
+    def recover(self) -> None:
+        """Reload watermarks from the meta-store checkpoints."""
+        if self.meta is None:
+            return
+        for key, rec in self.meta.scan("id_alloc/").items():
+            coll = key.split("/", 1)[1]
+            self._next[coll] = max(self._next.get(coll, 0), int(rec.get("next", 0)))
+
 
 # ---------------------------------------------------------------------------
 # Root coordinator: DDL
@@ -227,6 +242,8 @@ class DataCoordinator:
         self._growing: dict[tuple[str, int, str], SegmentAlloc] = {}
         self._to_seal: set[tuple[str, int]] = set()  # (collection, segment_id)
         self._sealed_rows: dict[tuple[str, int], int] = {}
+        # Every segment ever sealed (sealed, retired, dropped or reclaimed).
+        self._recorded: set[tuple[str, int]] = set()
         self._sealed_upto_pos: dict[tuple[str, int], int] = {}  # per channel shard
         self.segment_map = SegmentMap(meta)
 
@@ -280,6 +297,7 @@ class DataCoordinator:
     ) -> None:
         self._to_seal.discard((collection, segment_id))
         self._sealed_rows[(collection, segment_id)] = rows
+        self._recorded.add((collection, segment_id))
         self.meta.put(
             f"segment/{collection}/{segment_id}",
             {
@@ -307,6 +325,59 @@ class DataCoordinator:
                 {"field": f, "rows": rows, "state": "ready"},
             )
 
+    def allocate_segment_id(self) -> int:
+        """Reserve a fresh segment id (compaction rewrite targets)."""
+        return self._alloc_sid()
+
+    def on_compacted(
+        self,
+        collection: str,
+        sources: list[int],
+        targets: list[dict],
+        partition: str = DEFAULT_PARTITION,
+        shard: int = 0,
+        compact_ts: int = 0,
+        attr_fields=None,
+    ) -> None:
+        """Swap segment identity after a compaction rewrite completed.
+
+        ``targets`` is the rewrite output: [{"segment_id", "num_rows"}, ...].
+        """
+        target_ids = [t["segment_id"] for t in targets]
+        for sid in sources:
+            self._sealed_rows.pop((collection, sid), None)
+            old = self.meta.get(f"segment/{collection}/{sid}") or {}
+            self.meta.put(
+                f"segment/{collection}/{sid}",
+                {
+                    "rows": 0,
+                    "state": "retired",
+                    "compacted_into": target_ids,
+                    "partition": old.get("partition", partition),
+                    "shard": old.get("shard", shard),
+                    # keep the source's MVCC window so a restart can still
+                    # serve reads pinned before the swap
+                    "visible_from_ts": int(old.get("visible_from_ts", 0)),
+                    "retired_at_ts": compact_ts,
+                },
+            )
+        for t in targets:
+            self._sealed_rows[(collection, t["segment_id"])] = t["num_rows"]
+            self._recorded.add((collection, t["segment_id"]))
+            self.meta.put(
+                f"segment/{collection}/{t['segment_id']}",
+                {
+                    "rows": t["num_rows"],
+                    "state": "sealed",
+                    "partition": partition,
+                    "shard": shard,
+                    "visible_from_ts": compact_ts,
+                },
+            )
+            self._record_attr_fields(
+                collection, t["segment_id"], t["num_rows"], attr_fields
+            )
+
     def flush(self, collection: str) -> list[int]:
         """Force-seal every growing segment of a collection."""
         sealed = []
@@ -317,6 +388,11 @@ class DataCoordinator:
             sealed.append(alloc.segment_id)
             self._growing[(coll, shard, part)] = SegmentAlloc(self._alloc_sid())
         return sealed
+
+    def segment_recorded(self, collection: str, segment_id: int) -> bool:
+        """Whether the segment was ever sealed (sealed, retired, dropped or
+        reclaimed): its WAL inserts are no longer growing rows."""
+        return (collection, segment_id) in self._recorded
 
     def sealed_segments(self, collection: str) -> list[int]:
         return sorted(sid for (c, sid) in self._sealed_rows if c == collection)
@@ -374,6 +450,71 @@ class DataCoordinator:
             pos = int(rec.get("pos", 0))
             self._sealed_upto_pos[key] = pos
         return pos
+
+    # -------------------------------------------------------------- recovery
+    def recover_state(self, store=None) -> dict:
+        """Rebuild allocator + sealing state after a full restart.
+
+        Sealed/retired segments come from the ``segment/`` meta records; the
+        growing allocations are reconstructed by replaying the WAL and
+        counting rows of every segment that never reached a binlog — exactly
+        the rows the data nodes themselves rebuild.  ``store`` (optional)
+        lets the scan also skip segments whose binlog survived a crash that
+        lost the ``segment_sealed`` announcement; the system-level
+        reconciliation re-announces those.
+        """
+        self.id_alloc.recover()
+        seq = self.meta.get("segment_seq") or {}
+        self._next_segment = max(self._next_segment, int(seq.get("next", 1)))
+        sealed = 0
+        for key, rec in self.meta.scan("segment/").items():
+            _, coll, sid_s = key.split("/")
+            sid = int(sid_s)
+            self._next_segment = max(self._next_segment, sid + 1)
+            self._recorded.add((coll, sid))
+            if rec.get("state") == "sealed":
+                self._sealed_rows[(coll, sid)] = int(rec["rows"])
+                sealed += 1
+        counts: dict[tuple[str, int, str], dict[int, int]] = {}
+        for ckey, info in self.meta.scan("collection/").items():
+            coll = ckey.split("/", 1)[1]
+            for shard in range(int(info["num_shards"])):
+                channel = dml_channel(coll, shard)
+                if not self.broker.has_channel(channel):
+                    continue
+                for e in self.broker.read(channel, 0):
+                    if e.type not in (EntryType.INSERT, EntryType.UPSERT):
+                        continue
+                    p = e.payload
+                    sid = p["segment_id"]
+                    if (coll, sid) in self._sealed_rows:
+                        continue
+                    if self.meta.get(f"segment/{coll}/{sid}") is not None:
+                        continue  # retired: durable, not growing
+                    if store is not None and store.exists(f"binlog/{coll}/{sid}/meta"):
+                        continue  # archived; announcement reconciled elsewhere
+                    gkey = (coll, shard, p.get("partition", DEFAULT_PARTITION))
+                    per = counts.setdefault(gkey, {})
+                    per[sid] = per.get(sid, 0) + len(p["pk"])
+        growing = 0
+        for gkey, per_sid in counts.items():
+            coll = gkey[0]
+            sids = sorted(per_sid)
+            # every sid but the newest had a successor allocated pre-crash,
+            # which only happens once the sid was marked for sealing
+            for sid in sids[:-1]:
+                self._to_seal.add((coll, sid))
+            last = sids[-1]
+            alloc = SegmentAlloc(
+                last, rows=per_sid[last], last_alloc_ms=self.clock.now_ms()
+            )
+            if per_sid[last] >= self.seal_rows_for(coll):
+                self._to_seal.add((coll, last))
+                alloc = SegmentAlloc(self._alloc_sid())
+            self._growing[gkey] = alloc
+            growing += 1
+        return {"sealed": sealed, "growing": growing, "to_seal": len(self._to_seal)}
+
 
 # ---------------------------------------------------------------------------
 # Index coordinator: build-task fan-out, idle-node shutdown
@@ -492,7 +633,82 @@ class IndexCoordinator:
                         built_by=p.get("built_by"),
                     )
                 progress = True
+            elif p.get("msg") == "segment_compacted":
+                # The rewrite produced fresh segments: index them, and forget
+                # build state of the sources they replaced.
+                for sid in p.get("sources", ()):
+                    for key in [
+                        k for k in self.pending_tasks
+                        if k[:2] == (p["collection"], sid)
+                    ]:
+                        self.pending_tasks.pop(key, None)
+                    for key in [
+                        k for k in self.built if k[:2] == (p["collection"], sid)
+                    ]:
+                        self.built.pop(key, None)
+                for t in p["segments"]:
+                    if t["num_rows"]:
+                        self.rebuild_segment(p["collection"], t["segment_id"])
+                progress = True
+            elif p.get("msg") == "segment_gc":
+                coll, sid = p["collection"], p["segment_id"]
+                for key in [k for k in self.pending_tasks if k[:2] == (coll, sid)]:
+                    self.pending_tasks.pop(key, None)
+                for key in [k for k in self.built if k[:2] == (coll, sid)]:
+                    self.built.pop(key, None)
+                for ikey in self.meta.scan(f"index/{coll}/{sid}/"):
+                    self.meta.delete(ikey)
+                for claim in self.meta.scan(f"index_claim/{coll}/{sid}/"):
+                    self.meta.delete(claim)
+                progress = True
         return progress
+
+    # -------------------------------------------------------------- recovery
+    def recover_state(self) -> dict:
+        """Rebuild build-state after a restart: adopt finished builds from
+        the ``index/`` meta records, clear claims whose builder died before
+        finishing, and re-issue tasks for sealed segments missing an index.
+        Fast-forwards past the pre-crash coordination history — its durable
+        effects were just adopted."""
+        adopted = 0
+        for key, rec in self.meta.scan("index/").items():
+            _, coll, sid_s, field = key.split("/")
+            self.built[(coll, int(sid_s), field)] = {
+                "msg": "index_built",
+                "collection": coll,
+                "segment_id": int(sid_s),
+                "field": field,
+                "column": rec.get("column", field),
+                "index_kind": rec["kind"],
+                "index_key": rec["key"],
+            }
+            adopted += 1
+        cleared = 0
+        for claim in list(self.meta.scan("index_claim/")):
+            _, coll, sid_s, field, _kind = claim.split("/")
+            if (coll, int(sid_s), field) not in self.built:
+                # claimed but never finished: the builder died mid-build
+                self.meta.delete(claim)
+                cleared += 1
+        self.sub.seek(self.broker.end_position(COORD_CHANNEL))
+        reissued = 0
+        for key, seg in self.meta.scan("segment/").items():
+            if seg.get("state") != "sealed":
+                continue
+            _, coll, sid_s = key.split("/")
+            sid = int(sid_s)
+            for field, spec in self.index_specs(coll).items():
+                k = (coll, sid, field)
+                if k in self.built or k in self.pending_tasks:
+                    continue
+                task = self._task_of(coll, sid, spec)
+                self.pending_tasks[k] = task
+                self.broker.publish(
+                    COORD_CHANNEL,
+                    LogEntry(ts=self.tso.next(), type=EntryType.COORD, payload=task),
+                )
+                reissued += 1
+        return {"built": adopted, "claims_cleared": cleared, "tasks_reissued": reissued}
 
     def rebuild_segment(
         self, collection: str, segment_id: int, fields: "list[str] | None" = None
@@ -583,6 +799,15 @@ class QueryCoordinator:
         # rewrites; must survive failover/rebalance reloads or a pinned
         # query would see both the rewrite and its retired sources.
         self._visible_from: dict[tuple[str, int], int] = {}
+        # (collection, segment_id) -> MVCC window of a retired segment
+        # version that still serves reads pinned before its swap:
+        # {"visible_from_ts", "retired_at_ts", "partition", "indexes",
+        # "nodes"}.  Dropped at the retention horizon, GC or a partition
+        # drop; a window whose holders all died is served again on a live
+        # node (``place_retired_windows``).  The reference keeps no such
+        # record and relies on a fresh node replaying its predecessor's
+        # commands (ROADMAP Queue 3).
+        self.retired_windows: dict[tuple[str, int], dict] = {}
         # Serializes control-loop passes against coordination-log consumption
         # when a threaded watchdog reconciles concurrently with the pump.
         self._mutex = threading.RLock()
@@ -645,6 +870,11 @@ class QueryCoordinator:
         self.reconciler.reconcile()
 
     # ------------------------------------------------------------ placement
+    @property
+    def assignment(self) -> dict[tuple[str, int], str]:
+        """Legacy single-owner view: segment -> primary replica."""
+        return {key: nodes[0] for key, nodes in self.replica_sets.items() if nodes}
+
     def replication_for(self, collection: str) -> int:
         """Desired replica count: per-collection override, else config."""
         info = self.meta.get(f"collection/{collection}") or {}
@@ -790,8 +1020,11 @@ class QueryCoordinator:
             p = entry.payload
             msg = p.get("msg")
             if msg == "segment_sealed":
+                # The data node names the channel's replay point; the
+                # reference records checkpoint_pos + 1, one entry past the
+                # next segment's first insert (ROADMAP Queue 3).
                 self.data_coord.record_sealed_position(
-                    p["collection"], p["shard"], p["checkpoint_pos"] + 1
+                    p["collection"], p["shard"], p.get("replay_from", p["checkpoint_pos"])
                 )
                 progress |= self._assign_segment(p["collection"], p["segment_id"])
             elif msg == "index_built":
@@ -801,8 +1034,13 @@ class QueryCoordinator:
                     if node in self.nodes:
                         self._publish(self._load_index_payload(node, p))
                 progress = True
+            elif msg == "segment_compacted":
+                progress |= self._handle_compacted(p)
             elif msg == "partition_dropped":
+                self._drop_windows(p)
                 progress |= self._handle_partition_dropped(p)
+            elif msg in ("retention_advance", "segment_gc"):
+                self._drop_windows(p)
         return progress
 
     def _handle_partition_dropped(self, p: dict) -> bool:
@@ -829,6 +1067,92 @@ class QueryCoordinator:
             changed = True
         return changed
 
+    def _handle_compacted(self, p: dict) -> bool:
+        """Hot-swap a compacted rewrite for its source segments.
+
+        The new segments are loaded (gated at ``compact_ts``) before the
+        sources are retired, so there is never a serving gap; the sources
+        keep answering queries pinned before the swap until the retention
+        horizon releases them.
+        """
+        coll = p["collection"]
+        sources = list(p["sources"])
+        live = set(self.live_nodes())
+        # The primary stays aligned with the shard's DML channel subscriber
+        # so future delta deletes keep reaching the node serving the rows.
+        ch = dml_channel(coll, p["shard"])
+        anchor = next(
+            (n for n in sorted(live) if ch in self.nodes[n].channels), None
+        )
+        if anchor is None:
+            owners = [
+                n
+                for sid in sources
+                for n in self.replica_sets.get((coll, sid), ())
+                if n in live
+            ]
+            anchor = (
+                max(set(owners), key=owners.count) if owners else self._least_loaded()
+            )
+        if anchor is None:
+            return False
+        desired = self.replication_for(coll)
+        for t in p["segments"]:
+            new_sid = t["segment_id"]
+            key = (coll, new_sid)
+            if key in self.replica_sets or t["num_rows"] == 0:
+                continue
+            self._visible_from[key] = p["compact_ts"]
+
+            def place(cur: list[str], anchor: str = anchor) -> list[str]:
+                nodes = [n for n in cur if n in self.nodes]
+                if anchor not in nodes and anchor in self.nodes:
+                    nodes.insert(0, anchor)
+                return self._fill_replicas(nodes, desired) or nodes
+
+            self.update_placement(coll, new_sid, place)
+        # Broadcast the folded tombstones: every node prunes its
+        # delta-delete map once the retention horizon passes the swap.
+        self._publish(
+            {
+                "msg": "tombstones_folded",
+                "collection": coll,
+                "folded_pks": p["folded_pks"],
+                "compact_ts": p["compact_ts"],
+            }
+        )
+        if self.events is not None:
+            self.events.emit(
+                "segment_hot_swap", "query_coord",
+                collection=coll, sources=sources,
+                targets=[t["segment_id"] for t in p["segments"]],
+                compact_ts=p["compact_ts"],
+            )
+        for sid in sources:
+            skey = (coll, sid)
+            owners = self.replica_sets.pop(skey, [])
+            self.retired_windows[skey] = {
+                "visible_from_ts": self._visible_from.pop(skey, 0),
+                "retired_at_ts": p["compact_ts"],
+                "partition": p.get("partition", DEFAULT_PARTITION),
+                "indexes": list(self._known_indexes.pop(skey, {}).values()),
+                "nodes": {o for o in owners if o in self.nodes},
+            }
+            for owner in owners:
+                if owner in self.nodes:
+                    self.nodes[owner].segments.discard(skey)
+                    self._publish(
+                        {
+                            "msg": "retire_segment",
+                            "node_id": owner,
+                            "collection": coll,
+                            "segment_id": sid,
+                            "retired_at_ts": p["compact_ts"],
+                        }
+                    )
+            self.meta.delete(f"assignment/{coll}/{sid}")
+        return True
+
     def _assign_segment(self, collection: str, segment_id: int) -> bool:
         """Least-loaded placement of a fresh sealed segment's replica group."""
         key = (collection, segment_id)
@@ -852,6 +1176,127 @@ class QueryCoordinator:
             "index_kind": built["index_kind"],
             "index_key": built["index_key"],
         }
+
+    # -------------------------------------------------------------- recovery
+    def recover_state(self) -> dict:
+        """Adopt committed placement inputs from the meta store after a full
+        restart: MVCC visibility pins (``segment/*.visible_from_ts``) and
+        finished index builds (``index/``).  The coordination-log history is
+        fast-forwarded — its committed effects live in the meta store — and
+        the reconciler then re-places every sealed segment onto whatever
+        nodes are registered now."""
+        with self._mutex:
+            pins = indexes = 0
+            for key, rec in self.meta.scan("segment/").items():
+                _, coll, sid_s = key.split("/")
+                vts = int(rec.get("visible_from_ts", 0) or 0)
+                if vts:
+                    self._visible_from[(coll, int(sid_s))] = vts
+                    pins += 1
+            for key, rec in self.meta.scan("index/").items():
+                _, coll, sid_s, field = key.split("/")
+                skey = (coll, int(sid_s))
+                self._known_indexes.setdefault(skey, {})[field] = {
+                    "msg": "index_built",
+                    "collection": coll,
+                    "segment_id": int(sid_s),
+                    "field": field,
+                    "column": rec.get("column", field),
+                    "index_kind": rec["kind"],
+                    "index_key": rec["key"],
+                }
+                indexes += 1
+            self.sub.seek(self.broker.end_position(COORD_CHANNEL))
+            return {"visible_pins": pins, "indexes": indexes}
+
+    def recover_retired(self, store) -> int:
+        """Reload retired-but-not-GC'd segments so reads pinned before their
+        hot-swap keep answering after a restart.  Each is loaded onto a live
+        node and immediately re-retired, restoring the bounded MVCC window
+        ``[visible_from_ts, retired_at_ts)`` the handle had before the crash."""
+        with self._mutex:
+            count = 0
+            for key, rec in self.meta.scan("retired_segment/").items():
+                _, coll, sid_s = key.split("/")
+                sid = int(sid_s)
+                if self.meta.get(f"collection/{coll}") is None:
+                    continue
+                if not store.exists(f"binlog/{coll}/{sid}/meta"):
+                    continue  # GC already reclaimed it
+                seg = self.meta.get(f"segment/{coll}/{sid}") or {}
+                part = seg.get("partition", DEFAULT_PARTITION)
+                if self.meta.get(f"partition/{coll}/{part}") is None:
+                    continue  # dropped partitions stay dropped
+                node = self._least_loaded()
+                if node is None:
+                    break
+                window = {
+                    "visible_from_ts": int(seg.get("visible_from_ts", 0)),
+                    "retired_at_ts": int(rec.get("retired_at_ts", 0)),
+                    "partition": part,
+                    "indexes": list(self._known_indexes.get((coll, sid), {}).values()),
+                    "nodes": set(),
+                }
+                self.retired_windows[(coll, sid)] = window
+                self._serve_window((coll, sid), window, node)
+                count += 1
+            return count
+
+    def _serve_window(self, key: tuple[str, int], window: dict, node: str) -> None:
+        """Load a retired segment version onto ``node`` and retire it there
+        at once: the handle serves exactly its MVCC window."""
+        coll, sid = key
+        self._publish(
+            {
+                "msg": "load_segment",
+                "node_id": node,
+                "collection": coll,
+                "segment_id": sid,
+                "visible_from_ts": window["visible_from_ts"],
+            }
+        )
+        for idx in window["indexes"]:
+            self._publish(self._load_index_payload(node, idx))
+        self._publish(
+            {
+                "msg": "retire_segment",
+                "node_id": node,
+                "collection": coll,
+                "segment_id": sid,
+                "retired_at_ts": window["retired_at_ts"],
+            }
+        )
+        window["nodes"].add(node)
+
+    def place_retired_windows(self) -> int:
+        """Serve every retired window whose holders all died on the least
+        loaded live node (reads pinned before a swap keep their rows
+        through a failover).  Returns the windows placed."""
+        with self._mutex:
+            placed = 0
+            for key, window in sorted(self.retired_windows.items()):
+                if window["nodes"]:
+                    continue
+                node = self._least_loaded()
+                if node is None:
+                    break
+                self._serve_window(key, window, node)
+                placed += 1
+            return placed
+
+    def _drop_windows(self, p: dict) -> None:
+        """Forget the retired windows a retention advance, a GC or a
+        partition drop ended (the query nodes drop the handles)."""
+        msg, coll = p["msg"], p.get("collection")
+        for (c, sid), window in list(self.retired_windows.items()):
+            if coll is not None and c != coll:
+                continue
+            if (
+                (msg == "retention_advance" and window["retired_at_ts"] <= p["horizon_ts"])
+                or (msg == "segment_gc" and sid == p["segment_id"])
+                or (msg == "partition_dropped" and window["partition"] == p["partition"])
+            ):
+                del self.retired_windows[(c, sid)]
 
     # ------------------------------------------------------ channel coverage
     def assign_channels(self, collection: str, num_shards: int) -> None:
@@ -926,6 +1371,8 @@ class QueryCoordinator:
                 st = self.nodes.pop(node_id)
                 for fs in self.channel_followers.values():
                     fs.discard(node_id)
+                for window in self.retired_windows.values():
+                    window["nodes"].discard(node_id)
                 if self.events is not None:
                     self.events.emit(
                         "node_dead", "query_coord",
@@ -971,6 +1418,7 @@ class QueryCoordinator:
                                 "from_position": self.data_coord.replay_position(coll, shard),
                             }
                         )
+            self.place_retired_windows()
             return dead
 
     # -------------------------------------------------------------- balance
@@ -1010,6 +1458,16 @@ class QueryCoordinator:
                     return moved  # aborted: stop rather than spin
                 moved += 1
 
+    def nodes_for_collection(self, collection: str) -> list[str]:
+        """All nodes holding segments or channels of the collection."""
+        out = set()
+        for (coll, _sid), nodes in self.replica_sets.items():
+            if coll == collection:
+                out.update(nodes)
+        for n, st in self.nodes.items():
+            if any(ch.startswith(f"dml/{collection}/") for ch in st.channels):
+                out.add(n)
+        return sorted(out & set(self.live_nodes()))
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,10 @@ segment for sealing (size or idle-time policy), serializes it to columnar
 binlog objects and announces ``segment_sealed`` on the coordination
 channel.  Data nodes are stateless in the recovery sense: everything they
 hold is reconstructible by replaying the WAL from the last sealed
-checkpoint positions.
+checkpoint positions.  Each ``segment_sealed`` names that position,
+``replay_from``: the first insert of any segment of the shard still growing
+here, else the entry after the sealed segment's last insert.  (The
+reference derives it from ``checkpoint_pos + 1``, which skips one entry.)
 
 A data node computes nothing on the rows: it buffers them and serializes
 them into ``.npy`` binlog bytes.  So its growing segments live on the host
@@ -56,6 +59,9 @@ class DataNode:
         # segment is durable in the base log (binlog); delete halves always
         # apply (they tombstone the *growing* segments being rebuilt).
         self._archived: dict[tuple[str, int], bool] = {}
+        # (collection, segment_id) -> WAL position of the growing segment's
+        # first insert: where a replay must start to rebuild it.
+        self._first_pos: dict[tuple[str, int], int] = {}
         self.alive = True
 
     def subscribe(self, channel: str, from_position: int = 0) -> None:
@@ -86,7 +92,9 @@ class DataNode:
         key = (coll, sid)
         hit = self._archived.get(key)
         if hit is None:
-            hit = self.store.exists(f"binlog/{coll}/{sid}/meta")
+            hit = self.store.exists(f"binlog/{coll}/{sid}/meta") or (
+                self.data_coord.segment_recorded(coll, sid)  # reclaimed by GC
+            )
             self._archived[key] = hit
         return hit
 
@@ -119,6 +127,7 @@ class DataNode:
                     device=BUFFER_DEVICE,
                 )
                 self.growing[key] = seg
+                self._first_pos[key] = entry.position
             n = len(p["pk"])
             seg.append(
                 p["pk"], p["vector"], np.full(n, entry.ts, np.int64), p.get("extras")
@@ -143,6 +152,15 @@ class DataNode:
             if not self.data_coord.should_seal(coll, sid):
                 continue
             seg = self.growing.pop(key)
+            self._first_pos.pop(key, None)
+            # The channel's replay point after this seal: the first insert
+            # of any segment of the shard still growing here, else the
+            # entry after this segment's last insert.
+            replay_from = min(
+                [pos for (c, gsid), pos in self._first_pos.items()
+                 if c == coll and self.growing[(c, gsid)].shard == seg.shard]
+                + [seg.checkpoint_pos]
+            )
             t0 = _t.perf_counter()
             seg.seal()
             keys = write_segment_binlog(self.store, seg)
@@ -172,6 +190,7 @@ class DataNode:
                         "binlog_keys": keys,
                         "attr_keys": attr_keys,
                         "checkpoint_pos": seg.checkpoint_pos,
+                        "replay_from": replay_from,
                         "min_ts": seg.min_ts(),
                         "max_ts": seg.max_ts(),
                     },
@@ -194,4 +213,5 @@ class DataNode:
         ]
         for key in doomed:
             del self.growing[key]
+            self._first_pos.pop(key, None)
         return len(doomed)

@@ -30,7 +30,7 @@ from __future__ import annotations
 import threading
 from dataclasses import dataclass, field
 from enum import Enum
-from typing import Any
+from typing import Any, Iterator
 
 import numpy as np
 
@@ -87,15 +87,15 @@ class LogBroker:
     """In-process multi-channel durable log (Kafka/Pulsar stand-in).
 
     The API mirrors what Manu needs from a cloud message queue: create
-    channels, append (publish) and read from an offset.  (Retention,
-    replay-by-timestamp and tick waits of ``repro.core.log`` wait for
-    ROADMAP Queue 1 item 8.)  All reads are positional so any subscriber can
+    channels, append (publish), read from an offset, and truncate below a
+    retention point.  All reads are positional so any subscriber can
     replay independently — the property the whole architecture leans on.
     """
 
     def __init__(self) -> None:
         self._channels: dict[str, _Channel] = {}
         self._lock = threading.RLock()
+        self._cv = threading.Condition(self._lock)
 
     # --------------------------------------------------------------- admin
     def create_channel(self, name: str) -> None:
@@ -117,7 +117,7 @@ class LogBroker:
 
     # ------------------------------------------------------------- publish
     def publish(self, channel: str, entry: LogEntry) -> int:
-        with self._lock:
+        with self._cv:
             ch = self._channels.get(channel)
             if ch is None:
                 raise KeyError(f"unknown channel: {channel}")
@@ -138,6 +138,7 @@ class LogBroker:
             ch.bytes_published += _entry_nbytes(stamped)
             if entry.type is EntryType.TIME_TICK:
                 ch.last_tick_ts = entry.ts
+            self._cv.notify_all()
             return position
 
     # ------------------------------------------------------------ consume
@@ -169,6 +170,31 @@ class LogBroker:
                 }
                 for name, ch in self._channels.items()
             }
+
+    def wait_for_tick(self, channel: str, min_ts: int, timeout_s: float | None = None) -> bool:
+        """Block until the channel's last time-tick >= min_ts."""
+        with self._cv:
+            return self._cv.wait_for(
+                lambda: self._channels[channel].last_tick_ts >= min_ts, timeout=timeout_s
+            )
+
+    def entries_between(self, channel: str, ts_lo: int, ts_hi: int) -> Iterator[LogEntry]:
+        """Entries with ts in (ts_lo, ts_hi], skipping time-ticks (replay API)."""
+        for e in self.read(channel, 0):
+            if ts_lo < e.ts <= ts_hi and e.type is not EntryType.TIME_TICK:
+                yield e
+
+    # ----------------------------------------------------------- retention
+    def truncate_before(self, channel: str, ts: int) -> int:
+        """Drop entries with timestamp < ts (log expiration, paper §4.3).
+        As in the reference, the kept entries' positions are not rebased."""
+        with self._lock:
+            ch = self._channels[channel]
+            keep_from = next(
+                (i for i, e in enumerate(ch.entries) if e.ts >= ts), len(ch.entries)
+            )
+            ch.entries = ch.entries[keep_from:]
+            return keep_from
 
 
 class Subscription:

@@ -15,22 +15,32 @@ their columns and indexes on ``device`` (the card unless the caller passes
 host work.  Search results hold scores and pks as tensors on that device
 and hydrated fields as host arrays.
 
-The object store, meta store and log broker are composed directly: the
-reference wraps them as ``Retrying(Faulty(real))``, which passes every call
-through when no fault injector is set.  Threaded mode, fault injection,
-compaction and GC, crash/restart and time-travel checkpoints raise
-``NotImplementedError`` naming ROADMAP Queue 1 item 8.
+The object store, meta store and log broker are composed as the
+reference composes them, ``Retrying(Faulty(real))``: the fault plane
+(``core/faults.py``) injects at the boundary when an injector is given, and
+the retry plane (``core/retry.py``) absorbs the transients; with no
+injector every call passes through.  Maintenance (compaction, GC,
+time-travel checkpoints) and recovery (``kill_*`` / ``restart_*``,
+``recover_failures``, ``restart``) are the reference's.  Threaded mode
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
 
 from .._device import resolve_device
-from .binlog import read_binlog_column
+from .binlog import (
+    attr_key,
+    read_binlog_column,
+    read_binlog_meta,
+    rebuild_attr_satellites,
+)
 from .collection import CollectionInfo, FieldSchema, FieldType, Metric, Schema
+from .compaction import CompactionCoordinator, CompactionNode, GCReaper, prune_folded
 from .consistency import ConsistencyLevel, GuaranteeTs
 from .coordinator import (
     DataCoordinator,
@@ -39,6 +49,13 @@ from .coordinator import (
     RootCoordinator,
 )
 from .data_node import DataNode
+from .faults import (
+    Crash,
+    FaultInjector,
+    FaultyLogBroker,
+    FaultyMetaStore,
+    FaultyObjectStore,
+)
 from .index_node import IndexNode
 from .log import COORD_CHANNEL, EntryType, LogBroker, LogEntry, dml_channel
 from .logger_node import Logger
@@ -46,6 +63,12 @@ from .meta_store import MetaStore
 from .object_store import MemoryObjectStore, ObjectStore
 from .proxy import Proxy, SearchResult
 from .query_node import QueryNode
+from .retry import (
+    RetryingLogBroker,
+    RetryingMetaStore,
+    RetryingObjectStore,
+    RetryPolicy,
+)
 from .scheduler import (
     AdmissionRejected,  # noqa: F401 — re-exported API surface
     BatchingProxy,
@@ -72,35 +95,31 @@ from .request import (
 )
 from .segment import DEFAULT_PARTITION
 from .telemetry import Event, EventLog, MetricsRegistry
-from .timestamp import INFINITE_STALENESS, TSO, Clock, ManualClock
+from .time_travel import RestoredCollection, TimeTravel
+from .timestamp import INFINITE_STALENESS, TSO, Clock, ManualClock, pack
 
-#: Where the parts of ``repro.core.manu`` this module leaves out wait.
-NOT_PORTED = "not ported yet: ROADMAP Queue 1 item 8"
-
-
-def _not_ported(name: str, needs: str):
-    """A facade method whose machinery (``needs``) is not ported yet."""
-
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(f"{name} needs {needs}, {NOT_PORTED}")
-
-    method.__name__ = name.rsplit(".", 1)[-1]
-    method.__doc__ = f"Raises NotImplementedError: needs {needs} ({NOT_PORTED})."
-    return method
+#: What ``ManuConfig(threaded=True)`` raises: the item that ports it.
+THREADED_NOT_PORTED = (
+    "threaded mode (ManuConfig.threaded=True) is not ported yet: ROADMAP Queue 1: threaded mode"
+)
 
 
 @dataclass
 class ManuConfig:
-    """The reference's configuration less the options of what is not
-    ported (compaction and GC policy, retry policy, threaded-mode pacing)."""
+    """The reference's configuration less threaded mode's pacing options
+    (``pump_sleep_s``, ``reconcile_interval_s``)."""
 
     num_shards: int = 2
     num_loggers: int = 2
     num_data_nodes: int = 1
     num_index_nodes: int = 1
     num_query_nodes: int = 2
+    num_compaction_nodes: int = 1
     seal_rows: int = 8_192
     slice_rows: int = 2_048
+    compaction_delete_ratio: float = 0.2
+    compaction_small_fraction: float = 0.5
+    gc_retention_ms: float = 0.0  # 0 = horizon may advance to "now"
     tick_interval_ms: float = 50.0
     default_staleness_ms: float = INFINITE_STALENESS
     # BOUNDED consistency's staleness window (ms).
@@ -114,6 +133,9 @@ class ManuConfig:
     threaded: bool = False
     replication_factor: int = 1
     heartbeat_ttl_ms: float = 5_000.0
+    # Typed retry/backoff for object-store, meta-store and log-broker I/O
+    # (None = the default policy); its seed drives the backoff jitter.
+    retry_policy: "RetryPolicy | None" = None
 
 
 class ManuCollection:
@@ -259,9 +281,13 @@ class ManuCollection:
         self.system.data_coord.flush(self.name)
         self.system.run_until_idle()
 
-    compact = _not_ported("ManuCollection.compact", "core/compaction.py")
-    gc = _not_ported("ManuCollection.gc", "core/compaction.py (GCReaper)")
+    def compact(self) -> dict:
+        """Run one compaction cycle (purge deletes, merge small segments)."""
+        return self.system.compact(self.name)
 
+    def gc(self, horizon_ts: int | None = None) -> dict:
+        """Advance the retention horizon and reclaim old binlog/index objects."""
+        return self.system.gc(self.name, horizon_ts)
 
     def search(
         self,
@@ -403,14 +429,12 @@ class ManuSystem:
         self,
         config: ManuConfig | None = None,
         store: ObjectStore | None = None,
-        injector=None,
+        injector: FaultInjector | None = None,
         device="cuda",
     ):
         self.config = config or ManuConfig()
         if self.config.threaded:
-            raise NotImplementedError(f"threaded mode (ManuConfig.threaded=True) is {NOT_PORTED}")
-        if injector is not None:
-            raise NotImplementedError(f"fault injection needs core/faults.py, {NOT_PORTED}")
+            raise NotImplementedError(THREADED_NOT_PORTED)
         self.device = resolve_device(device)
         self.clock: Clock = ManualClock(1_000_000) if self.config.manual_clock else Clock()
         self.tso = TSO(self.clock)
@@ -421,17 +445,37 @@ class ManuSystem:
         self.telemetry = MetricsRegistry()
         self.event_log = EventLog(self.clock)
 
-        # Durable substrates: the only state a restart would keep.
-        self.store: ObjectStore = store or MemoryObjectStore()
-        self.meta = MetaStore(self.clock)
-        self.broker = LogBroker()
+        # Durable substrates, composed as Retrying(Faulty(real)).  These
+        # three and the clock are all that survives ``restart()``; every
+        # process is rebuilt from them.
+        self.injector = injector
+        raw_store: ObjectStore = store or MemoryObjectStore()
+        raw_meta = MetaStore(self.clock)
+        raw_broker = LogBroker()
+        if injector is not None:
+            injector.bind(metrics=self.telemetry, event_log=self.event_log, clock=self.clock)
+            raw_store = FaultyObjectStore(raw_store, injector)
+            raw_meta = FaultyMetaStore(raw_meta, injector)
+            raw_broker = FaultyLogBroker(raw_broker, injector)
+        # Cooperative mode: backoff is accounting only (no sleep).
+        policy = self.config.retry_policy or RetryPolicy()
+        self.store: ObjectStore = RetryingObjectStore(
+            raw_store, policy, metrics=self.telemetry, event_log=self.event_log,
+        )
+        self.meta = RetryingMetaStore(
+            raw_meta, policy, metrics=self.telemetry, event_log=self.event_log,
+        )
+        self.broker = RetryingLogBroker(
+            raw_broker, policy, metrics=self.telemetry, event_log=self.event_log,
+        )
 
         self._build_processes()
         self.collections: dict[str, ManuCollection] = {}
 
     def _build_processes(self) -> None:
         """Construct every Manu *process* — coordinators, worker nodes, the
-        proxy — on top of the durable substrates."""
+        proxy — on top of the durable substrates.  Called at boot and again
+        by ``restart()``: processes hold only soft state."""
         self.root_coord = RootCoordinator(self.broker, self.meta, self.tso)
         self.data_coord = DataCoordinator(self.broker, self.meta, self.tso, self.clock)
         self.index_coord = IndexCoordinator(
@@ -459,6 +503,20 @@ class ManuSystem:
                       metrics=self.telemetry, device=self.device)
             for i in range(self.config.num_index_nodes)
         ]
+        self.compaction_coord = CompactionCoordinator(
+            self.broker, self.meta, self.tso, self.data_coord, self.store,
+            delete_ratio=self.config.compaction_delete_ratio,
+            small_fraction=self.config.compaction_small_fraction,
+            retention_ms=self.config.gc_retention_ms,
+            events=self.event_log,
+        )
+        self.compaction_nodes = [
+            CompactionNode(f"cn-{i}", self.broker, self.store, self.meta, self.tso,
+                           metrics=self.telemetry)
+            for i in range(self.config.num_compaction_nodes)
+        ]
+        self.gc_reaper = GCReaper(self.broker, self.store, self.meta, self.tso,
+                                  metrics=self.telemetry, events=self.event_log)
         self.query_nodes: dict[str, QueryNode] = {}
         for i in range(self.config.num_query_nodes):
             self._new_query_node()
@@ -482,6 +540,7 @@ class ManuSystem:
             on_flush=self._after_ingest_flush,
         )
         self.batcher = BatchingProxy(self.proxy, scheduler=self.scheduler)
+        self.time_travel = TimeTravel(self.broker, self.store)
 
     # ------------------------------------------------------------- topology
     def _new_query_node(self) -> QueryNode:
@@ -527,21 +586,287 @@ class ManuSystem:
         self.run_until_idle()
         return node_id
 
+    def kill_query_node(self, node_id: str) -> None:
+        """Simulated crash: no dereg -- the lease must expire (failover)."""
+        self.query_nodes[node_id].alive = False
+
     # ----------------------------------------------- crash/restart (chaos)
-    kill_query_node = _not_ported("ManuSystem.kill_query_node", "core/faults.py")
-    kill_logger = _not_ported("ManuSystem.kill_logger", "core/faults.py")
-    kill_data_node = _not_ported("ManuSystem.kill_data_node", "core/faults.py")
-    kill_index_node = _not_ported("ManuSystem.kill_index_node", "core/faults.py")
-    kill_compaction_node = _not_ported("ManuSystem.kill_compaction_node", "core/compaction.py")
-    restart_logger = _not_ported("ManuSystem.restart_logger", "core/retry.py")
-    restart_data_node = _not_ported("ManuSystem.restart_data_node", "core/retry.py")
-    restart_index_node = _not_ported("ManuSystem.restart_index_node", "core/retry.py")
-    restart_compaction_node = _not_ported("ManuSystem.restart_compaction_node", "core/compaction.py")
-    restart_query_node = _not_ported("ManuSystem.restart_query_node", "core/retry.py")
-    recover_failures = _not_ported("ManuSystem.recover_failures", "core/retry.py")
-    reconcile_sealed = _not_ported("ManuSystem.reconcile_sealed", "core/retry.py")
-    heal_attr_satellites = _not_ported("ManuSystem.heal_attr_satellites", "core/retry.py")
-    restart = _not_ported("ManuSystem.restart", "core/retry.py")
+    @staticmethod
+    def _locate(nodes: list, node_id: str) -> int:
+        for i, n in enumerate(nodes):
+            if getattr(n, "node_id", getattr(n, "logger_id", None)) == node_id:
+                return i
+        raise KeyError(f"no such node: {node_id}")
+
+    def _emit_lifecycle(self, what: str, kind: str, node_id: str) -> None:
+        self.telemetry.inc(f"node_{what}_total", labels={"kind": kind})
+        self.event_log.emit(f"node_{what}", "system", node_kind=kind, node=node_id)
+
+    def kill_logger(self, logger_id: str) -> None:
+        self.loggers[self._locate(self.loggers, logger_id)].alive = False
+        self._emit_lifecycle("killed", "logger", logger_id)
+
+    def restart_logger(self, logger_id: str) -> None:
+        """Replace a dead logger with a fresh process.  PK allocation
+        watermarks live in the meta store (``id_alloc/``), so the
+        replacement allocates fresh pks from its first request."""
+        i = self._locate(self.loggers, logger_id)
+        # replaced in place: the proxy routes over this exact list object
+        self.loggers[i] = Logger(
+            logger_id, self.broker, self.tso, self.data_coord, self.clock,
+            self.config.tick_interval_ms, metrics=self.telemetry,
+        )
+        self._emit_lifecycle("restarted", "logger", logger_id)
+
+    def kill_data_node(self, node_id: str) -> None:
+        self.data_nodes[self._locate(self.data_nodes, node_id)].alive = False
+        self._emit_lifecycle("killed", "data", node_id)
+
+    def restart_data_node(self, node_id: str) -> None:
+        """Rebuild a data node from the log backbone: re-subscribe its DML
+        channels from position 0 (replay skips the insert halves of segments
+        already in the binlog), then re-announce any binlog whose
+        ``segment_sealed`` died with the old process."""
+        i = self._locate(self.data_nodes, node_id)
+        old = self.data_nodes[i]
+        dn = DataNode(node_id, self.broker, self.store, self.tso,
+                      self.data_coord, metrics=self.telemetry)
+        for ch in old.subscriptions:
+            dn.subscribe(ch, 0)
+        self.data_nodes[i] = dn
+        self._emit_lifecycle("restarted", "data", node_id)
+        self.reconcile_sealed()
+        self.run_until_idle()
+
+    def kill_index_node(self, node_id: str) -> None:
+        self.index_nodes[self._locate(self.index_nodes, node_id)].alive = False
+        self._emit_lifecycle("killed", "index", node_id)
+
+    def restart_index_node(self, node_id: str) -> None:
+        """A fresh index node re-reading the coord channel from 0: finished
+        builds are skipped by their CAS claims; claims the dead process
+        leaked mid-build (no ``index/`` meta behind them) are released."""
+        i = self._locate(self.index_nodes, node_id)
+        for key, claim in list(self.meta.scan("index_claim/").items()):
+            if (claim or {}).get("owner") != node_id:
+                continue
+            _, coll, sid, field_name, _kind = key.split("/")
+            if self.meta.get(f"index/{coll}/{sid}/{field_name}") is None:
+                self.meta.delete(key)
+        self.index_nodes[i] = IndexNode(
+            node_id, self.broker, self.store, self.meta, self.tso,
+            metrics=self.telemetry, device=self.device,
+        )
+        self._emit_lifecycle("restarted", "index", node_id)
+        self.run_until_idle()
+
+    def kill_compaction_node(self, node_id: str) -> None:
+        self.compaction_nodes[self._locate(self.compaction_nodes, node_id)].alive = False
+        self._emit_lifecycle("killed", "compaction", node_id)
+
+    def restart_compaction_node(self, node_id: str) -> None:
+        """A fresh compaction node replaying the coord channel (the durable
+        task queue) from 0: done-markers keep finished tasks finished, and
+        releasing the dead owner's claims lets it re-run what the crash
+        interrupted (the rewrite is deterministic; re-running overwrites)."""
+        i = self._locate(self.compaction_nodes, node_id)
+        self.compaction_coord.clear_stale_claims(owner=node_id)
+        self.compaction_nodes[i] = CompactionNode(
+            node_id, self.broker, self.store, self.meta, self.tso,
+            metrics=self.telemetry,
+        )
+        self._emit_lifecycle("restarted", "compaction", node_id)
+        self.run_until_idle()
+
+    def restart_query_node(self, node_id: str) -> str:
+        """Crash-restart one query node: expire the dead incarnation's
+        lease and reassign its replicas to survivors, then register a fresh
+        process under the same id and let the reconciler move work back.
+        The old incarnation's device columns and indexes go with it."""
+        self.query_nodes.pop(node_id, None)
+        st = self.query_coord.nodes.get(node_id)
+        if st is not None:
+            self.meta.revoke_lease(st.lease_id)
+            self.query_coord.handle_failures()
+        qn = QueryNode(node_id, self.broker, self.store, self.tso,
+                       slice_rows=self.config.slice_rows,
+                       metrics=self.telemetry, device=self.device)
+        self.query_nodes[node_id] = qn
+        self.query_coord.register_node(node_id)
+        self.query_coord.reconciler.reconcile()
+        self._emit_lifecycle("restarted", "query", node_id)
+        self.run_until_idle()
+        return node_id
+
+    def recover_failures(self) -> list[str]:
+        """Expire dead leases and reconcile (the query coordinator's
+        watchdog): failed nodes' segments are CAS-reassigned to surviving
+        replicas, channels re-homed, under-replication healed."""
+        st = self.query_coord.nodes
+        for node_id, qn in self.query_nodes.items():
+            if qn.alive and node_id in st:
+                self.query_coord.heartbeat(node_id)
+        for node_id, qn in self.query_nodes.items():
+            if not qn.alive and node_id in st:
+                self.meta.revoke_lease(st[node_id].lease_id)
+        report = self.query_coord.reconciler.reconcile()
+        self.run_until_idle()
+        return report["dead"]
+
+    # ------------------------------------------------------ crash recovery
+    def reconcile_sealed(self) -> int:
+        """Re-announce sealed binlogs the metadata plane never learned
+        about: a data node dying between the binlog flush and its
+        ``segment_sealed`` publish leaves a durable segment invisible.  The
+        binlog meta object is written last, so its presence proves the
+        flush completed.  Targets of still-pending compaction tasks are
+        skipped (re-execution overwrites them).  The attr satellites are
+        rebuilt from the binlog columns before the announcement."""
+        pending_targets = {
+            (t["collection"], sid)
+            for t in self.compaction_coord.pending.values()
+            for sid in t.get("targets", ())
+        }
+        healed = 0
+        for m in self.store.list("binlog/"):
+            parts = m.key.split("/")
+            if len(parts) != 4 or parts[3] != "meta":
+                continue
+            coll, sid = parts[1], int(parts[2])
+            if (coll, sid) in pending_targets:
+                continue
+            if self.meta.get(f"collection/{coll}") is None:
+                continue  # dropped collections stay dropped
+            if self.meta.get(f"segment/{coll}/{sid}") is not None:
+                continue  # already known (sealed or retired)
+            bm = read_binlog_meta(self.store, coll, sid)
+            part = bm.get("partition", DEFAULT_PARTITION)
+            if self.meta.get(f"partition/{coll}/{part}") is None:
+                continue  # dropped partitions stay dropped
+            attr_fields = sorted(rebuild_attr_satellites(self.store, coll, sid))
+            self.broker.publish(
+                COORD_CHANNEL,
+                LogEntry(
+                    ts=self.tso.next(),
+                    type=EntryType.COORD,
+                    payload={
+                        "msg": "segment_sealed",
+                        "collection": coll,
+                        "segment_id": sid,
+                        "shard": bm.get("shard", 0),
+                        "partition": part,
+                        "num_rows": bm["num_rows"],
+                        "binlog_keys": {},
+                        "checkpoint_pos": bm["checkpoint_pos"],
+                        "min_ts": bm.get("min_ts", 0),
+                        "max_ts": bm.get("max_ts", 0),
+                    },
+                ),
+            )
+            self.data_coord.on_sealed(
+                coll, sid, bm["num_rows"], part, shard=bm.get("shard", 0),
+                attr_fields=attr_fields,
+            )
+            self.telemetry.inc("recovery_seals_reconciled_total")
+            self.event_log.emit("seal_reconciled", "system", collection=coll, segment_id=sid)
+            healed += 1
+        return healed
+
+    def heal_attr_satellites(self) -> int:
+        """Rebuild missing or partial attribute-index satellites of the
+        segments the metadata plane already knows.  Returns segments healed."""
+        healed = 0
+        for key, rec in sorted(self.meta.scan("segment/").items()):
+            if rec.get("state") != "sealed":
+                continue
+            _, coll, sid_s = key.split("/")
+            sid = int(sid_s)
+            if not self.store.exists(f"binlog/{coll}/{sid}/meta"):
+                continue
+            recorded = [k.rsplit("/", 1)[1] for k in self.meta.scan(f"attr_index/{coll}/{sid}/")]
+            if recorded and all(self.store.exists(attr_key(coll, sid, f)) for f in recorded):
+                continue
+            fields = sorted(rebuild_attr_satellites(self.store, coll, sid))
+            self.data_coord._record_attr_fields(coll, sid, int(rec.get("rows", 0)), fields)
+            self.telemetry.inc("recovery_attr_satellites_rebuilt_total")
+            self.event_log.emit("attr_satellites_healed", "system", collection=coll, segment_id=sid)
+            healed += 1
+        return healed
+
+    def restart(self) -> dict:
+        """Cold-restart the whole system: every process -- coordinators,
+        worker nodes, the proxy -- is discarded and rebuilt from the durable
+        substrates (meta store, object store, log backbone), as in the
+        reference.  The clock, the substrates, the metrics registry and the
+        event log carry over; collections, segment state, index state,
+        placement, pending compactions, growing rows and pinned time-travel
+        windows are reconstructed.  The old query and index nodes' device
+        memory is released with them.  Session watermarks do not survive."""
+        # The dead proxy's meta watches must stop firing into it.
+        self.proxy._cancel_watch()
+        self.proxy._cancel_partition_watch()
+        # A fresh TSO floored at the durable log frontier: timestamps stay
+        # strictly increasing across the restart.
+        self.tso = TSO(self.clock)
+        frontier = 0
+        for ch in self.broker.channels():
+            end = self.broker.end_position(ch)
+            if end:
+                frontier = max(frontier, self.broker.read(ch, end - 1)[0].ts)
+        self.tso.advance_to(frontier)
+        # Serving placement is soft state: drop the assignment records and
+        # let the reconciler re-place everything through the CAS path.
+        for key in list(self.meta.scan("assignment/")):
+            self.meta.delete(key)
+
+        self._build_processes()
+
+        # Collections come back from the meta store alone.
+        self.collections = {}
+        for key, rec in sorted(self.meta.scan("collection/").items()):
+            name = key.split("/", 1)[1]
+            info = CollectionInfo(
+                name=name,
+                schema=Schema.from_dict(rec["schema"]),
+                num_shards=int(rec["num_shards"]),
+                metric=Metric(rec["metric"]),
+                created_ts=int(rec.get("created_ts", 0)),
+                replication_factor=int(rec.get("replication_factor", 1)),
+            )
+            for f, spec in self.index_coord.index_specs(name).items():
+                info.index_specs[f] = {
+                    "kind": spec["kind"], "params": dict(spec.get("params") or {}),
+                }
+            self.collections[name] = ManuCollection(self, info)
+            # Data nodes re-archive from position 0, skipping inserts whose
+            # segments are already durable in binlog.
+            for shard in range(info.num_shards):
+                dn = self.data_nodes[shard % len(self.data_nodes)]
+                dn.subscribe(dml_channel(name, shard), 0)
+
+        report: dict = {"tso_frontier": frontier}
+        report["data"] = self.data_coord.recover_state(store=self.store)
+        report["index"] = self.index_coord.recover_state()
+        report["query"] = self.query_coord.recover_state()
+        # The compaction coordinator's durable queue is the coord channel:
+        # one replaying step rebuilds pending tasks; clearing stale claims
+        # un-wedges whatever a dead node held mid-rewrite.
+        self.compaction_coord.step()
+        report["claims_cleared"] = self.compaction_coord.clear_stale_claims()
+        report["seals_reconciled"] = self.reconcile_sealed()
+        report["attr_healed"] = self.heal_attr_satellites()
+        self.query_coord.reconciler.reconcile()
+        self.run_until_idle()
+        # Pinned time-travel windows: retired-but-unreclaimed segments are
+        # re-loaded and re-retired.
+        report["retired_reloaded"] = self.query_coord.recover_retired(self.store)
+        self.run_until_idle()
+        self.telemetry.inc("system_restarts_total")
+        self.event_log.emit(
+            "system_restarted", "system",
+            **{k: v for k, v in report.items() if isinstance(v, (int, float))},
+        )
+        return report
 
     # ----------------------------------------------------------------- DDL
     def create_collection(
@@ -594,13 +919,14 @@ class ManuSystem:
 
 
     def drop_partition(self, name: str, partition: str) -> dict:
-        """Drop a partition: unregister it, retire its sealed segments,
-        discard its growing rows, and broadcast ``partition_dropped`` so
-        serving nodes release their copies.  Like ``drop_collection``, the
-        drop is not MVCC-gated.  The pks that lived only in the partition
-        are then broadcast as ``tombstones_folded`` (``compact_ts`` = the
-        drop ts), which the query nodes record for pruning at the retention
-        horizon; the pruning itself is compaction's, not ported yet."""
+        """Drop a partition: unregister it, retire its sealed segments
+        (reclaimed by the next GC cycle), discard its growing rows, and
+        broadcast ``partition_dropped`` so serving nodes release their
+        copies.  Like ``drop_collection``, the drop is not MVCC-gated.  The
+        pks that lived only in the partition are broadcast as
+        ``tombstones_folded`` (``compact_ts`` = the drop ts): the query
+        nodes prune them at the next retention-horizon advance, and the
+        compaction coordinator prunes its own view now."""
         self.run_until_idle()  # let in-flight seals land first
         ts = self.root_coord.drop_partition(name, partition)
         sids = self.data_coord.drop_partition_state(name, partition, ts)
@@ -659,6 +985,9 @@ class ManuSystem:
                     },
                 ),
             )
+            pruned = prune_folded(self.compaction_coord.tombstones.get(name) or {}, exclusive, ts)
+            if pruned is not None:
+                self.compaction_coord.tombstones[name] = pruned
         self.run_until_idle()
         return {"partition": partition, "segments_dropped": len(sids)}
 
@@ -719,20 +1048,48 @@ class ManuSystem:
                 if qn.alive and node_id in self.query_coord.nodes:
                     self.query_coord.heartbeat(node_id)
             for lg in self.loggers:
-                if lg.alive:
+                if not lg.alive:
+                    continue
+                try:
                     lg.tick(self.broker.channels("dml/"))
+                except Crash as c:
+                    self._mark_crashed("logger", lg, c)
             for dn in self.data_nodes:
-                progress |= bool(dn.step())
+                progress |= self._crashable_step("data", dn)
             progress |= self.index_coord.step()
             for ix in self.index_nodes:
-                progress |= bool(ix.step())
+                progress |= self._crashable_step("index", ix)
+            progress |= self.compaction_coord.step()
+            for cn in self.compaction_nodes:
+                progress |= self._crashable_step("compaction", cn)
             progress |= self.query_coord.step()
             for qn in self.query_nodes.values():
-                progress |= bool(qn.step())
+                progress |= self._crashable_step("query", qn)
             # Ingest scheduler age trigger: admitted-but-unflushed writes
             # never outlive ``ingest_flush_ms`` of pump activity.
             progress |= self.scheduler.step()
         return progress
+
+    def _crashable_step(self, kind: str, node) -> bool:
+        """Step one worker node, turning an injected ``Crash`` into that
+        node's death.  Like a kill -9 the exception runs no cleanup in the
+        node (``Crash`` is a BaseException); what it leaked is the recovery
+        path's problem.  Coordinator steps are not guarded: a coordinator
+        crash takes the control plane down, and the remedy is ``restart()``."""
+        try:
+            return bool(node.step())
+        except Crash as c:
+            self._mark_crashed(kind, node, c)
+            return True
+
+    def _mark_crashed(self, kind: str, node, crash: Crash) -> None:
+        node.alive = False
+        node_id = getattr(node, "node_id", getattr(node, "logger_id", "?"))
+        self.telemetry.inc("node_crashes_total", labels={"kind": kind})
+        self.event_log.emit(
+            "node_crashed", "system", node_kind=kind, node=node_id,
+            site=crash.site, key=crash.key,
+        )
 
     def run_until_idle(self, max_rounds: int = 10_000) -> int:
         rounds = 0
@@ -745,6 +1102,34 @@ class ManuSystem:
             )
         return rounds
 
+    def wait_idle(self, timeout_s: float = 30.0) -> None:
+        """Poll until no live query node lags its channels, the compaction
+        coordinator has consumed the log, and no index build or compaction
+        is pending; raise ``TimeoutError`` with ``_diagnostic_dump`` after
+        ``timeout_s``.  The facade has no pump thread, so each poll that
+        finds work pending pumps one round itself."""
+        deadline = time.time() + timeout_s
+        polls = 0
+        while time.time() < deadline:
+            polls += 1
+            lag = sum(
+                sub.lag()
+                for qn in self.query_nodes.values()
+                if qn.alive
+                for sub in qn.subscriptions.values()
+            )
+            if (
+                lag == 0
+                and self.compaction_coord.lag() == 0
+                and not self.index_coord.pending_tasks
+                and not self.compaction_coord.pending
+            ):
+                self.event_log.emit("wait_idle", "system", polls=polls, drained=True)
+                return
+            if not self.pump():
+                time.sleep(0.005)
+        self.event_log.emit("wait_idle", "system", polls=polls, drained=False)
+        raise TimeoutError(self._diagnostic_dump(f"wait_idle timed out after {timeout_s}s"))
 
     def _diagnostic_dump(self, reason: str) -> str:
         """One-stop timeout diagnosis: which channels still hold entries,
@@ -766,15 +1151,48 @@ class ManuSystem:
             if lags or not qn.alive:
                 state = "alive" if qn.alive else "dead"
                 lines.append(f"query node {node_id} [{state}] lag: {lags}")
-        lines.append(f"pending: index_tasks={len(self.index_coord.pending_tasks)}")
+        lines.append(
+            f"pending: index_tasks={len(self.index_coord.pending_tasks)}"
+            f" compactions={len(self.compaction_coord.pending)}"
+            f" compaction_lag={self.compaction_coord.lag()}"
+        )
         for ev in self.event_log.query()[-10:]:
             lines.append(f"event {ev.kind} src={ev.source} {ev.detail}")
         return "\n  ".join(lines)
 
-
     # --------------------------------------------------- compaction & GC
-    compact = _not_ported("ManuSystem.compact", "core/compaction.py")
-    gc = _not_ported("ManuSystem.gc", "core/compaction.py (GCReaper)")
+    def compact(self, name: str) -> dict:
+        """One maintenance cycle: plan rewrites, execute, hot-swap.
+        Returns {"tasks", "epoch", "rows_purged"} for THIS cycle; a no-op
+        when the policy finds nothing to do."""
+        # The coordinator must see all seals and deletes before planning.
+        self.run_until_idle()
+        purged_before = sum(cn.rows_purged for cn in self.compaction_nodes)
+        tasks = self.compaction_coord.plan(name)
+        self.run_until_idle()
+        return {
+            "tasks": len(tasks),
+            "epoch": self.compaction_coord.segment_map.epoch(name),
+            "rows_purged": sum(cn.rows_purged for cn in self.compaction_nodes) - purged_before,
+        }
+
+    def gc(self, name: str | None = None, horizon_ts: int | None = None) -> dict:
+        """Advance the retention horizon and reclaim unreferenced objects
+        of collection ``name`` (None = every collection).  The horizon
+        defaults to "now minus ``gc_retention_ms``"; segments referenced by
+        time-travel checkpoints survive regardless."""
+        if horizon_ts is None:
+            if self.config.gc_retention_ms > 0:
+                horizon_ts = pack(
+                    max(0, int(self.clock.now_ms() - self.config.gc_retention_ms)), 0
+                )
+            else:
+                horizon_ts = self.tso.next()
+        self.compaction_coord.advance_horizon(horizon_ts, collection=name)
+        self.run_until_idle()
+        report = self.gc_reaper.reap(horizon_ts, collection=name)
+        self.run_until_idle()
+        return report
 
     # -------------------------------------------------------------- search
     def search(
@@ -897,11 +1315,24 @@ class ManuSystem:
         )
 
     # -------------------------------------------------------- time travel
-    # MVCC reads pinned in the past (``search(time_travel_ts=)``) are
-    # ported; checkpoints and restores into a separate collection are not.
-    checkpoint_collection = _not_ported("ManuSystem.checkpoint_collection", "core/time_travel.py")
-    restore_collection = _not_ported("ManuSystem.restore_collection", "core/time_travel.py")
+    def checkpoint_collection(self, name: str) -> None:
+        coll = self.collections[name]
+        ts = self.tso.last_issued()
+        replay = {}
+        for shard in range(coll.info.num_shards):
+            ch = dml_channel(name, shard)
+            replay[ch] = self.data_coord.replay_position(name, shard)
+        self.time_travel.checkpoint(
+            name, ts, self.data_coord.sealed_segments(name), coll.info.num_shards, replay,
+        )
 
+    def restore_collection(self, name: str, target_ts: int) -> RestoredCollection:
+        """The collection as of ``target_ts``, restored onto this system's
+        device from the closest checkpoint and the WAL."""
+        coll = self.collections[name]
+        return self.time_travel.restore(
+            name, target_ts, coll.info.num_shards, coll.info.dim(), device=self.device
+        )
 
     # ------------------------------------------------------------ metrics
     def metrics(self) -> MetricsSnapshot:
@@ -1023,6 +1454,9 @@ class ManuSystem:
                 "replication_factor": cs.replication_factor,
             },
             "index_builds": sum(ix.builds_completed for ix in self.index_nodes),
+            "compactions": sum(cn.compactions_completed for cn in self.compaction_nodes),
+            "rows_purged": sum(cn.rows_purged for cn in self.compaction_nodes),
+            "gc_bytes_reclaimed": self.gc_reaper.bytes_reclaimed,
             "metrics": self.metrics().to_dict(),
             "events": len(self.event_log),
         }

@@ -5,8 +5,9 @@ Manu persists binlogs, sealed segments, and index files in object storage
 put/get/list/delete/exists with ETags — behind one interface, with two
 implementations:
 
-* ``MemoryObjectStore`` — in-process dict.  (``repro``'s directory-backed
-  ``FileObjectStore`` is not ported yet.)
+* ``MemoryObjectStore`` — in-process dict.
+* ``FileObjectStore``   — directory-backed; objects are files under a root,
+  keys map to paths, and a put commits atomically (``os.replace``).
 
 Values are opaque ``bytes``.  Higher layers (binlog, index files, train
 checkpoints) serialize with numpy ``.npz`` / msgpack-like headers on top.
@@ -15,6 +16,7 @@ checkpoints) serialize with numpy ``.npz`` / msgpack-like headers on top.
 from __future__ import annotations
 
 import hashlib
+import os
 import threading
 from dataclasses import dataclass
 from typing import Iterator
@@ -110,3 +112,82 @@ class MemoryObjectStore(ObjectStore):
             keys = sorted(k for k in self._objects if k.startswith(prefix))
             metas = [ObjectMeta(k, len(self._objects[k]), _etag(self._objects[k])) for k in keys]
         yield from metas
+
+
+class FileObjectStore(ObjectStore):
+    """Objects as files under ``root``.  Keys may contain '/'."""
+
+    def __init__(self, root: str):
+        self.root = os.path.abspath(root)
+        os.makedirs(self.root, exist_ok=True)
+        self._lock = threading.RLock()
+        self._tmp_seq = 0
+        self.put_count = 0
+        self.get_count = 0
+        self.delete_count = 0
+        self.bytes_written = 0
+        self.bytes_read = 0
+        self.bytes_deleted = 0
+
+    def _path(self, key: str) -> str:
+        if ".." in key.split("/"):
+            raise ValueError(f"illegal key: {key}")
+        return os.path.join(self.root, key)
+
+    def put(self, key: str, data: bytes) -> ObjectMeta:
+        path = self._path(key)
+        with self._lock:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            # A private staging file per put: a kill mid-write strands at
+            # most this file (list/get skip it), never a torn object, and
+            # os.replace is the atomic commit point, like an S3 PUT.
+            self._tmp_seq += 1
+            tmp = f"{path}.{os.getpid()}.{self._tmp_seq}.tmp"
+            try:
+                with open(tmp, "wb") as f:
+                    f.write(data)
+                os.replace(tmp, path)
+            except BaseException:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+                raise
+            self.put_count += 1
+            self.bytes_written += len(data)
+        return ObjectMeta(key, len(data), _etag(data))
+
+    def get(self, key: str) -> bytes:
+        path = self._path(key)
+        if not os.path.isfile(path):
+            raise KeyError(f"object not found: {key}")
+        with open(path, "rb") as f:
+            data = f.read()
+        with self._lock:
+            self.get_count += 1
+            self.bytes_read += len(data)
+        return data
+
+    def exists(self, key: str) -> bool:
+        return os.path.isfile(self._path(key))
+
+    def delete(self, key: str) -> bool:
+        path = self._path(key)
+        with self._lock:
+            if not os.path.isfile(path):
+                return False
+            size = os.path.getsize(path)
+            os.remove(path)
+            self.delete_count += 1
+            self.bytes_deleted += size
+            return True
+
+    def list(self, prefix: str = "") -> Iterator[ObjectMeta]:
+        out = []
+        for dirpath, _dirnames, filenames in os.walk(self.root):
+            for fn in filenames:
+                if fn.endswith(".tmp"):
+                    continue
+                full = os.path.join(dirpath, fn)
+                key = os.path.relpath(full, self.root).replace(os.sep, "/")
+                if key.startswith(prefix):
+                    out.append(ObjectMeta(key, os.path.getsize(full), ""))
+        yield from sorted(out, key=lambda m: m.key)

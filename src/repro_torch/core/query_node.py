@@ -199,6 +199,12 @@ class QueryNode:
         # (or a consistency-wait pump) reaches this node; the node's caches
         # and counters are not built for two at once.
         self._serve_lock = threading.RLock()
+        # Segments GC reclaimed (``segment_gc`` broadcasts): a replay of
+        # their WAL inserts must not rebuild them as growing rows.
+        self.reclaimed: set[tuple[str, int]] = set()
+        # Commands on the coord channel up to this ts were addressed to an
+        # earlier process under this node id (see _handle_coord).
+        self.born_ts = tso.last_issued() if tso is not None else 0
 
     # --------------------------------------------------------- subscriptions
     def subscribe(self, channel: str, from_position: int = 0) -> None:
@@ -266,8 +272,8 @@ class QueryNode:
             return True
         if msg == "tombstones_folded":
             # Broadcast: these tombstones' pks were folded away (a compaction
-            # or a partition drop).  Every node remembers them for pruning at
-            # the retention horizon (the pruning is compaction's, item 8).
+            # or a partition drop).  Every node prunes them from its
+            # delta-delete map once the retention horizon passes compact_ts.
             self._pending_prunes.append(
                 {
                     "collection": p["collection"],
@@ -277,9 +283,15 @@ class QueryNode:
             )
             return True
         if msg == "retention_advance":
-            raise NotImplementedError(
-                f"coord message '{msg}' needs compaction, not ported yet: ROADMAP Queue 1 item 8"
-            )
+            return self.apply_retention(p["horizon_ts"], p.get("collection"))
+        if msg == "segment_gc":
+            # Broadcast: the segment's objects are gone.  A node replaying
+            # a channel from before its inserts must not rebuild its rows
+            # as growing (their folded tombstones are pruned).
+            key = (p["collection"], p["segment_id"])
+            self.reclaimed.add(key)
+            self.growing.pop(key, None)
+            return True
         if msg == "partition_dropped":
             coll, part = p["collection"], p["partition"]
             self.dropped_partitions.add((coll, part))
@@ -294,6 +306,14 @@ class QueryNode:
                     del self.sealed[key]
             return True
         if p.get("node_id") != self.node_id:
+            return False
+        if entry.ts <= self.born_ts:
+            # A fresh process re-reads the coord channel from 0 for the
+            # broadcasts (tombstones, folds, retention, drops); the commands
+            # to the process it replaces are stale (loads of segments moved
+            # or reclaimed since).  The coordinators re-issue what this one
+            # must serve, retired windows included (the reference replays
+            # them; ROADMAP Queue 3).
             return False
         if msg == "load_segment":
             self.load_sealed(
@@ -352,7 +372,7 @@ class QueryNode:
                 self._apply_delete(p["collection"], p["pk"], entry.ts)
             key = (p["collection"], p["segment_id"])
             partition = p.get("partition", DEFAULT_PARTITION)
-            if (p["collection"], partition) in self.dropped_partitions:
+            if (p["collection"], partition) in self.dropped_partitions or key in self.reclaimed:
                 return True
             if key in self.sealed:
                 return entry.type is EntryType.UPSERT
@@ -443,9 +463,36 @@ class QueryNode:
         self.growing.pop((collection, segment_id), None)
 
     def apply_retention(self, horizon_ts: int, collection: str | None = None) -> bool:
-        raise NotImplementedError(
-            "apply_retention needs compaction, not ported yet: ROADMAP Queue 1 item 8"
-        )
+        """Drop retired segment versions (and with them their device
+        columns and indexes) and prune the folded tombstones whose
+        compaction fell behind the retention horizon (``collection=None``
+        applies to every collection)."""
+        from .compaction import prune_folded
+
+        changed = False
+        for key, handle in list(self.sealed.items()):
+            if collection is not None and key[0] != collection:
+                continue
+            if handle.retired_at_ts is not None and handle.retired_at_ts <= horizon_ts:
+                del self.sealed[key]
+                changed = True
+        still_pending: list[dict] = []
+        for prune in self._pending_prunes:
+            if (collection is not None and prune["collection"] != collection) or (
+                prune["compact_ts"] > horizon_ts
+            ):
+                still_pending.append(prune)
+                continue
+            coll = prune["collection"]
+            pruned = prune_folded(
+                self.delta_deletes.get(coll) or {}, prune["folded_pks"], prune["compact_ts"]
+            )
+            if pruned is not None:
+                self.delta_deletes[coll] = pruned
+                self._delta_flat.pop(coll, None)
+                changed = True
+        self._pending_prunes = still_pending
+        return changed
 
     def drop_growing(self, collection: str, segment_id: int) -> None:
         self.growing.pop((collection, segment_id), None)

@@ -13,7 +13,9 @@ visible.  Primary keys are integers: string pks are not ported yet.
 
 from __future__ import annotations
 
+import io
 import threading
+from dataclasses import dataclass
 from enum import Enum
 from typing import Any
 
@@ -68,6 +70,15 @@ def _int_pks(pks) -> np.ndarray:
     if arr.size and arr.dtype.kind not in "iu":
         raise TypeError(f"repro_torch segments take integer pks, got dtype {arr.dtype}")
     return arr.astype(np.int64, copy=False)
+
+
+@dataclass
+class SegmentStats:
+    num_rows: int
+    num_deleted: int
+    state: str
+    min_ts: int
+    max_ts: int
 
 
 class SegmentState(Enum):
@@ -263,6 +274,18 @@ class Segment:
         """Rows currently dead (killed at any timestamp)."""
         return ~self.visible_mask(np.iinfo(np.int64).max)
 
+    def stats(self) -> SegmentStats:
+        return SegmentStats(
+            num_rows=self.num_rows,
+            num_deleted=len(self._deleted),
+            state=self.state.value,
+            min_ts=self.min_ts(),
+            max_ts=self.max_ts(),
+        )
+
+    def deleted_fraction(self) -> float:
+        return len(self._deleted) / max(1, self.num_rows)
+
     def min_ts(self) -> int:
         ts = self.timestamps()
         return int(ts.min()) if len(ts) else 0
@@ -279,6 +302,77 @@ class Segment:
     def slice_bounds(self, slice_idx: int) -> tuple[int, int]:
         lo = slice_idx * self.slice_rows
         return lo, min(lo + self.slice_rows, self._num_rows)
+
+    def tail_rows(self) -> tuple[int, int]:
+        """Row range not covered by any full slice (always brute-force)."""
+        return (self._num_rows // self.slice_rows) * self.slice_rows, self._num_rows
+
+    # -------------------------------------------------- binlog (de)serialize
+    def to_binlog(self) -> bytes:
+        """The reference's single-blob serialization (``np.savez_compressed``
+        of every column, tombstones flattened to aligned (pk, ts) arrays).
+        The object store's per-column layout is ``binlog.py``'s."""
+        cols = {k: (v.cpu().numpy() if torch.is_tensor(v) else v)
+                for k, v in self._materialize().items()}
+        flat = self._tombstones_flat()
+        if flat is not None:
+            cols["__deleted_pks"], cols["__deleted_ts"] = (t.cpu().numpy() for t in flat)
+        else:
+            cols["__deleted_pks"] = np.empty(0, cols["pk"].dtype)
+            cols["__deleted_ts"] = np.empty(0, np.int64)
+        buf = io.BytesIO()
+        np.savez_compressed(
+            buf,
+            __meta=np.array(
+                [self.segment_id, self.shard, self.dim, self.checkpoint_pos], dtype=np.int64
+            ),
+            __partition=np.array(self.partition),
+            **cols,
+        )
+        return buf.getvalue()
+
+    @classmethod
+    def from_binlog(
+        cls, collection: str, data: bytes, slice_rows: int = DEFAULT_SLICE_ROWS, device="cuda"
+    ) -> "Segment":
+        with np.load(io.BytesIO(data), allow_pickle=False) as z:
+            segment_id, shard, dim, ckpt = (int(x) for x in z["__meta"])
+            extra_names = tuple(
+                k for k in z.files
+                if k not in ("__meta", "__partition", "pk", "vector", "ts",
+                             "__deleted_pks", "__deleted_ts")
+            )
+            partition = str(z["__partition"]) if "__partition" in z.files else DEFAULT_PARTITION
+            seg = cls(segment_id, collection, shard, dim, slice_rows, extra_names,
+                      partition=partition, device=device)
+            if len(z["pk"]):
+                seg.append(z["pk"], z["vector"], z["ts"], {k: z[k] for k in extra_names})
+            seg.checkpoint_pos = ckpt
+            for pk, dts in zip(z["__deleted_pks"].tolist(), z["__deleted_ts"].tolist()):
+                add_tombstone(seg._deleted, pk, dts)
+            seg.seal()
+            return seg
+
+
+def merge_segments(new_id: int, segments: "list[Segment]") -> Segment:
+    """Merge sealed segments into one on the first one's device, dropping
+    the rows a tombstone already kills."""
+    if not segments:
+        raise ValueError("nothing to merge")
+    base = segments[0]
+    out = Segment(
+        new_id, base.collection, base.shard, base.dim, base.slice_rows,
+        base.extra_fields, partition=base.partition, device=base.device,
+    )
+    for seg in segments:
+        keep = ~seg.delete_bitmap()
+        if keep.any():
+            host_keep = keep.cpu().numpy()
+            extras = {f: seg.extra(f)[host_keep] for f in seg.extra_fields}
+            out.append(seg.pks()[keep], seg.vectors()[keep], seg.timestamps()[keep], extras)
+    out.checkpoint_pos = max(s.checkpoint_pos for s in segments)
+    out.seal()
+    return out
 
 
 def segment_from_columns(

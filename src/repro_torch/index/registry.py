@@ -15,8 +15,8 @@ INDEX_KINDS: dict[str, type[VectorIndex]] = {
 #: Kinds the reference builds that the port does not have yet, with the
 #: ROADMAP item that ports them.
 NOT_PORTED = {
-    "hnsw": "Queue 1 item 7 (HNSW)",
-    "bucket": "Queue 1 item 7 (bucket index)",
+    "hnsw": "Queue 1: the rest of the index family (HNSW)",
+    "bucket": "Queue 1: the rest of the index family (bucket index)",
 }
 
 

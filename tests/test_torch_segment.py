@@ -114,7 +114,7 @@ def test_device_guard_and_registry():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Segment(1, "c", 0, 4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1: the rest of the index family"):
         create_index(IndexSpec("hnsw"), device="cpu")
     with pytest.raises(KeyError):
         create_index(IndexSpec("no_such_kind"), device="cpu")

@@ -9,8 +9,8 @@ within rtol=1e-5, atol=1e-4 (two float32 expansions of one distance).
 
 Also: async ingest rejects at the same request in both packages, batched
 reads give the per-request answers, an IVF-SQ collection equals the port's
-float64 oracle over what its query nodes hold, and every unported facade
-surface raises ``NotImplementedError`` naming ROADMAP Queue 1 item 8."""
+float64 oracle over what its query nodes hold, and threaded mode raises
+``NotImplementedError`` naming its ROADMAP item."""
 
 import numpy as np
 import pytest
@@ -20,7 +20,6 @@ torch = pytest.importorskip("torch")
 import repro.core as ref  # noqa: E402
 import repro_torch.core as port  # noqa: E402
 from repro_torch import testing  # noqa: E402
-from repro_torch.core.query_node import QueryNode  # noqa: E402
 
 ROWS, DIM, IMG_DIM = 2_000, 32, 16
 CONFIG = dict(num_query_nodes=2, num_index_nodes=1, seal_rows=500, slice_rows=256,
@@ -276,47 +275,11 @@ def test_ivf_sq_collection_matches_port_oracle():
     assert any(seg.slice_indexes for node in nodes for seg in node.growing.values())
 
 
-UNPORTED_SYSTEM = (
-    "compact", "gc", "restart", "kill_query_node", "kill_logger", "kill_data_node",
-    "kill_index_node", "kill_compaction_node", "restart_logger", "restart_data_node",
-    "restart_index_node", "restart_compaction_node", "restart_query_node", "recover_failures",
-    "reconcile_sealed", "heal_attr_satellites", "checkpoint_collection", "restore_collection",
-)
-
-
-@pytest.fixture(scope="module")
-def small():
-    manu = _system(port)
-    return manu, manu.create_collection("c", dim=8)
-
-
-@pytest.mark.parametrize("method", UNPORTED_SYSTEM)
-def test_unported_system_surface_raises(small, method):
-    manu, _coll = small
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        getattr(manu, method)("c")
-
-
-@pytest.mark.parametrize("method", ["compact", "gc"])
-def test_unported_collection_surface_raises(small, method):
-    _manu, coll = small
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        getattr(coll, method)()
-
-
-@pytest.mark.parametrize("kwargs", [{"config": "threaded"}, {"injector": object()}])
+@pytest.mark.parametrize("kwargs", [{"config": "threaded"}])
 def test_unported_modes_raise(kwargs):
     config = port.ManuConfig(threaded=kwargs.pop("config", None) == "threaded")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: threaded mode"):
         port.ManuSystem(config, device="cpu", **kwargs)
-
-
-def test_query_node_retention_raises(small):
-    manu, _coll = small
-    node = next(iter(manu.query_nodes.values()))
-    assert isinstance(node, QueryNode)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        node.apply_retention(0)
 
 
 def _hedged(pkg):

@@ -142,7 +142,15 @@ def _coord_sequence(pkg):
 
 
 def test_coordinators_emit_reference_coord_sequence():
+    """The reference's sequence; the port's ``segment_sealed`` also names the
+    channel's replay point, ``replay_from`` (``test_torch_recovery``)."""
     got, want = _coord_sequence(port), _coord_sequence(ref)
+    sealed = [g for g in got if g[1] == "segment_sealed"]
+    assert sealed and all("replay_from" in g[2] for g in sealed)
+    got = [
+        (g[0], g[1], [k for k in g[2] if k != "replay_from"], g[3]) if g[1] == "segment_sealed" else g
+        for g in got
+    ]
     msgs = {w[1] for w in want if w[0] != "ddl"}
     assert {"subscribe_channel", "segment_sealed", "index_build_task", "index_built",
             "load_segment", "segment_loaded", "load_index"} <= msgs
