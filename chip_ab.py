@@ -12,8 +12,9 @@ PQ subspace (131,072 x 256 x 16) and an interim slice (2,048 x 16 x 768);
 ``merge_topk`` at every (nq, M, k) the three paths of ``chip_smoke.py``
 launch it at (``MERGE_SHAPES``, the three most launched first), on pools
 with the main path's structure (``chip_smoke.merge_pool``), beside an empty
-kernel's device time; ``sq_decode`` at the 65,536 x 768 chunks an IVF-SQ
-index decodes.  Each on seeded data, k = 100, as CUDA-event time of
+kernel's device time; ``sq_encode`` at a segment (131,072 x 768) and a
+bucket index's payload (262,144 x 768); ``sq_decode`` at the 65,536 x 768
+chunks an IVF-SQ index decodes.  Each on seeded data, k = 100, as CUDA-event time of
 back-to-back calls (``event_ms``) and as device time with the calls queued
 behind a sleep kernel (``device_ms``, see ``chip_smoke.device_ms``).
 Prints one JSON line.  To compare two trees on one card, run it in one machine once per
@@ -101,6 +102,11 @@ def main() -> int:
     for nq, m, k in MERGE_SHAPES:
         ps, pp = cs.merge_pool(torch, gen, dev, nq, m, k)
         both(f"merge_topk nq={nq} M={m} k={k}", lambda: mt.merge_topk(ps, pp, k, "l2"), 100)
+    for rows in cs.ENCODE_ROWS:
+        xe = x[:rows].contiguous()
+        lo, hi = xe.min(0).values, xe.max(0).values
+        both(f"sq_encode {rows}x{cs.DIM}", lambda: sq.sq_encode(xe, lo, hi), 20)
+        del xe
     codes = torch.randint(0, 256, (cs.DECODE_CHUNK_ROWS, cs.DIM), generator=gen, device=dev,
                           dtype=torch.uint8)
     lo = torch.randn(cs.DIM, generator=gen, device=dev)

@@ -18,7 +18,8 @@
    centroid-tile edge (earliest wins), and rows near their centroids held
    to float64.
    ``sq_encode``: bit-exact, with exact .5 boundaries and a constant
-   column.  ``sq_decode``: bit-exact, d % 4 == 0 and odd d, one row, a
+   column, d % 4 != 0, a view one float off the 16-byte grid, d above
+   4,096 and n * d above 2^31.  ``sq_decode``: bit-exact, d % 4 == 0 and odd d, one row, a
    misaligned view, n * d above 2^31.  ``sq_l2_topk``: L2/IP, k in {1, 100, 1024}, nq in {1, 100},
    ragged and all-invalid.  ``pq_adc_topk``: nq in {1, 3, 4, 5, 8, 100}
    (ragged query groups) x m in {8, 20, 48} x ksub in {16, 256}, uint8 and
@@ -47,7 +48,19 @@
    centroid distances, score the probed rows, sort stably, merge); an
    IVF-FLAT built twice from one seed must save the same bytes.  Recall@100
    against exact brute force is printed, not gated.
-5. Facade path: the port's ``ManuSystem`` at the same scale (2 shards,
+5. Index-family path, on the indexed path's mixture rows and deletes: a
+   bucket index (the reference's defaults: 96-row target, 128-row buckets,
+   replicas 2, nprobe 8, SQ payload) over one full 131,072-row sealed
+   segment and HNSW (m 16, ef_construction 100, ef_search 64) over a
+   4,096-row slice (its graph build is the reference's host numpy code),
+   built by the port's ``IndexNode``, loaded by one ``QueryNode`` and
+   searched at nq 1 and 100 pinned after the deletes.  The bucket answers
+   must equal the float64 oracle over the loaded index (probe by a full
+   sort of the centre distances, score the probed slots, each row's best,
+   a stable sort); every HNSW score must be its row's float64 distance;
+   no deleted pk may appear.  Prints build seconds and launches, request
+   latencies, launches per request, recall@100 and profiled requests.
+6. Facade path: the port's ``ManuSystem`` at the same scale (2 shards,
    2 loggers, 1 data node, 1 index node, 2 query nodes, 131,072-row seals):
    an IVF-SQ collection (nlist 128, nprobe 8) with an INT ordinal, 1M
    mixture rows inserted through the proxy in 8,192-row batches, flush
@@ -59,7 +72,7 @@
    at its pin (``repro_torch.testing.system_oracle``).  Prints ingest
    rows/s, the flush time, each build, request latencies and two profiled
    requests with the host split.
-6. Maintenance path, on the facade's system after its requests: a
+7. Maintenance path, on the facade's system after its requests: a
    time-travel checkpoint, a retention delete of the 65,536 oldest
    ordinals (~25% of each shard's first segment, as a collection TTL
    deletes) and a flush that seals the 16,384 streamed rows into two
@@ -76,13 +89,16 @@
    the compaction, rebuild, GC, restore and recovery seconds, the request
    medians, launches per request, profiled requests and device memory
    around the restart.
-7. Each path runs with every launch counter at 0 and fails unless each of
+8. Each path runs with every launch counter at 0 and fails unless each of
    its kernels was launched; ``kmeans_assign``'s launches are also counted
    per (N, C, D), ``merge_topk``'s per (nq, M, k) and ``sq_decode``'s per
    (n, d), each adding up to the wrapper's count, and the three kernels are
    timed at every shape the paths launched (device time of calls queued
    behind a sleep kernel), beside their plain versions, their bounds and an
-   empty kernel's time, with the sum of launches x (time - bound).  Prints
+   empty kernel's time, with the sum of launches x (time - bound) (of the
+   bucket build's many small split shapes only the largest are timed).
+   ``sq_encode`` is timed the same way at a segment (131,072 x 768) and a
+   bucket payload (262,144 x 768).  Prints
    phase and build times, request
    latencies, profiled requests, one JSON line of kernel measurements, the
    card's name and power limit, and as the last line
@@ -182,6 +198,24 @@ FACADE_KERNELS = ("l2_topk", "merge_topk", "kmeans_assign", "sq_encode", "sq_dec
 # the kernels the path must launch (rebuilds, first searches, the restore).
 RETENTION_DELETE = 65_536
 MAINTENANCE_KERNELS = FACADE_KERNELS
+# Index-family path: the reference's defaults for the bucket index (on one
+# full sealed segment: its payload holds every row twice, 262,144 x 768
+# codes) and for HNSW, whose graph build is the reference's host numpy
+# code (~10-30 ms per inserted row at d 768), so it runs on an HNSW_ROWS
+# slice.  Collection -> (index kind, build params, rows).
+BUCKET_PARAMS = {"target_bucket_rows": 96, "replicas": 2, "nprobe_buckets": 8, "compress": True}
+HNSW_PARAMS = {"m": 16, "ef_construction": 100, "ef_search": 64}
+HNSW_ROWS = 4_096
+FAMILY = {"vdb_bucket": ("bucket", BUCKET_PARAMS, SEG_ROWS), "vdb_hnsw": ("hnsw", HNSW_PARAMS, HNSW_ROWS)}
+FAMILY_KERNELS = ("l2_topk", "merge_topk", "kmeans_assign", "sq_encode", "sq_l2_topk")
+# The bucket build's hierarchical k-means splits every cluster above 128
+# rows, each split a kmeans_assign shape of its own (about a hundred): every
+# shape is checked and timed, and those under ASSIGN_LOG_WORK (N x C x D)
+# are logged as one summary line.
+ASSIGN_LOG_WORK = 10**7
+# sq_encode's timed shapes: a sealed segment (an SQ / IVF-SQ build) and a
+# bucket index's payload over one (replicas = 2).
+ENCODE_ROWS = (SEG_ROWS, 2 * SEG_ROWS)
 KERNEL_NAMES = (
     "l2_topk", "merge_topk", "kmeans_assign", "sq_encode", "sq_decode", "sq_l2_topk", "pq_adc_topk",
 )
@@ -732,6 +766,22 @@ def index_kernel_phase(torch, km_mod, sq_mod, pq_mod, testing, dev, gen) -> dict
     even = torch.arange(SEG_ROWS, device=dev).remainder(256)
     if not torch.equal(codes[:, 0].long(), (even + even.remainder(2)).clamp(max=255)):
         raise AssertionError("sq_encode does not round .5 to even")
+    # sq_encode, bit-exact off the 4-element path: d % 4 != 0, a view one
+    # float off the 16-byte grid, d above the staged 4,096 (and 4,096
+    # itself), one element; then n * d above 2^31 (64-bit indexing),
+    # compared in row chunks (the plain version is row by row).
+    n_enc = 1
+    for n, d, off in ((700, 19, 0), (257, DIM, 1), (257, DIM, 4), (3, 4_100, 0), (5, 10_001, 0),
+                      (2, 4_096, 0), (1, 1, 0)):
+        xe = torch.randn((n, d), generator=gen, device=dev)
+        if off:
+            xe = offset_view(torch, xe, off)
+        lo, hi = xe.min(0).values, xe.max(0).values
+        if not torch.equal(sq_mod.sq_encode(xe, lo, hi), sq_mod.sq_encode_plain(xe, lo, hi)):
+            raise AssertionError(f"sq_encode differs from its plain version (n={n}, d={d}, "
+                                 f"{4 * off} bytes off)")
+        n_enc += 1
+    del x, codes, xe
 
     # sq_decode, bit-exact: the 4-code path (d % 4 == 0, d = 100 too), the
     # scalar path (odd d, d above the staged 4,096, a misaligned view), one
@@ -758,6 +808,17 @@ def index_kernel_phase(torch, km_mod, sq_mod, pq_mod, testing, dev, gen) -> dict
         if not torch.equal(sq_mod.sq_decode(c, lo, hi), sq_mod.sq_decode_plain(c, lo, hi)):
             raise AssertionError(f"sq_decode differs from its plain version on a view {off} bytes off")
         n_dec += 1
+    torch.cuda.empty_cache()
+    xe = torch.randn((DECODE_ROWS_64BIT, DIM), generator=gen, device=dev)
+    lo, hi = xe.min(0).values, xe.max(0).values
+    codes = sq_mod.sq_encode(xe, lo, hi)
+    for r0 in range(0, DECODE_ROWS_64BIT, 2 * SEG_ROWS):
+        if not torch.equal(codes[r0:r0 + 2 * SEG_ROWS],
+                           sq_mod.sq_encode_plain(xe[r0:r0 + 2 * SEG_ROWS], lo, hi)):
+            raise AssertionError(f"sq_encode differs from its plain version at rows {r0}+ of "
+                                 f"{DECODE_ROWS_64BIT} x {DIM}")
+    n_enc += 1
+    del xe, codes
     torch.cuda.empty_cache()
 
     n_sq = 0
@@ -818,8 +879,9 @@ def index_kernel_phase(torch, km_mod, sq_mod, pq_mod, testing, dev, gen) -> dict
         n_pq += 1
     log(f"kernel phase: kmeans_assign {n_assign} cases agree, every score path (rtol, atol "
         f"{tol['l2']}, near-ties exempt, earliest copy wins across tile edges; rows near their "
-        f"centroids within it of float64, largest |err| {json.dumps(near_err)}); sq_encode bit-exact (.5 boundaries, "
-        f"constant column); sq_decode {n_dec} cases bit-exact (n * d up to "
+        f"centroids within it of float64, largest |err| {json.dumps(near_err)}); sq_encode {n_enc} cases "
+        f"bit-exact (.5 boundaries, constant column, odd d, misaligned view, d > 4,096, n * d up to "
+        f"{DECODE_ROWS_64BIT * DIM}); sq_decode {n_dec} cases bit-exact (n * d up to "
         f"{DECODE_ROWS_64BIT * DIM}); sq_l2_topk {n_sq} cases agree; pq_adc_topk {n_pq} cases "
         f"bit-exact; max |err| {err}")
     return err
@@ -1114,16 +1176,22 @@ def index_kernel_times(torch, run, sq_mod, pq_mod, dev, gen, card) -> dict:
         t_b, t_o = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_FLOPS
         return {"bound_ms": max(t_b, t_o) * 1e3, "bound_by": "bytes" if t_b >= t_o else "operations"}
 
-    # sq_encode: segment 5's SQ build (131,072 x 768).
-    x5 = x[5 * SEG_ROWS:6 * SEG_ROWS].contiguous()
-    lo, hi = x5.min(0).values, x5.max(0).values
-    out["sq_encode"] = {
-        "ms": cuda_ms(torch, lambda: sq_mod.sq_encode(x5, lo, hi), 10),
-        "plain_ms": cuda_ms(torch, lambda: sq_mod.sq_encode_plain(x5, lo, hi), 10),
-        "library_ms": None,
-        **bound(5 * SEG_ROWS * DIM + 8 * DIM, 3 * SEG_ROWS * DIM),
-        "shape": f"N={SEG_ROWS} D={DIM}",
-    }
+    # sq_encode: a sealed segment's SQ build (segment 5, 131,072 x 768) and
+    # a bucket index's payload (segments 5 and 6, 262,144 x 768).
+    for rows in ENCODE_ROWS:
+        xe = x[5 * SEG_ROWS:5 * SEG_ROWS + rows].contiguous()
+        lo, hi = xe.min(0).values, xe.max(0).values
+        out["sq_encode" if rows == SEG_ROWS else f"sq_encode N={rows}"] = {
+            "ms": device_ms(torch, lambda: sq_mod.sq_encode(xe, lo, hi), 20),
+            "event_ms": cuda_ms(torch, lambda: sq_mod.sq_encode(xe, lo, hi), 20),
+            "plain_ms": device_ms(torch, lambda: sq_mod.sq_encode_plain(xe, lo, hi), 10),
+            "library_ms": None,
+            # 4 bytes in and 1 out per element, vmin / vmax read once; a
+            # subtract, a divide, a round and a clamp per element
+            **bound(5 * rows * DIM + 8 * DIM, 4 * rows * DIM),
+            "shape": f"N={rows} D={DIM}",
+        }
+        del xe
     sqi = handles[5].index
     decoded = sq_mod.sq_decode_plain(sqi.codes, sqi.vmin, sqi.vmax)
     valid = torch.ones(SEG_ROWS, dtype=torch.bool, device=dev)
@@ -1169,6 +1237,200 @@ def index_kernel_times(torch, run, sq_mod, pq_mod, dev, gen, card) -> dict:
                                                    small_q=sq),
                    DIM, gen, dev)
     return out
+
+
+def index_family_path(torch, mods, run, gen, dev, phases, counts) -> dict:
+    """The rest of the index family on the indexed path's mixture rows: a
+    bucket index over one full sealed segment and HNSW over an HNSW_ROWS
+    slice (``FAMILY``), built by the port's ``IndexNode`` from
+    ``index_build_task`` messages, loaded by one ``QueryNode`` and searched
+    at nq 1 and 100, pinned after the indexed path's 1% deletes.  Every
+    launch counter starts at 0 with the builds."""
+    wal, Metric, GuaranteeTs, AnnsQuery, NodeSearchRequest = (
+        mods["wal"], mods["Metric"], mods["GuaranteeTs"], mods["AnnsQuery"], mods["NodeSearchRequest"]
+    )
+    from repro_torch.core.binlog import write_segment_binlog
+    from repro_torch.core.index_node import IndexNode
+    from repro_torch.core.meta_store import MetaStore
+    from repro_torch.core.object_store import MemoryObjectStore
+    from repro_torch.core.query_node import QueryNode
+    from repro_torch.core.segment import segment_from_columns
+
+    t0 = time.perf_counter()
+    store = MemoryObjectStore()
+    x = run["x"]
+    for name, (_kind, _params, rows) in FAMILY.items():
+        seg = segment_from_columns(
+            {"pk": torch.arange(rows, dtype=torch.int64, device=dev), "vector": x[:rows],
+             "ts": torch.full((rows,), TS_SEALED, dtype=torch.int64, device=dev)},
+            segment_id=0, collection=name, device=dev,
+        )
+        write_segment_binlog(store, seg)
+        del seg
+    torch.cuda.synchronize()
+    phases["family_data_and_binlog_s"] = time.perf_counter() - t0
+
+    counts.reset()
+    t0 = time.perf_counter()
+    broker = wal.LogBroker()
+    broker.create_channel("coord")
+    ticks = Ticks(TS_SEALED + 100)
+    inode = IndexNode("in-f", broker, store, MetaStore(), ticks, device=dev)
+    builds = {}
+    for name, (kind, params, rows) in FAMILY.items():
+        broker.publish("coord", wal.LogEntry(ticks.next(), wal.EntryType.COORD, {
+            "msg": "index_build_task", "collection": name, "segment_id": 0,
+            "index_kind": kind, "metric": "l2", "params": params,
+        }))
+        before = counts.read()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if not inode.step():
+            raise AssertionError(f"the index node did not build {name}")
+        torch.cuda.synchronize()
+        after = counts.read()
+        builds[name] = {
+            "kind": kind, "rows": rows, "s": time.perf_counter() - t1,
+            "launches": {k: after[k] - before[k] for k in after if after[k] > before[k]},
+        }
+        log(f"build {name} {kind} {params} over {rows} x {DIM}: {builds[name]['s']:.3f} s, "
+            f"launches {builds[name]['launches']}")
+    phases["family_index_builds_s"] = time.perf_counter() - t0
+    built = [e.payload for e in broker.read("coord", 0) if e.payload.get("msg") == "index_built"]
+    if sorted(p["collection"] for p in built) != sorted(FAMILY):
+        raise AssertionError("the index node did not announce every index-family build")
+
+    t0 = time.perf_counter()
+    node = QueryNode("qn-f", broker, store, slice_rows=SLICE_ROWS, device=dev)
+    for p in built:
+        node.load_sealed(p["collection"], p["segment_id"])
+        node.load_index(p["collection"], p["segment_id"], p["index_kind"], p["index_key"])
+    torch.cuda.synchronize()
+    phases["family_load_indexes_s"] = time.perf_counter() - t0
+    for name, (kind, _params, rows) in FAMILY.items():
+        h = node.sealed[(name, 0)]
+        if h.index is None or h.index.KIND != kind or h.index.num_rows != rows:
+            raise AssertionError(f"{name}: the query node did not load its {kind} index")
+    pk = run["doomed"].cpu().numpy()
+    for name in FAMILY:
+        broker.publish("coord", wal.LogEntry(TS_DELETE, wal.EntryType.COORD,
+                                             {"msg": "tombstones", "collection": name, "pk": pk}))
+    node.step()
+
+    def request(name, q):
+        return node.search_request(NodeSearchRequest(
+            collection=name, k=K, metric=Metric.L2,
+            guarantee=GuaranteeTs(query_ts=TS_AFTER, staleness_ms=float("inf")),
+            anns=[AnnsQuery("vector", q)],
+        ))[0]
+
+    reps = {1: 10, 100: 3}
+    latency, results, per_request = {}, {}, {}
+    t0 = time.perf_counter()
+    for name in FAMILY:
+        for nq, q in run["queries"].items():
+            times = []
+            for _ in range(reps[nq] + 1):  # first call is the warm-up
+                before = counts.read()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                out = request(name, q)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+            after = counts.read()
+            per_request[f"{name} nq={nq}"] = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+            latency[f"{name} nq={nq} after"] = times
+            results[(name, nq)] = out
+    phases["family_requests_s"] = time.perf_counter() - t0
+    launches = counts.read()
+    # first-level clusterings on the tensor cores, splits byte-bound
+    shapes = counts.read_shapes(launches, "index-family", ("tensor_cores", "byte_bound"))
+    log(f"index-family path launches: {launches}; per request (the last of each): "
+        + json.dumps(per_request))
+    for kname in FAMILY_KERNELS:
+        if launches[kname] <= 0:
+            raise AssertionError(f"{kname} was not launched on the index-family path")
+    return {
+        "x": x, "queries": run["queries"], "doomed": run["doomed"], "node": node,
+        "request": request, "builds": builds, "latency": latency, "results": results,
+        "launches": launches, "shapes": shapes,
+    }
+
+
+def check_family(torch, fam, testing, dev, phases) -> None:
+    """The bucket answers against the float64 oracle over the loaded index
+    (``testing.system_oracle``: probe by a full sort of the centre
+    distances, score every probed slot, each row's best, a stable sort);
+    each HNSW score against the float64 distance of its row; no deleted pk
+    in either; recall@100 against exact brute force over the visible rows,
+    printed, not gated."""
+    t0 = time.perf_counter()
+    rtol, atol = testing.SCORE_TOL["l2"]
+    x, doomed = fam["x"], fam["doomed"]
+    for (name, nq), got in fam["results"].items():
+        q = fam["queries"][nq]
+        kind, _params, rows = FAMILY[name]
+        label = f"{name} nq={nq} after"
+        if got[0].shape != (nq, K) or got[1].dtype != torch.int64:
+            raise AssertionError(f"{label}: malformed result")
+        if torch.isin(got[1], doomed).any():
+            raise AssertionError(f"{label}: a deleted pk was returned")
+        dead = torch.isin(torch.arange(rows, device=dev), doomed)
+        exact = torch.topk(torch.where(dead[None, :], float("inf"), testing.l2_scores(q, x[:rows])),
+                           K, dim=1, largest=False).indices
+        recall = recall_at(got[1], exact)
+        if kind == "bucket":
+            swaps, _by_kind, max_err = check_against_oracle(
+                torch, testing, label, got, [fam["node"]], name, q, TS_AFTER, doomed, None, rtol, atol)
+            msg = f"equals the oracle (rtol={rtol}, atol={atol}; {swaps} near-tie swaps)"
+        else:
+            qi, slot = torch.nonzero(got[1] >= 0, as_tuple=True)
+            want = ((x[got[1][qi, slot]].double() - q[qi].double()) ** 2).sum(1)
+            torch.testing.assert_close(got[0][qi, slot].double(), want, rtol=rtol, atol=atol)
+            max_err = (got[0][qi, slot].double() - want).abs().max().item()
+            msg = (f"every score is its row's float64 distance (rtol={rtol}, atol={atol}); "
+                   f"{int((got[1] < 0).sum())} empty slots after the post-filter")
+        log(f"check {label}: {msg}; max |err| {max_err:.3g} against float64; "
+            f"recall@{K} vs exact brute force {recall:.4f}")
+    phases["family_verify_s"] = time.perf_counter() - t0
+
+
+def bucket_scan_time(torch, fam, q, sq_mod, ops, testing) -> dict:
+    """``sq_l2_topk`` as a bucket search launches it: one query against its
+    probed buckets of the loaded index, one segmented launch, held to the
+    plain version on the same inputs (``testing.assert_scan_close``: pks
+    exact except at near-ties, scores within ``SCORE_TOL``) and timed
+    (device time of queued calls beside the plain version and the bytes
+    bound)."""
+    idx = fam["node"].sealed[("vdb_bucket", 0)].index
+    nprobe = BUCKET_PARAMS["nprobe_buckets"]
+    probes = ops.topk_scan(q, idx.centers, nprobe)[1][0].tolist()
+    off = idx.bucket_offsets.tolist()
+    segs = [idx.storage[off[b]:off[b + 1]] for b in probes]
+    valids = [None] * len(segs)
+    rows = sum(len(c) for c in segs)
+    got = sq_mod.sq_l2_topk_segmented(q, segs, idx.vmin, idx.vmax, valids, K)
+    want = sq_mod.sq_l2_topk_plain_segmented(q, segs, idx.vmin, idx.vmax, valids, K)
+    torch.cuda.synchronize()
+    decoded = [sq_mod.sq_decode_plain(c, idx.vmin, idx.vmax) for c in segs]
+    testing.assert_scan_close(got, want, q, decoded, valids, K, "l2", *testing.SCORE_TOL["l2"])
+    live = torch.isfinite(want[0])
+    row = {
+        "launches": fam["launches"]["sq_l2_topk"],
+        "max_abs_err": (got[0][live] - want[0][live]).abs().max().item(),
+        "ms": device_ms(torch, lambda: sq_mod.sq_l2_topk_segmented(q, segs, idx.vmin, idx.vmax,
+                                                                   valids, K), 50),
+        "plain_ms": device_ms(torch, lambda: sq_mod.sq_l2_topk_plain_segmented(
+            q, segs, idx.vmin, idx.vmax, valids, K), 20),
+        # the codes and vmin / vmax read once, the block of k slots per
+        # bucket written once
+        "bound_ms": (rows * DIM + 8 * DIM + 4 * DIM + 12 * nprobe * K) / PEAK_BYTES_S * 1e3,
+        "bound_by": "bytes", "library_ms": None,
+        "shape": f"nq=1, {nprobe} buckets, {rows} x {DIM} uint8 codes, k={K}",
+    }
+    log("sq_l2_topk at a bucket query, equal to the plain version "
+        f"(rtol, atol {testing.SCORE_TOL['l2']}; pks exact except at near-ties): " + json.dumps(row))
+    return row
 
 
 def facade_path(torch, gen, dev, phases, counts, testing) -> dict:
@@ -1672,31 +1934,50 @@ def assign_bound(n: int, c: int, d: int) -> dict:
                       2 * n * c * d + 2 * (n + c) * d + 3 * n * c)
 
 
-def assign_shape_times(torch, km_mod, shapes: dict, gen, dev) -> dict:
+def assign_shape_times(torch, km_mod, testing, shapes: dict, gen, dev) -> dict:
     """kmeans_assign at every (N, C, D) the paths launched it at, on seeded
-    data of that shape: the kernel's and the plain version's device time
-    (``device_ms``), the kernel's CUDA-event time, the bound, the score path
-    the default threshold takes and the launches.  Logs each row and the sum
-    of launches x (time - bound) over the shapes."""
+    data of that shape: the kernel held to the plain version on the same
+    inputs (``testing.assert_assign_close``, near-ties exempt), the
+    kernel's and the plain version's device time (``device_ms``), the
+    kernel's CUDA-event time, the bound, the score path the default
+    threshold takes and the launches.  Logs each row (shapes under
+    ASSIGN_LOG_WORK as one summary) and the sum of launches x
+    (time - bound) over every shape."""
     rows = {}
     for (n, c, d), launches in sorted(shapes.items(), key=lambda kv: -kv[0][0] * kv[0][1] * kv[0][2]):
         x = torch.randn((n, d), generator=gen, device=dev)
         cent = torch.randn((c, d), generator=gen, device=dev)
+        got = km_mod.kmeans_assign(x, cent)
+        want = km_mod.kmeans_assign_plain(x, cent)
+        torch.cuda.synchronize()
+        testing.assert_assign_close(got, want, x, cent, *testing.SCORE_TOL["l2"])
         reps = 10 if n * c * d > 10**9 else 50
         row = {
             "launches": launches,
             "path": ("tensor cores" if c > km_mod.default_small_c(d)
                      else "narrow rows" if d <= km_mod.NARROW_D else "byte-bound"),
+            "max_abs_err": (got[1] - want[1]).abs().max().item(),
             "ms": device_ms(torch, lambda: km_mod.kmeans_assign(x, cent), reps),
             "event_ms": cuda_ms(torch, lambda: km_mod.kmeans_assign(x, cent), reps),
             "plain_ms": device_ms(torch, lambda: km_mod.kmeans_assign_plain(x, cent), reps),
             "library_ms": None, **assign_bound(n, c, d),
         }
         rows[(n, c, d)] = row
-        log(f"kmeans_assign N={n} C={c} D={d}: " + json.dumps(row))
+        if n * c * d >= ASSIGN_LOG_WORK:
+            log(f"kmeans_assign N={n} C={c} D={d}: " + json.dumps(row))
+    small = {s: r for s, r in rows.items() if s[0] * s[1] * s[2] < ASSIGN_LOG_WORK}
+    if small:
+        log(f"kmeans_assign at {len(small)} shapes under N x C x D = {ASSIGN_LOG_WORK} "
+            f"(N {min(s[0] for s in small)}-{max(s[0] for s in small)}, C "
+            f"{min(s[1] for s in small)}-{max(s[1] for s in small)}): each equals the plain version "
+            f"(largest |err| {max(r['max_abs_err'] for r in small.values()):.3g}); "
+            f"{sum(r['launches'] for r in small.values())} launches, ms "
+            f"{min(r['ms'] for r in small.values()):.6f}-{max(r['ms'] for r in small.values()):.6f}, "
+            f"sum of launches x (ms - bound_ms) "
+            f"{sum(r['launches'] * (r['ms'] - r['bound_ms']) for r in small.values()):.3f} ms")
     loss = sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in rows.values())
     log(f"kmeans_assign: {sum(r['launches'] for r in rows.values())} launches over {len(rows)} "
-        f"shapes; sum of launches x (ms - bound_ms) {loss:.3f} ms")
+        f"shapes, each equal to the plain version; sum of launches x (ms - bound_ms) {loss:.3f} ms")
     return rows
 
 
@@ -2122,8 +2403,26 @@ def main() -> int:
     per = {k: n / run["n_requests"] for k, n in run["launches"].items()}
     log(f"indexed path launches per request (builds and slice indexes included): {per}")
     ivf_latency, ivf_launches, ivf_shapes = run["latency"], run["launches"], run["shapes"]
+    del data, nodes, broker, store, bases, valids, x, results
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------- index-family path
+    fam = index_family_path(torch, mods, run, gen, dev, phases, counts)
+    check_family(torch, fam, testing, dev, phases)
+    t0 = time.perf_counter()
+    for name in FAMILY:
+        for nq in (1, 100):
+            profile_request(torch, lambda: fam["request"](name, run["queries"][nq]),
+                            f"{name} nq={nq} after")
+    phases["family_profile_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bucket_scan = bucket_scan_time(torch, fam, run["queries"][1], sq_mod, ops, testing)
+    max_err["sq_l2_topk"] = max(max_err["sq_l2_topk"], bucket_scan["max_abs_err"])
+    phases["kernel_timing_s"] += time.perf_counter() - t0
+    fam_latency, fam_launches, fam_shapes = fam["latency"], fam["launches"], fam["shapes"]
     # The earlier paths' tables, stores and nodes go before the facade's.
-    del run, data, nodes, broker, store, bases, valids, x, results
+    del run, fam
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2139,24 +2438,30 @@ def main() -> int:
     # launched them at (FLAT builds none and decodes none)
     shapes = {kname: flat_shapes[kname] + ivf_shapes[kname] + fac["shapes"][kname]
               + maint["shapes"][kname] for kname in LaunchCounts.SHAPED}
+    shapes["merge_topk"] += fam_shapes["merge_topk"]
+    shapes["sq_decode"] += fam_shapes["sq_decode"]
+    shapes["kmeans_assign"] += fam_shapes["kmeans_assign"]
     floor_ms = empty_kernel_ms(torch)
     merge_rows = merge_shape_times(torch, merge_mod, shapes["merge_topk"], gen, dev, floor_ms)
     mt = max(merge_rows.values(), key=lambda r: r["launches"])  # the most launched shape
     decode_rows = decode_shape_times(torch, sq_mod, shapes["sq_decode"], gen, dev)
     it["sq_decode"] = decode_rows[(DECODE_CHUNK_ROWS, DIM)]
-    assign_rows = assign_shape_times(torch, km_mod, shapes["kmeans_assign"], gen, dev)
+    assign_rows = assign_shape_times(torch, km_mod, testing, shapes["kmeans_assign"], gen, dev)
+    max_err["kmeans_assign"] = max([max_err["kmeans_assign"]]
+                                   + [r["max_abs_err"] for r in assign_rows.values()])
     it["kmeans_assign"] = assign_rows[(KMEANS_SAMPLE, IVF_PARAMS["nlist"], DIM)]
     assign_crossover(torch, km_mod, gen, dev)
     phases["kernel_timing_s"] += time.perf_counter() - t0
 
-    for key, times in {**latency, **ivf_latency, **fac["latency"], **maint["latency"]}.items():
+    for key, times in {**latency, **ivf_latency, **fam_latency, **fac["latency"],
+                       **maint["latency"]}.items():
         steady = times[1:]
         log(f"request {key}: first {times[0]:.3f} ms, median {statistics.median(steady):.3f} ms "
             f"over {len(steady)} (min {min(steady):.3f}, max {max(steady):.3f})")
     log("phases: " + json.dumps({k: round(v, 3) for k, v in phases.items()}))
 
-    launches = {k: flat_launches[k] + ivf_launches[k] + fac["launches"][k] + maint["launches"][k]
-                for k in KERNEL_NAMES}
+    launches = {k: flat_launches[k] + ivf_launches[k] + fam_launches[k] + fac["launches"][k]
+                + maint["launches"][k] for k in KERNEL_NAMES}
 
     def index_row(kname, key, replaces, source):
         row = it[key]
@@ -2199,6 +2504,11 @@ def main() -> int:
     for kname, rows in (("kmeans_assign", assign_rows), ("merge_topk", merge_rows),
                         ("sq_decode", decode_rows)):
         loss[kname] = sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in rows.values())
+    # sq_l2_topk: the indexed path's launches at its segment (taken at
+    # nq=100), the bucket searches' at a bucket query's probed buckets
+    sq_row = it["sq_l2_topk nq=100"]
+    loss["sq_l2_topk"] = (ivf_launches["sq_l2_topk"] * (sq_row["ms"] - sq_row["bound_ms"])
+                          + fam_launches["sq_l2_topk"] * (bucket_scan["ms"] - bucket_scan["bound_ms"]))
     log("launches x (ms - bound_ms) per kernel: "
         + json.dumps(dict(sorted(loss.items(), key=lambda kv: -kv[1]))))
     print(json.dumps({"kernels": kernels}), flush=True)

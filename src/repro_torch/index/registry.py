@@ -3,29 +3,21 @@
 from __future__ import annotations
 
 from .base import IndexSpec, VectorIndex
+from .bucket import BucketIndex
 from .flat import FlatIndex, SQIndex
+from .hnsw import HNSWIndex
 from .ivf import IVFFlatIndex, IVFPQIndex, IVFSQIndex
 from .pq import OPQIndex, PQIndex
 
 INDEX_KINDS: dict[str, type[VectorIndex]] = {
     cls.KIND: cls
-    for cls in (FlatIndex, SQIndex, PQIndex, OPQIndex, IVFFlatIndex, IVFSQIndex, IVFPQIndex)
-}
-
-#: Kinds the reference builds that the port does not have yet, with the
-#: ROADMAP item that ports them.
-NOT_PORTED = {
-    "hnsw": "Queue 1: the rest of the index family (HNSW)",
-    "bucket": "Queue 1: the rest of the index family (bucket index)",
+    for cls in (FlatIndex, SQIndex, PQIndex, OPQIndex, IVFFlatIndex, IVFSQIndex, IVFPQIndex,
+                HNSWIndex, BucketIndex)
 }
 
 
 def create_index(spec: IndexSpec, device="cuda") -> VectorIndex:
     cls = INDEX_KINDS.get(spec.kind)
     if cls is None:
-        if spec.kind in NOT_PORTED:
-            raise NotImplementedError(
-                f"index kind '{spec.kind}' is not ported yet: ROADMAP {NOT_PORTED[spec.kind]}"
-            )
         raise KeyError(f"unknown index kind '{spec.kind}'; have {sorted(INDEX_KINDS)}")
     return cls(metric=spec.metric, device=device, **spec.normalized_params())

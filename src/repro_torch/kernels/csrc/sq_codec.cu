@@ -3,13 +3,23 @@
 //
 // sq_encode replaces src/repro/kernels/sq_codec.py:sq_encode_pallas (body
 // _encode_kernel): code = clip(round((x - vmin) / scale), 0, 255) per
-// element, with scale = max(vmax - vmin, 1e-12) / 255 passed in by the
-// wrapper (one definition, ops.sq_scale).  The division is IEEE
-// (__fdiv_rn, never a reciprocal multiply) and rintf rounds half to even,
-// as np.round and jnp.round do, so codes are bit-exact against the host.
-// What bounds it: bytes, 4 in and 1 out per element (0.50 GB for a
-// 131,072 x 768 segment: 0.15 ms at 3.35 TB/s).  A grid-stride loop with
-// one element per thread and step.
+// element, with scale = max(vmax - vmin, 1e-12) / 255 computed in the
+// kernel from vmin / vmax with ops.sq_scale's expression and roundings
+// (sq_scale_of), so a call is one launch.  The division is IEEE
+// (__fdiv_rn, never a reciprocal multiply), x - vmin is __fsub_rn and the
+// conversion rounds half to even, as np.round and jnp.round do, so codes
+// are bit-exact against the host.  What bounds it: bytes, 4 in and 1 out per
+// element (0.50 GB for a 131,072 x 768 segment: 0.150 ms at 3.35 TB/s; 1.01
+// GB for a bucket index's 262,144 x 768 payload: 0.300 ms); the ~1e8 IEEE
+// divisions of a segment take far less.  Where d % 4 == 0 (and d <= 4096,
+// x 16-byte and the codes 4-byte aligned) a thread encodes 4 elements of
+// one row per step from one streaming float4 load (__ldcs: x is read once)
+// into one 4-byte store, so a warp loads 512 contiguous bytes and stores
+// 128; scale and vmin sit in shared memory, the column advances by the
+// grid stride's, mod d, with no division in the loop, and the grid is one
+// wave of resident blocks.  Otherwise one
+// element per thread and step, the column tracked the same way.  Indices
+// are 64-bit: n * d passes 2^31 above ~2.8M rows at d = 768.
 //
 // sq_decode replaces src/repro/kernels/sq_codec.py:sq_decode_pallas (body
 // _decode_kernel): out = code * scale[c] + vmin[c] in f32 per element.
@@ -43,17 +53,6 @@
 
 namespace {
 
-__global__ void sq_encode_kernel(const float* __restrict__ x, const float* __restrict__ vmin,
-                                 const float* __restrict__ scale,
-                                 unsigned char* __restrict__ out, long long n_elem, int d) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n_elem; i += stride) {
-    const int c = (int)(i % d);
-    const float v = rintf(__fdiv_rn(__fsub_rn(x[i], vmin[c]), scale[c]));
-    out[i] = (unsigned char)fminf(fmaxf(v, 0.f), 255.f);
-  }
-}
-
 __device__ __forceinline__ float sq_decode_one(unsigned int code, float scale, float vmin) {
   return __fadd_rn(__fmul_rn((float)code, scale), vmin);
 }
@@ -64,13 +63,95 @@ __device__ __forceinline__ float sq_scale_of(float vmax, float vmin) {
   return __fdiv_rn(fmaxf(__fsub_rn(vmax, vmin), 1e-12f), 255.f);
 }
 
-// Widest row whose scale | vmin the vec4 decoder stages in shared memory
-// (32 KB); wider rows take the scalar decoder.
-constexpr int kDecodeStageD = 4096;
+// rint, then clip to [0, 255]: one conversion that rounds half to even and
+// saturates below 0 (cvt.rni.u32.f32; NaN -> 0, as fmaxf(NaN, 0) gives),
+// and a min.
+__device__ __forceinline__ unsigned int sq_encode_one(float x, float scale, float vmin) {
+  return min(__float2uint_rn(__fdiv_rn(__fsub_rn(x, vmin), scale)), 255u);
+}
+
+// Widest row whose scale | vmin the vec4 encoder and decoder stage in shared
+// memory (32 KB); wider rows take the scalar kernels.
+constexpr int kStageD = 4096;
+constexpr int kEncodeThreads = 256;
+constexpr int kEncodeUnroll = 4;
+// Blocks per SM of the 4-element path's grid: one wave of resident blocks
+// (the kernel's registers leave room for 5 blocks of 256 threads, so a grid
+// of 8 per SM ran in two waves).  Measured against 5 and 8 on an NVIDIA
+// H100 80GB HBM3 at 700 W: 4 is fastest at 131,072 and 262,144 x 768
+// (chip_smoke.py's sq_encode rows).
+constexpr int kEncodeBlocksPerSm = 4;
+
+// d % 4 == 0, x 16-byte and codes 4-byte aligned, d <= kStageD:
+// element group t (one float4 of x, 4 codes, never straddling a row) per
+// thread and step.  Each block computes the row's scale and stages it with
+// vmin in shared memory once; the group's column advances by the grid
+// stride's, mod d.  kEncodeUnroll loads are in flight per thread before
+// the first store; stores stream (__stcs), as the loads do.
+__global__ void __launch_bounds__(kEncodeThreads)
+sq_encode_vec4_kernel(const float4* __restrict__ x, const float* __restrict__ vmin,
+                      const float* __restrict__ vmax, unsigned int* __restrict__ out,
+                      long long n_groups, int d) {
+  extern __shared__ __align__(16) float par[];  // scale [d] | vmin [d]
+  for (int c = threadIdx.x; c < d; c += kEncodeThreads) {
+    const float mn = vmin[c];
+    par[c] = sq_scale_of(vmax[c], mn);
+    par[d + c] = mn;
+  }
+  __syncthreads();
+  const long long stride = (long long)gridDim.x * kEncodeThreads;
+  const int step_c = (int)((4 * stride) % d);
+  long long t = (long long)blockIdx.x * kEncodeThreads + threadIdx.x;
+  int c = (int)((4 * t) % d);
+  for (; t < n_groups; t += kEncodeUnroll * stride) {
+    float4 v[kEncodeUnroll];
+    int cs[kEncodeUnroll];
+#pragma unroll
+    for (int u = 0; u < kEncodeUnroll; ++u) {
+      const long long g = t + u * stride;
+      v[u] = g < n_groups ? __ldcs(x + g) : make_float4(0.f, 0.f, 0.f, 0.f);
+      cs[u] = c;
+      c += step_c;
+      if (c >= d) c -= d;
+    }
+#pragma unroll
+    for (int u = 0; u < kEncodeUnroll; ++u) {
+      const long long g = t + u * stride;
+      if (g < n_groups) {
+        const float4 sc = *reinterpret_cast<const float4*>(par + cs[u]);
+        const float4 mn = *reinterpret_cast<const float4*>(par + d + cs[u]);
+        __stcs(out + g, sq_encode_one(v[u].x, sc.x, mn.x) |
+                            (sq_encode_one(v[u].y, sc.y, mn.y) << 8) |
+                            (sq_encode_one(v[u].z, sc.z, mn.z) << 16) |
+                            (sq_encode_one(v[u].w, sc.w, mn.w) << 24));
+      }
+    }
+  }
+}
+
+// Any d and alignment: one element per thread and step, the column's scale
+// computed from vmin / vmax in global memory; the column advances by the
+// grid stride's, mod d, with no division in the loop.
+__global__ void __launch_bounds__(kEncodeThreads)
+sq_encode_kernel(const float* __restrict__ x, const float* __restrict__ vmin,
+                 const float* __restrict__ vmax, unsigned char* __restrict__ out,
+                 long long n_elem, int d) {
+  const long long stride = (long long)gridDim.x * kEncodeThreads;
+  const int step_c = (int)(stride % d);
+  long long i = (long long)blockIdx.x * kEncodeThreads + threadIdx.x;
+  int c = (int)(i % d);
+  for (; i < n_elem; i += stride) {
+    const float mn = __ldg(vmin + c);
+    out[i] = (unsigned char)sq_encode_one(__ldcs(x + i), sq_scale_of(__ldg(vmax + c), mn), mn);
+    c += step_c;
+    if (c >= d) c -= d;
+  }
+}
+
 constexpr int kDecodeThreads = 256;
 constexpr int kDecodeUnroll = 4;
 
-// d % 4 == 0, codes 4-byte and out 16-byte aligned, d <= kDecodeStageD:
+// d % 4 == 0, codes 4-byte and out 16-byte aligned, d <= kStageD:
 // element group t (4 codes, one float4 of output, never straddling a row)
 // per thread and step, so a warp loads 128 contiguous bytes of codes and
 // stores 512 contiguous bytes.  Each block computes the row's scale and
@@ -268,16 +349,37 @@ struct SQRows {
 
 }  // namespace
 
-// x [n, d] f32, vmin / scale [d] f32 -> codes [n, d] uint8.  Returns the
-// CUDA error code of the launch.
-extern "C" int repro_sq_encode(const float* x, const float* vmin, const float* scale,
+static int sm_count() {
+  static const int sms = [] {
+    int dev = 0, count = 132;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    return count;
+  }();
+  return sms;
+}
+
+// x [n, d] f32, vmin / vmax [d] f32 -> codes [n, d] uint8, one launch (the
+// scale is computed in the kernel).  Returns the CUDA error code of the
+// launch.
+extern "C" int repro_sq_encode(const float* x, const float* vmin, const float* vmax,
                                unsigned char* out, long long n, int d, cudaStream_t stream) {
   const long long n_elem = n * (long long)d;
   if (n_elem <= 0) return 0;
-  const int threads = 256;
-  long long blocks = (n_elem + threads - 1) / threads;
-  if (blocks > 132 * 64) blocks = 132 * 64;
-  sq_encode_kernel<<<(unsigned int)blocks, threads, 0, stream>>>(x, vmin, scale, out, n_elem, d);
+  const bool vec = d % 4 == 0 && d <= kStageD && (unsigned long long)x % 16 == 0 &&
+                   (unsigned long long)out % 4 == 0;
+  const long long work = vec ? n_elem / 4 : n_elem;
+  long long blocks = (work + kEncodeThreads - 1) / kEncodeThreads;
+  const long long max_blocks = (long long)sm_count() * (vec ? kEncodeBlocksPerSm : 8);
+  if (blocks > max_blocks) blocks = max_blocks;
+  if (vec) {
+    sq_encode_vec4_kernel<<<(unsigned int)blocks, kEncodeThreads, 2 * sizeof(float) * d, stream>>>(
+        reinterpret_cast<const float4*>(x), vmin, vmax, reinterpret_cast<unsigned int*>(out), work,
+        d);
+  } else {
+    sq_encode_kernel<<<(unsigned int)blocks, kEncodeThreads, 0, stream>>>(x, vmin, vmax, out,
+                                                                         n_elem, d);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -288,13 +390,8 @@ extern "C" int repro_sq_decode(const unsigned char* codes, const float* vmin, co
                                float* out, long long n, int d, cudaStream_t stream) {
   const long long n_elem = n * (long long)d;
   if (n_elem <= 0) return 0;
-  static const int sms = [] {
-    int dev = 0, count = 132;
-    if (cudaGetDevice(&dev) == cudaSuccess)
-      cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    return count;
-  }();
-  const bool vec = d % 4 == 0 && d <= kDecodeStageD && (unsigned long long)codes % 4 == 0 &&
+  const int sms = sm_count();
+  const bool vec = d % 4 == 0 && d <= kStageD && (unsigned long long)codes % 4 == 0 &&
                    (unsigned long long)out % 16 == 0;
   const long long work = vec ? n_elem / 4 : n_elem;
   long long blocks = (work + kDecodeThreads - 1) / kDecodeThreads;

@@ -40,6 +40,7 @@ __all__ = [
     "sq_encode",
     "sq_decode",
     "sq_topk_scan",
+    "sq_topk_scan_segmented",
     "shard_split",
     "normalized_similarity",
     "hybrid_fuse",
@@ -203,6 +204,18 @@ def sq_topk_scan(queries, codes, vmin, vmax, k: int, metric: str = "l2", valid=N
         codes = codes.to(torch.uint8)
     return _sq_mod.sq_l2_topk(
         queries.contiguous(), codes.contiguous(), vmin, vmax, valid, k, metric
+    )
+
+
+def sq_topk_scan_segmented(queries, codes, vmin, vmax, k: int, metric: str = "l2", valids=None):
+    """``topk_scan_segmented`` over SQ code segments that share ``vmin`` /
+    ``vmax`` (one launch on the card): block ``[:, s*k:(s+1)*k]`` equals
+    ``sq_topk_scan(queries, codes[s], vmin, vmax, k, metric, valids[s])``."""
+    codes = [c if c.dtype == torch.uint8 else c.to(torch.uint8) for c in codes]
+    if valids is None:
+        valids = [None] * len(codes)
+    return _sq_mod.sq_l2_topk_segmented(
+        queries.contiguous(), [c.contiguous() for c in codes], vmin, vmax, list(valids), k, metric
     )
 
 

@@ -68,13 +68,13 @@ def _kernels():
 
 def sq_scale(vmin, vmax) -> torch.Tensor:
     """The codec's per-dimension quantization step,
-    ``max(vmax - vmin, 1e-12) / 255`` in float32, which the encode kernel
-    takes from here.  The decode kernel and the fused scan compute the same
-    expression, with the same roundings, in CUDA (``sq_scale_of`` in
-    ``csrc/sq_codec.cu``), so that a call costs no launch for it.  The
-    divisor is a tensor: PyTorch on CUDA multiplies by the reciprocal of a
-    Python-number divisor, which rounds differently from the IEEE division
-    of the reference (numpy) and of the kernels."""
+    ``max(vmax - vmin, 1e-12) / 255`` in float32, for the plain versions
+    and the host paths.  The encode and decode kernels and the fused scan
+    compute the same expression, with the same roundings, in CUDA
+    (``sq_scale_of`` in ``csrc/sq_codec.cu``), so that a call costs no
+    launch for it.  The divisor is a tensor: PyTorch on CUDA multiplies by
+    the reciprocal of a Python-number divisor, which rounds differently
+    from the IEEE division of the reference (numpy) and of the kernels."""
     span = torch.clamp_min(vmax.to(torch.float32) - vmin.to(torch.float32), 1e-12)
     return span / span.new_full((), 255.0)
 
@@ -88,7 +88,9 @@ def _check_range(name: str, x, vmin, vmax) -> None:
 
 def sq_encode(x, vmin, vmax) -> torch.Tensor:
     """``x`` [n, D] float32 -> uint8 codes ``clip(round((x - vmin) /
-    scale), 0, 255)``, rounding half to even."""
+    scale), 0, 255)``, rounding half to even; bit-exact against
+    :func:`sq_encode_plain`.  On the card one launch: the kernel computes
+    the scale from ``vmin`` / ``vmax``."""
     if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("sq_encode: x must be a contiguous [n, D] float32 tensor")
     _check_range("sq_encode", x, vmin, vmax)
@@ -100,10 +102,9 @@ def sq_encode(x, vmin, vmax) -> torch.Tensor:
     out = torch.empty((n, d), dtype=torch.uint8, device=x.device)
     if n == 0 or d == 0:
         return out
-    vmin_c = vmin.contiguous()
-    scale = sq_scale(vmin, vmax).contiguous()
+    vmin_c, vmax_c = vmin.contiguous(), vmax.contiguous()
     rc = _kernels()["encode"](
-        x.data_ptr(), vmin_c.data_ptr(), scale.data_ptr(), out.data_ptr(), n, d,
+        x.data_ptr(), vmin_c.data_ptr(), vmax_c.data_ptr(), out.data_ptr(), n, d,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if rc != 0:
@@ -166,52 +167,67 @@ def sq_l2_topk(queries, codes, vmin, vmax, valid, k: int, metric: str = "l2", *,
     ascending L2 distance or descending inner product; slots past the valid
     rows carry (+inf L2 / -inf IP, -1) and ``|score| >= 1e38`` has index -1.
     ``small_q`` as in :func:`~repro_torch.kernels.l2_topk.l2_topk`."""
+    return sq_l2_topk_segmented(queries, [codes], vmin, vmax, [valid], k, metric,
+                                small_q=small_q)
+
+
+def sq_l2_topk_segmented(queries, codes, vmin, vmax, valids, k: int, metric: str = "l2", *,
+                         small_q: int | None = None):
+    """:func:`sq_l2_topk` over a list of code segments that share ``vmin`` /
+    ``vmax``, in one launch: ``(vals [nq, S*k], idx [nq, S*k])``, block
+    ``[:, s*k:(s+1)*k]`` segment ``s``'s answer with row indices local to
+    it.  Each block equals that segment's own :func:`sq_l2_topk` bit for
+    bit: a row's score depends on the row and the queries alone, and each
+    segment is selected apart."""
     if metric not in ("l2", "ip"):
         raise ValueError(f"sq_l2_topk: unknown metric {metric!r}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"sq_l2_topk: k={k} outside [1, {MAX_K}]")
     if queries.dim() != 2 or queries.dtype != torch.float32 or not queries.is_contiguous():
         raise ValueError("sq_l2_topk: queries must be a contiguous [nq, D] float32 tensor")
+    if len(valids) != len(codes):
+        raise ValueError("sq_l2_topk: one valid mask (or None) per segment")
     d = queries.shape[1]
-    if (
-        codes.dim() != 2 or codes.shape[1] != d or codes.dtype != torch.uint8
-        or not codes.is_contiguous() or codes.device != queries.device
-    ):
-        raise ValueError(f"sq_l2_topk: codes must be a contiguous [n, {d}] uint8 tensor")
-    if codes.shape[0] >= 2**31:
-        raise ValueError("sq_l2_topk: at most 2**31 - 1 rows")
-    _check_range("sq_l2_topk", codes, vmin, vmax)
-    if valid is not None and (
-        valid.dtype != torch.bool or valid.shape != (codes.shape[0],)
-        or not valid.is_contiguous() or valid.device != queries.device
-    ):
-        raise ValueError("sq_l2_topk: valid must be a contiguous [n] bool tensor")
+    for c, valid in zip(codes, valids):
+        if (
+            c.dim() != 2 or c.shape[1] != d or c.dtype != torch.uint8
+            or not c.is_contiguous() or c.device != queries.device
+        ):
+            raise ValueError(f"sq_l2_topk: codes must be a contiguous [n, {d}] uint8 tensor")
+        if c.shape[0] >= 2**31:
+            raise ValueError("sq_l2_topk: at most 2**31 - 1 rows")
+        if valid is not None and (
+            valid.dtype != torch.bool or valid.shape != (c.shape[0],)
+            or not valid.is_contiguous() or valid.device != queries.device
+        ):
+            raise ValueError("sq_l2_topk: valid must be a contiguous [n] bool tensor")
+    _check_range("sq_l2_topk", queries, vmin, vmax)
     if queries.device.type == "cpu":
-        return sq_l2_topk_plain(queries, codes, vmin, vmax, valid, k, metric)
+        return sq_l2_topk_plain_segmented(queries, codes, vmin, vmax, valids, k, metric)
     if queries.device.type != "cuda":
         raise ValueError(f"sq_l2_topk: unsupported device {queries.device}")
-    nq = queries.shape[0]
+    nq, n_seg = queries.shape[0], len(codes)
     dev = queries.device
-    if nq == 0:
+    if nq == 0 or n_seg == 0:
         fill = float("inf") if metric == "l2" else float("-inf")
         return (
-            torch.full((0, k), fill, dtype=torch.float32, device=dev),
-            torch.full((0, k), -1, dtype=torch.int64, device=dev),
+            torch.full((nq, n_seg * k), fill, dtype=torch.float32, device=dev),
+            torch.full((nq, n_seg * k), -1, dtype=torch.int64, device=dev),
         )
     if nq > _MAX_GRID_Y:
         raise ValueError(f"sq_l2_topk: at most {_MAX_GRID_Y} queries per call, got {nq}")
     fns = _kernels()
     small_q = small_q_arg("sq_l2_topk", small_q, fns["small_q"], fns["small_q_max"])
-    table, geo = segment_table([codes], [valid], fns["tile_rows"], fns["chunk_rows"], dev)
+    table, geo = segment_table(codes, valids, fns["tile_rows"], fns["chunk_rows"], dev)
     vmin_c, vmax_c = vmin.contiguous(), vmax.contiguous()
     ld = max(geo["rows"], 1)
     scores = torch.empty((nq, ld), dtype=torch.float32, device=dev)
     cand = candidate_buffer(nq, geo, k, dev)
-    out_v = torch.empty((nq, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((nq, k), dtype=torch.int64, device=dev)
+    out_v = torch.empty((nq, n_seg * k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, n_seg * k), dtype=torch.int64, device=dev)
     rc = fns["scan"](
-        queries.data_ptr(), nq, d, table.data_ptr(), 1, geo["tiles"], geo["rows"],
-        pointer_align([queries]), pointer_align([codes]), pointer_align([vmin_c, vmax_c]),
+        queries.data_ptr(), nq, d, table.data_ptr(), n_seg, geo["tiles"], geo["rows"],
+        pointer_align([queries]), pointer_align(codes), pointer_align([vmin_c, vmax_c]),
         small_q, vmin_c.data_ptr(), vmax_c.data_ptr(),
         scores.data_ptr(), ld, k, int(metric == "ip"), geo["chunks"], int(geo["multi_chunk"]),
         cand.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
@@ -229,4 +245,10 @@ sq_l2_topk.launches = 0
 def sq_l2_topk_plain(queries, codes, vmin, vmax, valid, k: int, metric: str = "l2"):
     """Plain PyTorch version of :func:`sq_l2_topk`: decode, then the plain
     brute-force scan."""
-    return l2_topk_plain(queries, [sq_decode_plain(codes, vmin, vmax)], [valid], k, metric)
+    return sq_l2_topk_plain_segmented(queries, [codes], vmin, vmax, [valid], k, metric)
+
+
+def sq_l2_topk_plain_segmented(queries, codes, vmin, vmax, valids, k: int, metric: str = "l2"):
+    """Plain PyTorch version of :func:`sq_l2_topk_segmented`."""
+    decoded = [sq_decode_plain(c, vmin, vmax) for c in codes]
+    return l2_topk_plain(queries, decoded, list(valids), k, metric)

@@ -428,7 +428,8 @@ def oracle_unit(index, q, valid) -> torch.Tensor:
     """[nq, n] float64 L2 scores of one loaded index over its own rows
     (original order), +inf where the index does not score the row for that
     query: the probed lists' rows for IVF (probe by a full stable sort of
-    the centroid distances), every valid row otherwise.  float64 makes these
+    the centroid distances), the probed buckets' rows for the bucket index,
+    every valid row otherwise.  float64 makes these
     the exact values of the index's semantics (SQ rows decode in float32,
     as the index defines them), which the port's float32 answers are held
     to within ``SCORE_TOL``."""
@@ -441,6 +442,10 @@ def oracle_unit(index, q, valid) -> torch.Tensor:
         s = l2_scores(q, sq_decoded(index.codes, index.vmin, index.vmax).double())
     elif kind == "pq":
         s = lut_sums(lut_tables(q, index.codebooks.double()), index.codes)
+    elif kind == "bucket":
+        s = _bucket_scores(index, q)
+    elif kind not in ("ivf_flat", "ivf_sq", "ivf_pq"):
+        raise ValueError(f"no oracle for index kind {kind!r}")
     else:
         c = index.centroids.double()
         nprobe = min(int(index.params["nprobe"]), len(c))
@@ -469,6 +474,24 @@ def oracle_unit(index, q, valid) -> torch.Tensor:
         unperm[:, index.row_ids] = s
         s = unperm
     return torch.where(valid[None, :], s, inf)
+
+
+def _bucket_scores(index, q) -> torch.Tensor:
+    """A bucket index's [nq, num_rows] float64 scores: probe by a full
+    stable sort of the centre distances, score every probed slot (SQ slots
+    decode in float32, as the index defines them), keep each row's best."""
+    c = index.centers.double()
+    nprobe = min(int(index.params["nprobe_buckets"]), len(c))
+    probes = torch.sort(l2_scores(q, c), dim=1, stable=True).indices[:, :nprobe]
+    probed = torch.zeros((len(q), len(c)), dtype=torch.bool, device=q.device)
+    probed.scatter_(1, probes, True)
+    counts = (index.bucket_offsets[1:] - index.bucket_offsets[:-1]).to(q.device)
+    slot_bucket = torch.repeat_interleave(torch.arange(len(c), device=q.device), counts)
+    rows = (sq_decoded(index.storage, index.vmin, index.vmax) if index.compress
+            else index.storage)
+    slots = torch.where(probed[:, slot_bucket], l2_scores(q, rows.double()), float("inf"))
+    s = torch.full((len(q), index.num_rows), float("inf"), dtype=torch.float64, device=q.device)
+    return s.scatter_reduce(1, index.bucket_rows.expand(len(q), -1), slots, "amin")
 
 
 #: The filtered planner's brute rule (``core/query_node.py``): a unit whose

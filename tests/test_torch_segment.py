@@ -114,8 +114,13 @@ def test_device_guard_and_registry():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Segment(1, "c", 0, 4)
-    with pytest.raises(NotImplementedError, match="Queue 1: the rest of the index family"):
-        create_index(IndexSpec("hnsw"), device="cpu")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((300, 8)).astype(np.float32))
+    for kind in ("hnsw", "bucket"):
+        idx = create_index(IndexSpec(kind), device="cpu")
+        idx.build(x)
+        assert idx.KIND == kind and idx.num_rows == 300
+        _s, i = idx.search(x[:2], 3)
+        assert i[:, 0].tolist() == [0, 1]
     with pytest.raises(KeyError):
         create_index(IndexSpec("no_such_kind"), device="cpu")
     with pytest.raises(TypeError):
