@@ -52,7 +52,7 @@
    bucket index (the reference's defaults: 96-row target, 128-row buckets,
    replicas 2, nprobe 8, SQ payload) over one full 131,072-row sealed
    segment and HNSW (m 16, ef_construction 100, ef_search 64) over a
-   4,096-row slice (its graph build is the reference's host numpy code),
+   1,024-row slice (its graph build is the reference's host numpy code),
    built by the port's ``IndexNode``, loaded by one ``QueryNode`` and
    searched at nq 1 and 100 pinned after the deletes.  The bucket answers
    must equal the float64 oracle over the loaded index (probe by a full
@@ -89,7 +89,28 @@
    the compaction, rebuild, GC, restore and recovery seconds, the request
    medians, launches per request, profiled requests and device memory
    around the restart.
-8. Each path runs with every launch counter at 0 and fails unless each of
+8. Embedder path (``examples/serve_embedder.py``'s flow): yi-9b at its
+   published widths (48 layers, d_model 4,096, 8.8 B bf16 parameters drawn
+   from --seed on the card) as the port's ``Embedder`` (mean-pooled,
+   L2-normalized final hidden states) feeding a threaded ``ManuSystem``
+   (2 query nodes, 4,096-row seals; an IP collection of d 4,096 under
+   IVF-FLAT, nlist 128 / nprobe 8): 8,192 documents of 128 tokens embedded
+   32 at a time and inserted, flush; then a stream of fresh 32-token
+   documents large enough that every shard seals a segment, and 20 request
+   batches (8 fresh documents inserted, 16 queries of 32 tokens embedded
+   and searched at staleness 200 ms, top 5) and 20 at nq 100, served while
+   those segments seal and build their indexes.  Every embedding must be
+   finite and unit-norm and equal, within EMBED_BATCH_TOL, to the same
+   document's embedded alone; no BOUNDED answer may name a pk never
+   inserted; request batches must be served while an index builds; after
+   ``wait_idle()`` STRONG answers must equal a cooperative system's fed
+   the same embeddings in the same order; ``stop_threads()`` must leave no
+   thread.  Prints the model's init time, embed tokens/s and
+   TFLOP/s beside the bf16 peak, ingest rows/s, the flush time, request
+   medians split into embed and search, peak device memory, profiles and
+   topic-match@1 (not gated); ``l2_topk`` at d 4,096 is checked and timed
+   at every shape the path launched it at.
+9. Each path runs with every launch counter at 0 and fails unless each of
    its kernels was launched; ``kmeans_assign``'s launches are also counted
    per (N, C, D), ``merge_topk``'s per (nq, M, k) and ``sq_decode``'s per
    (n, d), each adding up to the wrapper's count, and the three kernels are
@@ -114,6 +135,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 import weakref
@@ -201,11 +223,13 @@ MAINTENANCE_KERNELS = FACADE_KERNELS
 # Index-family path: the reference's defaults for the bucket index (on one
 # full sealed segment: its payload holds every row twice, 262,144 x 768
 # codes) and for HNSW, whose graph build is the reference's host numpy
-# code (~10-30 ms per inserted row at d 768), so it runs on an HNSW_ROWS
-# slice.  Collection -> (index kind, build params, rows).
+# code (~37 ms per inserted row at d 768 on the chip machine's host), so it
+# runs on an HNSW_ROWS slice: 1,024 rows, ~38 s of build where 4,096 took
+# 151 s of the script's 1,200 s limit.  Collection -> (index kind, build
+# params, rows).
 BUCKET_PARAMS = {"target_bucket_rows": 96, "replicas": 2, "nprobe_buckets": 8, "compress": True}
 HNSW_PARAMS = {"m": 16, "ef_construction": 100, "ef_search": 64}
-HNSW_ROWS = 4_096
+HNSW_ROWS = 1_024
 FAMILY = {"vdb_bucket": ("bucket", BUCKET_PARAMS, SEG_ROWS), "vdb_hnsw": ("hnsw", HNSW_PARAMS, HNSW_ROWS)}
 FAMILY_KERNELS = ("l2_topk", "merge_topk", "kmeans_assign", "sq_encode", "sq_l2_topk")
 # The bucket build's hierarchical k-means splits every cluster above 128
@@ -219,6 +243,38 @@ ENCODE_ROWS = (SEG_ROWS, 2 * SEG_ROWS)
 KERNEL_NAMES = (
     "l2_topk", "merge_topk", "kmeans_assign", "sq_encode", "sq_decode", "sq_l2_topk", "pq_adc_topk",
 )
+# Embedder cell: examples/serve_embedder.py's flow at yi-9b's published
+# widths (arXiv:2403.04652; all 48 layers, d_model 4,096, 32 / 4 heads,
+# d_ff 11,008, vocabulary 64,000; 8.8 B bf16 parameters drawn from --seed on
+# the card).  EMBED_DOCS topic-biased documents of EMBED_DOC_TOKENS tokens
+# embedded EMBED_BATCH at a time and inserted EMBED_INGEST_CHUNK at a time
+# into a threaded ManuSystem (2 query nodes, 4,096-row seals) holding an IP
+# collection of d 4,096 under IVF-FLAT at Milvus's defaults; then a stream
+# of fresh documents of EMBED_QUERY_TOKENS tokens (the example's document
+# length; embedded EMBED_STREAM_BATCH at a time, as many tokens per forward
+# as the corpus) just large enough that every shard's growing segment
+# reaches seal_rows, so seals and index builds run while EMBED_REQUESTS
+# request batches of EMBED_FRESH fresh documents inserted and EMBED_NQ
+# queries of EMBED_QUERY_TOKENS tokens searched at EMBED_STALENESS_MS, and
+# EMBED_BIG_REQUESTS more at nq EMBED_BIG_NQ, are served; top EMBED_K, the
+# example's limit.
+EMBED_ARCH = "yi-9b"
+EMBED_DOCS, EMBED_DOC_TOKENS, EMBED_QUERY_TOKENS, EMBED_TOPICS = 8_192, 128, 32, 16
+EMBED_BATCH, EMBED_INGEST_CHUNK, EMBED_STREAM_BATCH = 32, 1_024, 128
+EMBED_REQUESTS, EMBED_NQ, EMBED_FRESH = 20, 16, 8
+EMBED_BIG_REQUESTS, EMBED_BIG_NQ = 20, 100
+EMBED_STALENESS_MS, EMBED_K = 200.0, 5
+EMBED_CONFIG = dict(num_query_nodes=2, seal_rows=4_096)
+EMBED_KERNELS = ("l2_topk", "merge_topk", "kmeans_assign")
+# An embedding is unit-norm within EMBED_NORM_TOL (float32 normalization of
+# 4,096 components), and a document's embedding in a batch of EMBED_BATCH is
+# within EMBED_BATCH_TOL (L2) of its embedding alone: the two batches run
+# other matmul tilings, whose bf16 roundings differ through 48 layers.
+EMBED_NORM_TOL, EMBED_BATCH_TOL = 1e-4, 0.05
+# Dense bf16 peak of one H100 SXM at 700 W (NVIDIA data sheet).
+PEAK_BF16_FLOPS = 989e12
+# Matmul kernels by name in a profile: cuBLAS / cuBLASLt / CUTLASS.
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
 
 
 def log(msg: str) -> None:
@@ -288,6 +344,8 @@ def profile_request(torch, fn, label: str):
         result = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+    from torch.autograd import DeviceType
+
     events = prof.key_averages()
     launches = sum(e.count for e in events if "LaunchKernel" in e.key)
     syncs = sum(e.count for e in events if "Synchronize" in e.key)
@@ -295,15 +353,20 @@ def profile_request(torch, fn, label: str):
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    busy_ms = sum(dev_us(e) for e in events) / 1e3
-    top_dev = sorted(events, key=dev_us, reverse=True)[:6]
+    # Kernel records only: a PyTorch op's record carries its kernels' device
+    # time too, so summing every record counts a torch op's kernels twice.
+    kernels = [e for e in events if getattr(e, "device_type", None) == DeviceType.CUDA]
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    top_dev = sorted(kernels, key=dev_us, reverse=True)[:6]
     top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]
     if busy_ms == 0:
         log(f"profile {label}: wall {wall_ms:.3f} ms, the profiler recorded no device time")
         return result
+    gemm_ms = sum(dev_us(e) for e in kernels if any(g in e.key.lower() for g in GEMM_NAMES)) / 1e3
     log(f"profile {label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
         f"(idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}); {launches} kernel launches, "
-        f"{syncs} host-device syncs")
+        f"{syncs} host-device syncs; matmul kernels {gemm_ms:.3f} ms "
+        f"({gemm_ms / busy_ms:.3f} of busy)")
     log("  device: " + "; ".join(f"{e.key[:60]} x{e.count} {dev_us(e) / 1e3:.3f} ms" for e in top_dev))
     log("  host: " + "; ".join(
         f"{e.key[:40]} x{e.count} {e.self_cpu_time_total / 1e3:.3f} ms" for e in top_cpu
@@ -1925,6 +1988,342 @@ def maintenance_path(torch, fac, gen, dev, phases, counts, testing) -> dict:
     return out
 
 
+def synth_docs(rng, n: int, seq_len: int, vocab: int, n_topics: int = EMBED_TOPICS):
+    """``examples/serve_embedder.py``'s topic-biased documents: each draws
+    its tokens uniformly from its topic's slice of the vocabulary, so
+    documents of one topic share a token distribution."""
+    topics = rng.integers(0, n_topics, n)
+    lo, hi = (topics * vocab) // n_topics, ((topics + 1) * vocab) // n_topics
+    return rng.integers(lo[:, None], hi[:, None], (n, seq_len)), topics
+
+
+def embed_flops(cfg, seq_len: int) -> float:
+    """Operations of one sequence's forward to the final norm: the
+    projections and the MLP (2 per weight per token) and the causal
+    attention products (QK and PV over the (S + 1) / 2 keys a token sees
+    on average)."""
+    per_token = 2 * cfg.num_layers * (2 * cfg.d_model * (cfg.q_dim + cfg.kv_dim) + 3 * cfg.d_model * cfg.d_ff)
+    attention = cfg.num_layers * 2 * 2 * cfg.q_dim * (seq_len + 1) / 2
+    return seq_len * (per_token + attention)
+
+
+def embedder_path(torch, gen, dev, phases, counts, testing, seed: int) -> dict:
+    """The embedding serving path of ``examples/serve_embedder.py`` at
+    yi-9b's published widths: the port's dense decoder as an ``Embedder``
+    feeding a threaded ``ManuSystem`` through ``ManuCollection.insert /
+    flush / search``.  Checks every embedding finite and unit-norm, batch
+    invariance, that no BOUNDED answer names a pk never inserted, that the
+    threaded system's STRONG answers after ``wait_idle()`` equal a
+    cooperative system's fed the same embeddings in the same order, and
+    that ``stop_threads()`` leaves no thread.  Every launch counter starts
+    at 0 with the threaded system and is read when it stops."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import ConsistencyLevel, InsertRequest, ManuConfig, ManuSystem, Metric, SearchRequest
+    from repro_torch.core.log import shards_of_pks
+    from repro_torch.models import model as M
+    from repro_torch.models.embedder import Embedder
+
+    cfg = get_arch(EMBED_ARCH)
+    name = "docs"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    phases["embed_model_init_s"] = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    # ModelConfig.num_params counts every weight but the final norm's
+    if n_params != cfg.num_params() + cfg.d_model or len(model.layers) != cfg.num_layers:
+        raise AssertionError(f"{cfg.name}: {n_params} parameters in {len(model.layers)} layers")
+    log(f"embedder model {cfg.name}: {n_params / 1e9:.3f} B bf16 parameters, {cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads} / {cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, vocabulary "
+        f"{cfg.vocab_size}; init {phases['embed_model_init_s']:.3f} s on the card, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    emb = Embedder(cfg, model, max_batch=EMBED_BATCH)
+    rng = np.random.default_rng(seed)
+    docs, topics = synth_docs(rng, EMBED_DOCS, EMBED_DOC_TOKENS, cfg.vocab_size)
+
+    counts.reset()
+    manu = ManuSystem(ManuConfig(**EMBED_CONFIG, threaded=True, manual_clock=False), device=dev)
+    # Host seconds of the pump thread's seal, build and load steps, for
+    # where the time from flush() to every index loaded goes.
+    spent = collections.defaultdict(float)
+
+    def timed(obj, attr, label):
+        call = getattr(obj, attr)
+
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return call(*args, **kwargs)
+            finally:
+                spent[label] += time.perf_counter() - t
+
+        setattr(obj, attr, run)
+
+    for dn in manu.data_nodes:
+        timed(dn, "_flush_sealed", "data node seal + binlog")
+    for ix in manu.index_nodes:
+        timed(ix, "_try_build", "index builds")
+    for qn in manu.query_nodes.values():
+        timed(qn, "load_sealed", "segment loads")
+        timed(qn, "load_index", "index loads")
+    try:
+        coll = manu.create_collection(name, dim=cfg.d_model, metric=Metric.IP)
+        coll.create_index("vector", "ivf_flat", IVF_PARAMS)
+        chunks, all_topics = [], [topics]
+        embed_s = insert_s = 0.0
+        for lo in range(0, EMBED_DOCS, EMBED_INGEST_CHUNK):
+            hi = min(lo + EMBED_INGEST_CHUNK, EMBED_DOCS)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rows = emb.embed(docs[lo:hi])
+            torch.cuda.synchronize()
+            embed_s += time.perf_counter() - t
+            t = time.perf_counter()
+            res = coll.insert(InsertRequest({"vector": rows}))
+            insert_s += time.perf_counter() - t
+            if not np.array_equal(res.pks, np.arange(lo, hi)):
+                raise AssertionError("auto-assigned pks are not the insertion order")
+            chunks.append(rows)
+        flops = EMBED_DOCS * embed_flops(cfg, EMBED_DOC_TOKENS)
+        tokens = EMBED_DOCS * EMBED_DOC_TOKENS
+        phases["embed_corpus_s"], phases["embed_ingest_s"] = embed_s, insert_s
+        log(f"embedder corpus: {EMBED_DOCS} documents x {EMBED_DOC_TOKENS} tokens in {embed_s:.3f} s "
+            f"({tokens / embed_s:.1f} tokens/s, {flops / embed_s / 1e12:.1f} TFLOP/s = "
+            f"{flops / embed_s / PEAK_BF16_FLOPS:.3f} of the {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s dense "
+            f"bf16 peak; {flops / tokens / 1e9:.2f} GFLOP per token); ingest {EMBED_DOCS / insert_s:.1f} "
+            f"rows/s through the proxy ({insert_s:.3f} s, the pump thread stepping beside it)")
+
+        t = time.perf_counter()
+        coll.flush()
+        nodes = list(manu.query_nodes.values())
+        deadline = time.time() + 120.0
+        while True:
+            manu.wait_idle(timeout_s=max(1.0, deadline - time.time()))  # raises a thread's failure
+            held = {sid: h for node in nodes for (c, sid), h in node.sealed.items() if c == name}
+            sealed = manu.data_coord.sealed_segments(name)
+            if (sorted(held) == sealed and all(h.index is not None and h.index.KIND == "ivf_flat"
+                                               for h in held.values())
+                    and sum(h.segment.num_rows for h in held.values()) == EMBED_DOCS):
+                break
+            if time.time() > deadline:
+                raise AssertionError(manu._diagnostic_dump(
+                    f"flush left {sealed} sealed, {sorted(held)} loaded with an index"))
+            time.sleep(0.01)
+        torch.cuda.synchronize()
+        phases["embed_flush_s"] = time.perf_counter() - t
+        log(f"embedder flush: {phases['embed_flush_s']:.3f} s from flush() to every index loaded; "
+            f"{len(sealed)} sealed segments ({sorted(h.segment.num_rows for h in held.values())} rows) on "
+            + ", ".join(f"{n.node_id} {n.held_segments(name)}" for n in nodes)
+            + "; pump-thread host seconds since the start: "
+            + json.dumps({k: round(v, 3) for k, v in spent.items()}))
+
+        corpus = torch.cat(chunks)
+        norms = torch.linalg.vector_norm(corpus, dim=1)
+        if not torch.isfinite(corpus).all() or (norms - 1).abs().max().item() > EMBED_NORM_TOL:
+            raise AssertionError(f"corpus embeddings: finite {bool(torch.isfinite(corpus).all())}, "
+                                 f"largest | |e| - 1 | {(norms - 1).abs().max().item():.3g}")
+        alone = Embedder(cfg, model, max_batch=1).embed(docs[:EMBED_BATCH])
+        batch_err = torch.linalg.vector_norm(alone - corpus[:EMBED_BATCH], dim=1).max().item()
+        if batch_err > EMBED_BATCH_TOL:
+            raise AssertionError(f"a document's embedding alone differs from its batch's by {batch_err:.3g}")
+        log(f"check embeddings: {len(corpus)} finite, unit norm within {EMBED_NORM_TOL} (largest "
+            f"{(norms - 1).abs().max().item():.3g}); the first {EMBED_BATCH} embedded one at a time within "
+            f"{EMBED_BATCH_TOL} (L2) of their batch's: largest {batch_err:.3g}")
+
+        # The stream: the fewest fresh documents that bring every shard's
+        # growing segment to seal_rows, inserted as serving starts.
+        inserted = EMBED_DOCS
+        seal_rows, n_shards = manu.config.seal_rows, coll.info.num_shards
+        per_shard = np.cumsum(np.eye(n_shards, dtype=np.int64)[
+            shards_of_pks(np.arange(inserted, inserted + 4 * seal_rows * n_shards), n_shards)], axis=0)
+        n_stream = int(np.argmax((per_shard >= seal_rows).all(axis=1))) + 1
+        stream, stream_topics = synth_docs(rng, n_stream, EMBED_QUERY_TOKENS, cfg.vocab_size)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stream_rows = Embedder(cfg, model, max_batch=EMBED_STREAM_BATCH).embed(stream)
+        torch.cuda.synchronize()
+        phases["embed_stream_s"] = time.perf_counter() - t
+        sealed_before = len(manu.data_coord.sealed_segments(name))
+        spent_builds_before = spent["index builds"]
+        for lo in range(0, n_stream, EMBED_INGEST_CHUNK):
+            rows = stream_rows[lo:lo + EMBED_INGEST_CHUNK]
+            res = coll.insert(InsertRequest({"vector": rows}))
+            if not np.array_equal(res.pks, np.arange(inserted, inserted + len(rows))):
+                raise AssertionError("auto-assigned pks are not the insertion order")
+            chunks.append(rows)
+            inserted += len(rows)
+        all_topics.append(stream_topics)
+        log(f"embedder stream: {n_stream} fresh documents x {EMBED_QUERY_TOKENS} tokens embedded in "
+            f"{phases['embed_stream_s']:.3f} s ({n_stream * EMBED_QUERY_TOKENS / phases['embed_stream_s']:.1f} "
+            f"tokens/s) and inserted, {seal_rows} rows or more for each of the {n_shards} shards")
+
+        latency = {f"embedder nq={nq} {part}": [] for nq in (EMBED_NQ, EMBED_BIG_NQ)
+                   for part in ("embed", "search", "batch")}
+        during_build = []  # search ms of the batches served while an index built
+        hits = served = 0
+        last_q = {}
+        t0 = time.perf_counter()
+        for nq, n_batches in ((EMBED_NQ, EMBED_REQUESTS), (EMBED_BIG_NQ, EMBED_BIG_REQUESTS)):
+            for _ in range(n_batches):
+                fresh, fresh_topics = synth_docs(rng, EMBED_FRESH, EMBED_DOC_TOKENS, cfg.vocab_size)
+                rows = emb.embed(fresh)
+                res = coll.insert(InsertRequest({"vector": rows}))
+                if not np.array_equal(res.pks, np.arange(inserted, inserted + EMBED_FRESH)):
+                    raise AssertionError("auto-assigned pks are not the insertion order")
+                chunks.append(rows)
+                all_topics.append(fresh_topics)
+                inserted += EMBED_FRESH
+                q_toks, q_topics = synth_docs(rng, nq, EMBED_QUERY_TOKENS, cfg.vocab_size)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                q = emb.embed(q_toks)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                building = bool(manu.index_coord.pending_tasks)
+                res = coll.search(SearchRequest.single(q, k=EMBED_K, staleness_ms=EMBED_STALENESS_MS))
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                if building and manu.index_coord.pending_tasks:
+                    during_build.append((t3 - t2) * 1e3)
+                for part, ms in (("embed", t2 - t1), ("search", t3 - t2), ("batch", t3 - t1)):
+                    latency[f"embedder nq={nq} {part}"].append(ms * 1e3)
+                live = res.pks[res.pks >= 0]
+                if res.pks.shape != (nq, EMBED_K) or bool((live >= inserted).any()):
+                    raise AssertionError("a BOUNDED answer names a pk that was never inserted")
+                top = res.pks[:, 0].cpu().numpy()
+                known = np.concatenate(all_topics)
+                hits += int(sum(t >= 0 and known[t] == qt for t, qt in zip(top, q_topics)))
+                served += nq
+                last_q[nq] = q
+        phases["embed_requests_s"] = time.perf_counter() - t0
+        log(f"embedder requests: {EMBED_REQUESTS} batches of {EMBED_NQ} and {EMBED_BIG_REQUESTS} of "
+            f"{EMBED_BIG_NQ} queries at staleness {EMBED_STALENESS_MS} ms, each after {EMBED_FRESH} fresh "
+            f"documents; every answer names inserted pks only; topic-match@1 {hits / served:.4f} "
+            f"(printed, not gated)")
+        if not during_build:
+            raise AssertionError("no request batch was served while an index built")
+
+        t = time.perf_counter()
+        manu.wait_idle()
+        n_seals = len(manu.data_coord.sealed_segments(name)) - sealed_before
+        if n_seals < n_shards:
+            raise AssertionError(f"the stream sealed {n_seals} segments, not one per shard")
+        log(f"embedder requests during index builds: {len(during_build)} batches answered while the build "
+            f"thread built (search median {statistics.median(during_build):.3f} ms, max "
+            f"{max(during_build):.3f} ms); the stream sealed {n_seals} segments, whose builds took "
+            f"{spent['index builds'] - spent_builds_before:.3f} s of build-thread host time")
+        strong = {nq: coll.search(SearchRequest.single(q, k=EMBED_K, consistency=ConsistencyLevel.STRONG))
+                  for nq, q in last_q.items()}
+        torch.cuda.synchronize()
+        phases["embed_strong_s"] = time.perf_counter() - t
+        for nq in (EMBED_NQ,):
+            def one_batch(nq=nq):
+                q_toks, _ = synth_docs(np.random.default_rng(seed + 1), nq, EMBED_QUERY_TOKENS, cfg.vocab_size)
+                return coll.search(SearchRequest.single(emb.embed(q_toks), k=EMBED_K,
+                                                        staleness_ms=EMBED_STALENESS_MS))
+            profile_request(torch, one_batch, f"embedder request batch nq={nq} (embed + search)")
+        profile_request(torch, lambda: emb.embed(docs[:EMBED_BATCH]),
+                        f"embedder corpus micro-batch ({EMBED_BATCH} x {EMBED_DOC_TOKENS} tokens)")
+        launches = counts.read()
+        shapes = counts.read_shapes(launches, "embedder", ("tensor_cores",))
+        log(f"embedder path launches: {launches}")
+        for kname in EMBED_KERNELS:
+            if launches[kname] <= 0:
+                raise AssertionError(f"{kname} was not launched on the embedder path")
+    finally:
+        manu.stop_threads()
+    left = [t.name for t in threading.enumerate() if t.name.startswith("manu-") and t.is_alive()]
+    if left or manu._threads:
+        raise AssertionError(f"threads left after stop_threads(): {left}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"embedder: stop_threads() left no thread; peak device memory {peak_gib:.2f} GiB")
+
+    # The same embeddings in the same order through a cooperative system.
+    t = time.perf_counter()
+    coop = ManuSystem(ManuConfig(**EMBED_CONFIG), device=dev)
+    ccoll = coop.create_collection(name, dim=cfg.d_model, metric=Metric.IP)
+    ccoll.create_index("vector", "ivf_flat", IVF_PARAMS)
+    n_corpus = EMBED_DOCS // EMBED_INGEST_CHUNK
+    for i, rows in enumerate(chunks):
+        ccoll.insert(InsertRequest({"vector": rows}))
+        if i == n_corpus - 1:
+            ccoll.flush()
+    x = torch.cat(chunks)
+    rtol, atol = testing.SCORE_TOL["ip"]
+    for nq, got in strong.items():
+        want = ccoll.search(SearchRequest.single(last_q[nq], k=EMBED_K, consistency=ConsistencyLevel.STRONG))
+        label = f"embedder STRONG nq={nq}"
+        if got.pks.shape != want.pks.shape or not torch.equal(got.pks >= 0, want.pks >= 0):
+            raise AssertionError(f"{label}: the threaded answer's shape or empty slots differ")
+        live = want.pks >= 0
+        torch.testing.assert_close(got.scores[live], want.scores[live], rtol=rtol, atol=atol)
+        diff = (got.pks != want.pks) & live
+        if diff.any():  # near-ties only: the swapped pk scores (float64) as the slot
+            qi, slot = torch.nonzero(diff, as_tuple=True)
+            exact = (last_q[nq][qi].double() * x[got.pks[qi, slot]].double()).sum(1)
+            torch.testing.assert_close(exact, want.scores[qi, slot].double(), rtol=rtol, atol=atol)
+        exact_top = torch.topk(last_q[nq] @ x.T, EMBED_K, dim=1).indices
+        log(f"check {label}: the threaded system's answer after wait_idle() equals the cooperative "
+            f"system's (rtol={rtol}, atol={atol}; {int(diff.sum())} near-tie swaps; max |err| "
+            f"{(got.scores[live] - want.scores[live]).abs().max().item():.3g}); recall@{EMBED_K} vs "
+            f"exact IP {recall_at(got.pks, exact_top):.4f}")
+    del coop, ccoll
+    phases["embed_cooperative_s"] = time.perf_counter() - t
+    for key in ("embed", "search", "batch"):
+        for nq in (EMBED_NQ, EMBED_BIG_NQ):
+            v = latency[f"embedder nq={nq} {key}"]
+            log(f"embedder nq={nq} {key} median {statistics.median(v):.3f} ms over {len(v)} "
+                f"(min {min(v):.3f}, max {max(v):.3f})")
+    return {"latency": {k: v for k, v in latency.items() if k.endswith("batch")}, "launches": launches,
+            "shapes": shapes, "model": model, "peak_gib": peak_gib}
+
+
+def scan_shape_times(torch, l2_mod, testing, shapes: dict, gen, dev) -> dict:
+    """``l2_topk`` at every (nq, rows per segment, D, k, metric) in
+    ``shapes`` (the paths' launches at the widths in
+    ``LaunchCounts.SCAN_SHAPE_D``), on unit
+    rows of that shape: held to the plain version on the same inputs
+    (``SCORE_TOL``), timed beside it (``device_ms``), with the bound and,
+    for one segment, ``torch.topk`` of the product."""
+    rows = {}
+    for (nq, seg_rows, d, k, metric), launches in sorted(shapes.items()):
+        q = torch.randn((nq, d), generator=gen, device=dev)
+        q = q / torch.linalg.vector_norm(q, dim=1, keepdim=True)
+        bases = [torch.randn((n, d), generator=gen, device=dev) for n in seg_rows]
+        bases = [b / torch.linalg.vector_norm(b, dim=1, keepdim=True).clamp_min(1e-12) for b in bases]
+        valids = [None] * len(bases)
+        got = l2_mod.l2_topk(q, bases, valids, k, metric)
+        want = l2_mod.l2_topk_plain(q, bases, valids, k, metric)
+        torch.cuda.synchronize()
+        testing.assert_scan_close(got, want, q, bases, valids, k, metric, *testing.SCORE_TOL[metric])
+        n = sum(seg_rows)
+        fin = torch.isfinite(want[0])
+        row = {
+            "launches": launches, "max_abs_err": (got[0][fin] - want[0][fin]).abs().max().item(),
+            "ms": device_ms(torch, lambda: l2_mod.l2_topk(q, bases, valids, k, metric), 20),
+            "plain_ms": device_ms(torch, lambda: l2_mod.l2_topk_plain(q, bases, valids, k, metric), 20),
+            "library_ms": (device_ms(torch, lambda: torch.topk(q @ bases[0].T, min(k, n), dim=1), 20)
+                           if len(bases) == 1 else None),
+            **scan_bound(nq, 4 * nq * d + 4 * n * d + 12 * nq * len(bases) * k, n, d,
+                         2 * nq * n * d + 2 * nq * d),
+        }
+        rows[(nq, seg_rows, d, k, metric)] = row
+    if rows:
+        loss = sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in rows.values())
+        top = max(rows.items(), key=lambda kv: kv[1]["launches"] * kv[1]["ms"])
+        log(f"l2_topk at {len(rows)} shapes of d {LaunchCounts.SCAN_SHAPE_D}: "
+            f"{sum(r['launches'] for r in rows.values())} launches, each equal to the plain version "
+            f"(largest |err| {max(r['max_abs_err'] for r in rows.values()):.3g}); ms "
+            f"{min(r['ms'] for r in rows.values()):.6f}-{max(r['ms'] for r in rows.values()):.6f}; "
+            f"sum of launches x (ms - bound_ms) {loss:.3f} ms; the largest launches x ms at "
+            f"nq={top[0][0]} rows={list(top[0][1])[:4]}{'...' if len(top[0][1]) > 4 else ''}: "
+            + json.dumps(top[1]))
+    return rows
+
+
 def assign_bound(n: int, c: int, d: int) -> dict:
     """kmeans_assign's bound: the rows and centroids read once and the
     assignment and distance written once against the 3xTF32 product
@@ -1942,11 +2341,16 @@ def assign_shape_times(torch, km_mod, testing, shapes: dict, gen, dev) -> dict:
     kernel's CUDA-event time, the bound, the score path the default
     threshold takes and the launches.  Logs each row (shapes under
     ASSIGN_LOG_WORK as one summary) and the sum of launches x
-    (time - bound) over every shape."""
+    (time - bound) over every shape.  At a width in
+    ``LaunchCounts.SCAN_SHAPE_D`` (an embedder's) the rows and centroids are
+    unit-norm, as an embedder's rows are."""
     rows = {}
     for (n, c, d), launches in sorted(shapes.items(), key=lambda kv: -kv[0][0] * kv[0][1] * kv[0][2]):
         x = torch.randn((n, d), generator=gen, device=dev)
         cent = torch.randn((c, d), generator=gen, device=dev)
+        if d in LaunchCounts.SCAN_SHAPE_D:
+            x = x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+            cent = cent / torch.linalg.vector_norm(cent, dim=1, keepdim=True)
         got = km_mod.kmeans_assign(x, cent)
         want = km_mod.kmeans_assign_plain(x, cent)
         torch.cuda.synchronize()
@@ -2092,24 +2496,31 @@ def decode_shape_times(torch, sq_mod, shapes: dict, gen, dev) -> dict:
 
 class LaunchCounts:
     """The kernel wrappers' launch counters, set to 0 before a path runs
-    and read after it; and ``shapes``, the launches of three kernels per
+    and read after it; and ``shapes``, the launches of four kernels per
     call shape, counted by wrapping the op through which the port calls
     each (the wrappers' own counters are unchanged): ``kmeans_assign`` per
     (N, C, D) (``ops.kmeans_assign``), ``merge_topk`` per (nq, M, k) (one
     launch of ``ops.merge_topk``, which chunks pools wider than the kernel
-    takes) and ``sq_decode`` per (n, d) (``ops.sq_decode``).  A shape is
-    counted only where the wrapper's counter moved, so each kernel's shapes
+    takes), ``sq_decode`` per (n, d) (``ops.sq_decode``) and ``l2_topk``
+    per (nq, rows per segment, D, k, metric) (``ops.l2_topk``).  A shape is
+    counted by the launches the calling thread made inside the op
+    (``_build.thread_launches``), so a threaded system's pump and build
+    threads launching beside it add nothing to it; each kernel's shapes
     must add up to its launches: a launch that bypassed the op shows."""
 
-    SHAPED = {"kmeans_assign": "kmeans_assign", "merge_topk": "_merge_topk", "sq_decode": "sq_decode"}
+    SHAPED = {"kmeans_assign": "kmeans_assign", "merge_topk": "_merge_topk", "sq_decode": "sq_decode",
+              "l2_topk": "l2_topk"}
+    # The widths at which scan_shape_times times l2_topk per shape: an
+    # embedder's (the other widths' scans are timed in their own phases).
+    SCAN_SHAPE_D = (4_096,)
 
-    def __init__(self, wrappers: dict, ops):
+    def __init__(self, wrappers: dict, ops, build):
         self.wrappers = wrappers
         self.shapes = {kname: collections.Counter() for kname in self.SHAPED}
         for kname, attr in self.SHAPED.items():
-            setattr(ops, attr, self._counted(kname, getattr(ops, attr)))
+            setattr(ops, attr, self._counted(kname, getattr(ops, attr), build.thread_launches))
 
-    def _counted(self, kname: str, op):
+    def _counted(self, kname: str, op, thread_launches):
         wrapper, counter = self.wrappers[kname], self.shapes[kname]
 
         def shape_of(args):
@@ -2117,13 +2528,17 @@ class LaunchCounts:
                 return (args[0].shape[0], args[1].shape[0], args[0].shape[1])
             if kname == "merge_topk":  # (scores, pks, k, ...)
                 return (args[0].shape[0], args[0].shape[1], args[2])
+            if kname == "l2_topk":  # (queries, bases, valids, k, metric)
+                return (args[0].shape[0], tuple(b.shape[0] for b in args[1]), args[0].shape[1],
+                        args[3], args[4])
             return tuple(args[0].shape)  # sq_decode: (codes, vmin, vmax)
 
         def counted(*args, **kwargs):
-            before = wrapper.launches
+            before = thread_launches(wrapper)
             out = op(*args, **kwargs)
-            if wrapper.launches > before:
-                counter[shape_of(args)] += wrapper.launches - before
+            made = thread_launches(wrapper) - before
+            if made:
+                counter[shape_of(args)] += made
             return out
 
         return counted
@@ -2145,6 +2560,13 @@ class LaunchCounts:
             if sum(counter.values()) != launches[kname]:
                 raise AssertionError(f"{label} path: {kname} launched {launches[kname]} times, "
                                      f"{sum(counter.values())} of them through the op")
+            if kname == "l2_topk":  # one shape per segment-row tuple: summed per width
+                per_d = collections.Counter()
+                for shape, n in counter.items():
+                    per_d[shape[2]] += n
+                log(f"{label} path: l2_topk launches over {len(counter)} shapes, per width "
+                    + json.dumps({str(d): n for d, n in sorted(per_d.items())}))
+                continue
             log(f"{label} path: {kname} launches per shape "
                 + json.dumps({str(k): v for k, v in sorted(counter.items())}))
         paths = self.wrappers["kmeans_assign"].path_launches
@@ -2194,7 +2616,7 @@ def main() -> int:
         "kmeans_assign": km_mod.kmeans_assign, "sq_encode": sq_mod.sq_encode,
         "sq_decode": sq_mod.sq_decode, "sq_l2_topk": sq_mod.sq_l2_topk,
         "pq_adc_topk": pq_mod.pq_adc_topk,
-    }, ops)
+    }, ops, _build)
     card = card_info(torch)
 
     dev = torch.device("cuda", 0)
@@ -2433,20 +2855,26 @@ def main() -> int:
     del fac["manu"], fac["coll"], fac["x"]
     gc.collect()
     torch.cuda.empty_cache()
+    # ------------------------------------------------------ embedder path
+    emb = embedder_path(torch, gen, dev, phases, counts, testing, args.seed)
+    del emb["model"]
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     # merge_topk, sq_decode and kmeans_assign at every shape the paths
     # launched them at (FLAT builds none and decodes none)
-    shapes = {kname: flat_shapes[kname] + ivf_shapes[kname] + fac["shapes"][kname]
-              + maint["shapes"][kname] for kname in LaunchCounts.SHAPED}
-    shapes["merge_topk"] += fam_shapes["merge_topk"]
-    shapes["sq_decode"] += fam_shapes["sq_decode"]
-    shapes["kmeans_assign"] += fam_shapes["kmeans_assign"]
+    shapes = {kname: sum((src[kname] for src in (flat_shapes, ivf_shapes, fam_shapes, fac["shapes"],
+                                                 maint["shapes"], emb["shapes"])), collections.Counter())
+              for kname in LaunchCounts.SHAPED}
     floor_ms = empty_kernel_ms(torch)
     merge_rows = merge_shape_times(torch, merge_mod, shapes["merge_topk"], gen, dev, floor_ms)
     mt = max(merge_rows.values(), key=lambda r: r["launches"])  # the most launched shape
     decode_rows = decode_shape_times(torch, sq_mod, shapes["sq_decode"], gen, dev)
     it["sq_decode"] = decode_rows[(DECODE_CHUNK_ROWS, DIM)]
     assign_rows = assign_shape_times(torch, km_mod, testing, shapes["kmeans_assign"], gen, dev)
+    scan_rows = scan_shape_times(torch, l2_mod, testing, {
+        shape: n for shape, n in shapes["l2_topk"].items() if shape[2] in LaunchCounts.SCAN_SHAPE_D}, gen, dev)
+    max_err["l2_topk"] = max([max_err["l2_topk"]] + [r["max_abs_err"] for r in scan_rows.values()])
     max_err["kmeans_assign"] = max([max_err["kmeans_assign"]]
                                    + [r["max_abs_err"] for r in assign_rows.values()])
     it["kmeans_assign"] = assign_rows[(KMEANS_SAMPLE, IVF_PARAMS["nlist"], DIM)]
@@ -2454,14 +2882,14 @@ def main() -> int:
     phases["kernel_timing_s"] += time.perf_counter() - t0
 
     for key, times in {**latency, **ivf_latency, **fam_latency, **fac["latency"],
-                       **maint["latency"]}.items():
+                       **maint["latency"], **emb["latency"]}.items():
         steady = times[1:]
         log(f"request {key}: first {times[0]:.3f} ms, median {statistics.median(steady):.3f} ms "
             f"over {len(steady)} (min {min(steady):.3f}, max {max(steady):.3f})")
     log("phases: " + json.dumps({k: round(v, 3) for k, v in phases.items()}))
 
     launches = {k: flat_launches[k] + ivf_launches[k] + fam_launches[k] + fac["launches"][k]
-                + maint["launches"][k] for k in KERNEL_NAMES}
+                + maint["launches"][k] + emb["launches"][k] for k in KERNEL_NAMES}
 
     def index_row(kname, key, replaces, source):
         row = it[key]
@@ -2504,6 +2932,11 @@ def main() -> int:
     for kname, rows in (("kmeans_assign", assign_rows), ("merge_topk", merge_rows),
                         ("sq_decode", decode_rows)):
         loss[kname] = sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in rows.values())
+    # l2_topk: the d 4,096 launches at their own shapes, the rest at nq=100
+    # over 1M rows
+    wide = sum(r["launches"] for r in scan_rows.values())
+    loss["l2_topk"] = ((launches["l2_topk"] - wide) * (kt[100]["ms"] - kt[100]["bound_ms"])
+                       + sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in scan_rows.values()))
     # sq_l2_topk: the indexed path's launches at its segment (taken at
     # nq=100), the bucket searches' at a bucket query's probed buckets
     sq_row = it["sq_l2_topk nq=100"]

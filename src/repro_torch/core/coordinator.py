@@ -1,7 +1,5 @@
 """The coordinator layer (paper §3.2): root, data, query, index; mirrors
-``repro.core.coordinator`` (host logic, no device state).  Time-based
-sealing (``DataCoordinator.seal_idle``) belongs to threaded mode, which is
-not ported (ROADMAP Queue 1: threaded mode).
+``repro.core.coordinator`` (host logic, no device state).
 
 Coordinators keep all authoritative state in the meta store (etcd role) and
 communicate with workers exclusively through the coordination log channel —
@@ -246,6 +244,9 @@ class DataCoordinator:
         self._recorded: set[tuple[str, int]] = set()
         self._sealed_upto_pos: dict[tuple[str, int], int] = {}  # per channel shard
         self.segment_map = SegmentMap(meta)
+        # Allocation and sealing: in threaded mode loggers allocate on the
+        # caller's thread while the data node seals on the pump thread.
+        self._lock = threading.RLock()
 
     # ------------------------------------------------------------ allocation
     def allocate_pks(self, collection: str, n: int):
@@ -271,20 +272,23 @@ class DataCoordinator:
         partition: str = DEFAULT_PARTITION,
     ) -> int:
         key = (collection, shard, partition)
-        alloc = self._growing.get(key)
-        if alloc is None:
-            alloc = SegmentAlloc(self._alloc_sid())
-            self._growing[key] = alloc
-        alloc.rows += n_rows
-        alloc.last_alloc_ms = self.clock.now_ms()
-        if alloc.rows >= self.seal_rows_for(collection):
-            self._to_seal.add((collection, alloc.segment_id))
-            self._growing[key] = SegmentAlloc(self._alloc_sid())
-        return alloc.segment_id
+        with self._lock:
+            alloc = self._growing.get(key)
+            if alloc is None:
+                alloc = SegmentAlloc(self._alloc_sid())
+                self._growing[key] = alloc
+            alloc.rows += n_rows
+            alloc.last_alloc_ms = self.clock.now_ms()
+            if alloc.rows >= self.seal_rows_for(collection):
+                self._to_seal.add((collection, alloc.segment_id))
+                self._growing[key] = SegmentAlloc(self._alloc_sid())
+            return alloc.segment_id
 
     # --------------------------------------------------------------- sealing
-    def should_seal(self, collection: str, segment_id: int) -> bool:
-        return (collection, segment_id) in self._to_seal
+    def marked_to_seal(self) -> frozenset:
+        """The (collection, segment_id) pairs marked to seal, as of now."""
+        with self._lock:
+            return frozenset(self._to_seal)
 
     def on_sealed(
         self,
@@ -295,9 +299,10 @@ class DataCoordinator:
         shard: int = 0,
         attr_fields=None,
     ) -> None:
-        self._to_seal.discard((collection, segment_id))
-        self._sealed_rows[(collection, segment_id)] = rows
-        self._recorded.add((collection, segment_id))
+        with self._lock:
+            self._to_seal.discard((collection, segment_id))
+            self._sealed_rows[(collection, segment_id)] = rows
+            self._recorded.add((collection, segment_id))
         self.meta.put(
             f"segment/{collection}/{segment_id}",
             {
@@ -380,14 +385,27 @@ class DataCoordinator:
 
     def flush(self, collection: str) -> list[int]:
         """Force-seal every growing segment of a collection."""
-        sealed = []
-        for (coll, shard, part), alloc in list(self._growing.items()):
-            if coll != collection or alloc.rows == 0:
-                continue
-            self._to_seal.add((coll, alloc.segment_id))
-            sealed.append(alloc.segment_id)
-            self._growing[(coll, shard, part)] = SegmentAlloc(self._alloc_sid())
-        return sealed
+        with self._lock:
+            sealed = []
+            for (coll, shard, part), alloc in list(self._growing.items()):
+                if coll != collection or alloc.rows == 0:
+                    continue
+                self._to_seal.add((coll, alloc.segment_id))
+                sealed.append(alloc.segment_id)
+                self._growing[(coll, shard, part)] = SegmentAlloc(self._alloc_sid())
+            return sealed
+
+    def seal_idle(self, max_idle_ms: float) -> list[int]:
+        """Time-based sealing (paper: seal after a period without inserts)."""
+        with self._lock:
+            now = self.clock.now_ms()
+            sealed = []
+            for (coll, shard, part), alloc in list(self._growing.items()):
+                if alloc.rows > 0 and (now - alloc.last_alloc_ms) >= max_idle_ms:
+                    self._to_seal.add((coll, alloc.segment_id))
+                    sealed.append(alloc.segment_id)
+                    self._growing[(coll, shard, part)] = SegmentAlloc(self._alloc_sid())
+            return sealed
 
     def segment_recorded(self, collection: str, segment_id: int) -> bool:
         """Whether the segment was ever sealed (sealed, retired, dropped or

@@ -20,6 +20,8 @@ them on a card would only copy every row there and back.
 
 from __future__ import annotations
 
+import threading
+
 from .log import COORD_CHANNEL, EntryType, LogBroker, LogEntry, Subscription
 from .binlog import write_attr_satellites, write_segment_binlog
 from .object_store import ObjectStore
@@ -40,6 +42,7 @@ class DataNode:
         tso: TSO,
         data_coord,
         metrics: MetricsRegistry | None = None,
+        wal_lock: "threading.Lock | None" = None,
     ):
         self.node_id = node_id
         self.broker = broker
@@ -63,6 +66,13 @@ class DataNode:
         # first insert: where a replay must start to rebuild it.
         self._first_pos: dict[tuple[str, int], int] = {}
         self.alive = True
+        # The loggers' WAL append lock (a system shares one): a logger
+        # assigns rows to a segment and publishes them under it, so seal
+        # marks read under it name only segments whose rows are all in the
+        # log, and the poll after the read takes them all.  In threaded
+        # mode a mark may come from the caller's thread while this node
+        # steps on the pump thread.
+        self._wal_lock = wal_lock if wal_lock is not None else threading.Lock()
 
     def subscribe(self, channel: str, from_position: int = 0) -> None:
         self.subscriptions[channel] = Subscription(self.broker, channel, from_position)
@@ -75,6 +85,8 @@ class DataNode:
         if not self.alive:
             return False
         progress = False
+        with self._wal_lock:
+            marked = self.data_coord.marked_to_seal()
         for sub in list(self.subscriptions.values()):
             watermark = self._applied_pos.get(sub.channel, -1)
             for entry in sub.poll():
@@ -85,7 +97,7 @@ class DataNode:
                 progress |= self._consume(entry, entry.position + 1)
                 watermark = entry.position
             self._applied_pos[sub.channel] = watermark
-        progress |= self._flush_sealed()
+        progress |= self._flush_sealed(marked)
         return progress
 
     def _is_archived(self, coll: str, sid: int) -> bool:
@@ -142,14 +154,15 @@ class DataNode:
             return True
         return False
 
-    def _flush_sealed(self) -> bool:
-        """Seal + flush segments the data coordinator marked."""
+    def _flush_sealed(self, marked: frozenset) -> bool:
+        """Seal + flush the growing segments among ``marked``, the segments
+        the data coordinator had marked before this step's poll."""
         import time as _t
 
         progress = False
         for key in list(self.growing):
             coll, sid = key
-            if not self.data_coord.should_seal(coll, sid):
+            if key not in marked:
                 continue
             seg = self.growing.pop(key)
             self._first_pos.pop(key, None)

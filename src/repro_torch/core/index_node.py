@@ -6,11 +6,15 @@ channel, claims each with a meta-store CAS (so concurrent index nodes never
 duplicate work), reads **only the vector column** of the binlog, builds the
 index on its device, writes ``index.save()`` (the reference's ``.npz``
 layout) to the object store and announces ``index_built`` with the
-reference's payload.
+reference's payload.  A threaded ``ManuSystem`` steps its index nodes on a
+thread of their own, so a build never holds up a pump round; the
+announcement then takes the system's step lock (``publish_lock``), which
+orders it against the coordinators' own messages.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
@@ -48,6 +52,9 @@ class IndexNode:
         self.sub = Subscription(broker, COORD_CHANNEL)
         self.alive = True
         self.builds_completed = 0
+        # Held for the announcement: the coordination channel takes its
+        # entries in timestamp order.
+        self.publish_lock = contextlib.nullcontext()
 
     def step(self) -> bool:
         if not self.alive:
@@ -100,22 +107,27 @@ class IndexNode:
             "index_build_us", (time.perf_counter() - t0) * 1e6, labels={"kind": kind}
         )
         self.metrics.inc("index_builds_total", labels={"kind": kind})
+        if not self.alive:
+            # Killed mid-build (threaded mode): like a crashed process it
+            # announces nothing, and its claim waits for restart_index_node.
+            return True
 
-        self.broker.publish(
-            COORD_CHANNEL,
-            LogEntry(
-                ts=self.tso.next(),
-                type=EntryType.COORD,
-                payload={
-                    "msg": "index_built",
-                    "collection": coll,
-                    "segment_id": sid,
-                    "field": field,
-                    "column": column,
-                    "index_kind": kind,
-                    "index_key": key,
-                    "built_by": self.node_id,
-                },
-            ),
-        )
+        with self.publish_lock:
+            self.broker.publish(
+                COORD_CHANNEL,
+                LogEntry(
+                    ts=self.tso.next(),
+                    type=EntryType.COORD,
+                    payload={
+                        "msg": "index_built",
+                        "collection": coll,
+                        "segment_id": sid,
+                        "field": field,
+                        "column": column,
+                        "index_kind": kind,
+                        "index_key": key,
+                        "built_by": self.node_id,
+                    },
+                ),
+            )
         return True

@@ -59,6 +59,7 @@ class Logger:
         clock: Clock,
         tick_interval_ms: float = 50.0,
         metrics: MetricsRegistry | None = None,
+        wal_lock: "threading.Lock | None" = None,
     ):
         self.logger_id = logger_id
         self.broker = broker
@@ -72,7 +73,10 @@ class Logger:
         # Serializes LSN-assign + WAL publish: the broker enforces
         # monotonic per-channel timestamps, so a threaded scheduler flush
         # racing a user-thread mutation must not interleave the two steps.
-        self._lock = threading.Lock()
+        # A system shares one lock among its loggers (``wal_lock``): every
+        # logger ticks every channel, so a tick on the pump thread must not
+        # land between another logger's LSN and its publish.
+        self._lock = wal_lock if wal_lock is not None else threading.Lock()
 
     # ----------------------------------------------------------- mutations
     def mutate(
@@ -345,10 +349,11 @@ class Logger:
         for ch in channels:
             last = self._last_tick_ms.get(ch, -1e18)
             if force or (now - last) >= self.tick_interval_ms:
-                ts = self.tso.next()
-                self.broker.publish(
-                    ch, LogEntry(ts=ts, type=EntryType.TIME_TICK, payload={})
-                )
+                with self._lock:
+                    ts = self.tso.next()
+                    self.broker.publish(
+                        ch, LogEntry(ts=ts, type=EntryType.TIME_TICK, payload={})
+                    )
                 self._last_tick_ms[ch] = now
                 emitted += 1
         return emitted

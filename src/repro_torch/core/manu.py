@@ -1,5 +1,5 @@
 """ManuSystem: wires the full architecture and exposes the PyManu-style API
-(paper Table 2); mirrors ``repro.core.manu`` in its cooperative mode.
+(paper Table 2); mirrors ``repro.core.manu``.
 
     manu = ManuSystem(ManuConfig(num_query_nodes=2))          # device="cuda"
     coll = manu.create_collection("products", dim=128)
@@ -7,13 +7,24 @@
     coll.create_index("vector", kind="ivf_flat", params={"nlist": 64})
     res = coll.search(queries, limit=10, staleness_ms=100.0)
 
-Every API call pumps the component state machines until quiescent, and
-consistency waits advance the clock and emit time-ticks explicitly
-(``manual_clock=True``, ``threaded=False``).  Query and index nodes keep
-their columns and indexes on ``device`` (the card unless the caller passes
-``device="cpu"``); loggers, data nodes, coordinators and the stores are
-host work.  Search results hold scores and pks as tensors on that device
-and hydrated fields as host arrays.
+Two driving modes, as in the reference:
+
+* **cooperative** (default) -- every API call pumps the component state
+  machines until quiescent, and consistency waits advance the clock and
+  emit time-ticks explicitly.  This is what the tests use.
+* **threaded** (``ManuConfig(threaded=True, manual_clock=False)``) -- a
+  pump thread steps every component but the index nodes and the loggers
+  tick on the wall clock; a build thread steps the index nodes, so a build
+  never holds up the query nodes (the reference's one pump thread does);
+  a watchdog thread heartbeats and reconciles; searches block on
+  watermarks.  ``start_threads`` / ``stop_threads`` start and join them
+  (the constructor starts them).  An exception in one thread stops them
+  all and is raised again by the next wait or by ``stop_threads``.
+
+Query and index nodes keep their columns and indexes on ``device`` (the
+card unless the caller passes ``device="cpu"``); loggers, data nodes,
+coordinators and the stores are host work.  Search results hold scores and
+pks as tensors on that device and hydrated fields as host arrays.
 
 The object store, meta store and log broker are composed as the
 reference composes them, ``Retrying(Faulty(real))``: the fault plane
@@ -21,12 +32,13 @@ reference composes them, ``Retrying(Faulty(real))``: the fault plane
 the retry plane (``core/retry.py``) absorbs the transients; with no
 injector every call passes through.  Maintenance (compaction, GC,
 time-travel checkpoints) and recovery (``kill_*`` / ``restart_*``,
-``recover_failures``, ``restart``) are the reference's.  Threaded mode
-raises ``NotImplementedError`` naming its ROADMAP item.
+``recover_failures``, ``restart``) are the reference's.
 """
 
 from __future__ import annotations
 
+import functools
+import threading
 import time
 from dataclasses import dataclass
 
@@ -98,17 +110,9 @@ from .telemetry import Event, EventLog, MetricsRegistry
 from .time_travel import RestoredCollection, TimeTravel
 from .timestamp import INFINITE_STALENESS, TSO, Clock, ManualClock, pack
 
-#: What ``ManuConfig(threaded=True)`` raises: the item that ports it.
-THREADED_NOT_PORTED = (
-    "threaded mode (ManuConfig.threaded=True) is not ported yet: ROADMAP Queue 1: threaded mode"
-)
-
 
 @dataclass
 class ManuConfig:
-    """The reference's configuration less threaded mode's pacing options
-    (``pump_sleep_s``, ``reconcile_interval_s``)."""
-
     num_shards: int = 2
     num_loggers: int = 2
     num_data_nodes: int = 1
@@ -131,11 +135,32 @@ class ManuConfig:
     ingest_flush_ms: float = 20.0
     manual_clock: bool = True
     threaded: bool = False
+    pump_sleep_s: float = 0.002
     replication_factor: int = 1
     heartbeat_ttl_ms: float = 5_000.0
+    reconcile_interval_s: float = 0.25  # threaded-mode watchdog cadence
     # Typed retry/backoff for object-store, meta-store and log-broker I/O
     # (None = the default policy); its seed drives the backoff jitter.
     retry_policy: "RetryPolicy | None" = None
+
+
+#: How long ``stop_threads`` waits for a pump round to finish.
+THREAD_JOIN_S = 60.0
+
+
+def _serialized(method):
+    """Run a control-plane call under the system's step lock, which the
+    pump thread holds for each round: in threaded mode the coordinator
+    messages the call publishes must not interleave with the pump thread's
+    (the log takes a channel's entries in timestamp order).  Never wrap a
+    call that waits for the pump thread."""
+
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with self._step_lock:
+            return method(self, *args, **kwargs)
+
+    return run
 
 
 class ManuCollection:
@@ -261,17 +286,8 @@ class ManuCollection:
             raise ValueError(
                 f"create_index targets vector fields; '{field}' is {fs.dtype.value}"
             )
-        self.system.index_coord.set_index_spec(
-            self.name, field, kind, params, metric=self.info.metric,
-            column=vector_column_of(self.info.schema, field),
-        )
-        # Handle-local mirror for introspection; the meta store
-        # (index_coord.index_specs) stays the authoritative copy.
-        self.info.index_specs[field] = {"kind": kind, "params": params or {}}
-        # Batch indexing (paper §3.5): issue builds for already-sealed segments.
-        for sid in self.system.data_coord.sealed_segments(self.name):
-            self.system.index_coord.rebuild_segment(self.name, sid, fields=[field])
-        self.system.run_until_idle()
+        self.system._set_index_spec(self, field, kind, params)
+        self.system._settle()
 
     def flush(self) -> None:
         """Seal all growing segments and wait for archive + index builds.
@@ -279,7 +295,7 @@ class ManuCollection:
         everything admitted before it."""
         self.system.scheduler.flush_writes(collection=self.name)
         self.system.data_coord.flush(self.name)
-        self.system.run_until_idle()
+        self.system._drain()
 
     def compact(self) -> dict:
         """Run one compaction cycle (purge deletes, merge small segments)."""
@@ -433,8 +449,10 @@ class ManuSystem:
         device="cuda",
     ):
         self.config = config or ManuConfig()
-        if self.config.threaded:
-            raise NotImplementedError(THREADED_NOT_PORTED)
+        if self.config.threaded and self.config.manual_clock:
+            # A manual clock moves only when a cooperative wait advances it,
+            # so the loggers would tick once and every wait would time out.
+            raise ValueError("threaded mode ticks on the wall clock: pass manual_clock=False")
         self.device = resolve_device(device)
         self.clock: Clock = ManualClock(1_000_000) if self.config.manual_clock else Clock()
         self.tso = TSO(self.clock)
@@ -457,20 +475,35 @@ class ManuSystem:
             raw_store = FaultyObjectStore(raw_store, injector)
             raw_meta = FaultyMetaStore(raw_meta, injector)
             raw_broker = FaultyLogBroker(raw_broker, injector)
-        # Cooperative mode: backoff is accounting only (no sleep).
+        # Backoff sleeps in threaded mode; cooperatively it is accounting only.
         policy = self.config.retry_policy or RetryPolicy()
+        sleep = time.sleep if self.config.threaded else None
         self.store: ObjectStore = RetryingObjectStore(
-            raw_store, policy, metrics=self.telemetry, event_log=self.event_log,
+            raw_store, policy, metrics=self.telemetry, event_log=self.event_log, sleep=sleep,
         )
         self.meta = RetryingMetaStore(
-            raw_meta, policy, metrics=self.telemetry, event_log=self.event_log,
+            raw_meta, policy, metrics=self.telemetry, event_log=self.event_log, sleep=sleep,
         )
         self.broker = RetryingLogBroker(
-            raw_broker, policy, metrics=self.telemetry, event_log=self.event_log,
+            raw_broker, policy, metrics=self.telemetry, event_log=self.event_log, sleep=sleep,
         )
 
+        # Held by the pump thread for each round and by control-plane calls
+        # (``_serialized``); reentrant, so cooperative calls pump under it.
+        self._step_lock = threading.RLock()
+        # One WAL append lock for every logger: LSN and publish stay one step.
+        self._wal_lock = threading.Lock()
         self._build_processes()
         self.collections: dict[str, ManuCollection] = {}
+        self._threads: list[threading.Thread] = []
+        self._stop = threading.Event()
+        self._thread_error: BaseException | None = None
+        # Pump rounds done by the pump thread, and how many of the last ones
+        # in a row made no progress (threaded ``wait_idle`` reads both).
+        self._pump_rounds = 0
+        self._quiet_rounds = 0
+        if self.config.threaded:
+            self.start_threads()
 
     def _build_processes(self) -> None:
         """Construct every Manu *process* — coordinators, worker nodes, the
@@ -490,19 +523,15 @@ class ManuSystem:
 
         self.loggers = [
             Logger(f"logger-{i}", self.broker, self.tso, self.data_coord, self.clock,
-                   self.config.tick_interval_ms, metrics=self.telemetry)
+                   self.config.tick_interval_ms, metrics=self.telemetry, wal_lock=self._wal_lock)
             for i in range(self.config.num_loggers)
         ]
         self.data_nodes = [
             DataNode(f"dn-{i}", self.broker, self.store, self.tso, self.data_coord,
-                     metrics=self.telemetry)
+                     metrics=self.telemetry, wal_lock=self._wal_lock)
             for i in range(self.config.num_data_nodes)
         ]
-        self.index_nodes = [
-            IndexNode(f"in-{i}", self.broker, self.store, self.meta, self.tso,
-                      metrics=self.telemetry, device=self.device)
-            for i in range(self.config.num_index_nodes)
-        ]
+        self.index_nodes = [self._new_index_node(f"in-{i}") for i in range(self.config.num_index_nodes)]
         self.compaction_coord = CompactionCoordinator(
             self.broker, self.meta, self.tso, self.data_coord, self.store,
             delete_ratio=self.config.compaction_delete_ratio,
@@ -526,6 +555,7 @@ class ManuSystem:
             self.query_nodes, metrics=self.telemetry,
         )
         self.proxy.bounded_staleness_ms = self.config.bounded_staleness_ms
+        self.proxy.control_lock = self._step_lock
         # The serving-tier request scheduler: async micro-batched ingest
         # with backpressure plus the read micro-batching stage the batcher
         # fronts.
@@ -543,6 +573,12 @@ class ManuSystem:
         self.time_travel = TimeTravel(self.broker, self.store)
 
     # ------------------------------------------------------------- topology
+    def _new_index_node(self, node_id: str) -> IndexNode:
+        ix = IndexNode(node_id, self.broker, self.store, self.meta, self.tso,
+                       metrics=self.telemetry, device=self.device)
+        ix.publish_lock = self._step_lock  # the build thread announces under it
+        return ix
+
     def _new_query_node(self) -> QueryNode:
         # unique ids even after removals
         i = len(self.query_nodes)
@@ -556,14 +592,16 @@ class ManuSystem:
         self.query_coord.register_node(node_id)
         return qn
 
+    @_serialized
     def add_query_node(self) -> str:
         """Scale up: register the node, then let the reconciler heal any
         under-replicated segments onto it and rebalance toward even load."""
         qn = self._new_query_node()
         self.query_coord.reconciler.reconcile()
-        self.run_until_idle()
+        self._settle()
         return qn.node_id
 
+    @_serialized
     def remove_query_node(self, node_id: str | None = None) -> str | None:
         """Graceful scale-down: mark the node draining, reconcile so its
         replicas are shed to survivors (load-before-release — a segment's
@@ -575,7 +613,7 @@ class ManuSystem:
         node_id = node_id or live[-1]
         self.query_coord.start_drain(node_id)
         self.query_coord.reconciler.reconcile()
-        self.run_until_idle()  # survivors load their new replicas
+        self._settle()  # survivors load their new replicas
         self.query_coord.deregister_node(node_id)
         self.query_coord.handle_failures()
         node = self.query_nodes.get(node_id)
@@ -583,7 +621,7 @@ class ManuSystem:
             node.alive = False
         for coll in self.collections.values():
             self.query_coord.assign_channels(coll.name, coll.info.num_shards)
-        self.run_until_idle()
+        self._settle()
         return node_id
 
     def kill_query_node(self, node_id: str) -> None:
@@ -614,7 +652,7 @@ class ManuSystem:
         # replaced in place: the proxy routes over this exact list object
         self.loggers[i] = Logger(
             logger_id, self.broker, self.tso, self.data_coord, self.clock,
-            self.config.tick_interval_ms, metrics=self.telemetry,
+            self.config.tick_interval_ms, metrics=self.telemetry, wal_lock=self._wal_lock,
         )
         self._emit_lifecycle("restarted", "logger", logger_id)
 
@@ -622,6 +660,7 @@ class ManuSystem:
         self.data_nodes[self._locate(self.data_nodes, node_id)].alive = False
         self._emit_lifecycle("killed", "data", node_id)
 
+    @_serialized
     def restart_data_node(self, node_id: str) -> None:
         """Rebuild a data node from the log backbone: re-subscribe its DML
         channels from position 0 (replay skips the insert halves of segments
@@ -630,18 +669,19 @@ class ManuSystem:
         i = self._locate(self.data_nodes, node_id)
         old = self.data_nodes[i]
         dn = DataNode(node_id, self.broker, self.store, self.tso,
-                      self.data_coord, metrics=self.telemetry)
+                      self.data_coord, metrics=self.telemetry, wal_lock=self._wal_lock)
         for ch in old.subscriptions:
             dn.subscribe(ch, 0)
         self.data_nodes[i] = dn
         self._emit_lifecycle("restarted", "data", node_id)
         self.reconcile_sealed()
-        self.run_until_idle()
+        self._settle()
 
     def kill_index_node(self, node_id: str) -> None:
         self.index_nodes[self._locate(self.index_nodes, node_id)].alive = False
         self._emit_lifecycle("killed", "index", node_id)
 
+    @_serialized
     def restart_index_node(self, node_id: str) -> None:
         """A fresh index node re-reading the coord channel from 0: finished
         builds are skipped by their CAS claims; claims the dead process
@@ -653,17 +693,15 @@ class ManuSystem:
             _, coll, sid, field_name, _kind = key.split("/")
             if self.meta.get(f"index/{coll}/{sid}/{field_name}") is None:
                 self.meta.delete(key)
-        self.index_nodes[i] = IndexNode(
-            node_id, self.broker, self.store, self.meta, self.tso,
-            metrics=self.telemetry, device=self.device,
-        )
+        self.index_nodes[i] = self._new_index_node(node_id)
         self._emit_lifecycle("restarted", "index", node_id)
-        self.run_until_idle()
+        self._settle()
 
     def kill_compaction_node(self, node_id: str) -> None:
         self.compaction_nodes[self._locate(self.compaction_nodes, node_id)].alive = False
         self._emit_lifecycle("killed", "compaction", node_id)
 
+    @_serialized
     def restart_compaction_node(self, node_id: str) -> None:
         """A fresh compaction node replaying the coord channel (the durable
         task queue) from 0: done-markers keep finished tasks finished, and
@@ -676,8 +714,9 @@ class ManuSystem:
             metrics=self.telemetry,
         )
         self._emit_lifecycle("restarted", "compaction", node_id)
-        self.run_until_idle()
+        self._settle()
 
+    @_serialized
     def restart_query_node(self, node_id: str) -> str:
         """Crash-restart one query node: expire the dead incarnation's
         lease and reassign its replicas to survivors, then register a fresh
@@ -695,9 +734,10 @@ class ManuSystem:
         self.query_coord.register_node(node_id)
         self.query_coord.reconciler.reconcile()
         self._emit_lifecycle("restarted", "query", node_id)
-        self.run_until_idle()
+        self._settle()
         return node_id
 
+    @_serialized
     def recover_failures(self) -> list[str]:
         """Expire dead leases and reconcile (the query coordinator's
         watchdog): failed nodes' segments are CAS-reassigned to surviving
@@ -710,10 +750,11 @@ class ManuSystem:
             if not qn.alive and node_id in st:
                 self.meta.revoke_lease(st[node_id].lease_id)
         report = self.query_coord.reconciler.reconcile()
-        self.run_until_idle()
+        self._settle()
         return report["dead"]
 
     # ------------------------------------------------------ crash recovery
+    @_serialized
     def reconcile_sealed(self) -> int:
         """Re-announce sealed binlogs the metadata plane never learned
         about: a data node dying between the binlog flush and its
@@ -772,6 +813,7 @@ class ManuSystem:
             healed += 1
         return healed
 
+    @_serialized
     def heal_attr_satellites(self) -> int:
         """Rebuild missing or partial attribute-index satellites of the
         segments the metadata plane already knows.  Returns segments healed."""
@@ -801,7 +843,12 @@ class ManuSystem:
         event log carry over; collections, segment state, index state,
         placement, pending compactions, growing rows and pinned time-travel
         windows are reconstructed.  The old query and index nodes' device
-        memory is released with them.  Session watermarks do not survive."""
+        memory is released with them.  Session watermarks do not survive.
+        In threaded mode the threads are stopped for the rebuild and started
+        again after it."""
+        was_threaded = bool(self._threads)
+        if was_threaded:
+            self.stop_threads()
         # The dead proxy's meta watches must stop firing into it.
         self.proxy._cancel_watch()
         self.proxy._cancel_partition_watch()
@@ -861,6 +908,8 @@ class ManuSystem:
         # re-loaded and re-retired.
         report["retired_reloaded"] = self.query_coord.recover_retired(self.store)
         self.run_until_idle()
+        if was_threaded or self.config.threaded:
+            self.start_threads()
         self.telemetry.inc("system_restarts_total")
         self.event_log.emit(
             "system_restarted", "system",
@@ -869,6 +918,7 @@ class ManuSystem:
         return report
 
     # ----------------------------------------------------------------- DDL
+    @_serialized
     def create_collection(
         self,
         name: str,
@@ -905,18 +955,35 @@ class ManuSystem:
             dn = self.data_nodes[shard % len(self.data_nodes)]
             dn.subscribe(dml_channel(name, shard))
         self.query_coord.assign_channels(name, info.num_shards)
-        self.pump()
+        if not self.config.threaded:
+            self.pump()
         return coll
 
+    @_serialized
     def drop_collection(self, name: str) -> None:
         self.root_coord.drop_collection(name)
         self.collections.pop(name, None)
 
     # ---------------------------------------------------------- partitions
+    @_serialized
     def create_partition(self, name: str, partition: str) -> None:
         self.root_coord.create_partition(name, partition)
-        self.pump()
+        if not self.config.threaded:
+            self.pump()
 
+
+    @_serialized
+    def _set_index_spec(self, coll: ManuCollection, field: str, kind: str, params: dict | None) -> None:
+        self.index_coord.set_index_spec(
+            coll.name, field, kind, params, metric=coll.info.metric,
+            column=vector_column_of(coll.info.schema, field),
+        )
+        # Handle-local mirror for introspection; the meta store
+        # (index_coord.index_specs) stays the authoritative copy.
+        coll.info.index_specs[field] = {"kind": kind, "params": params or {}}
+        # Batch indexing (paper §3.5): issue builds for already-sealed segments.
+        for sid in self.data_coord.sealed_segments(coll.name):
+            self.index_coord.rebuild_segment(coll.name, sid, fields=[field])
 
     def drop_partition(self, name: str, partition: str) -> dict:
         """Drop a partition: unregister it, retire its sealed segments
@@ -927,7 +994,13 @@ class ManuSystem:
         ``tombstones_folded`` (``compact_ts`` = the drop ts): the query
         nodes prune them at the next retention-horizon advance, and the
         compaction coordinator prunes its own view now."""
-        self.run_until_idle()  # let in-flight seals land first
+        self._drain()  # let in-flight seals land first
+        sids = self._drop_partition_state(name, partition)
+        self._settle()
+        return {"partition": partition, "segments_dropped": len(sids)}
+
+    @_serialized
+    def _drop_partition_state(self, name: str, partition: str) -> list[int]:
         ts = self.root_coord.drop_partition(name, partition)
         sids = self.data_coord.drop_partition_state(name, partition, ts)
 
@@ -988,8 +1061,7 @@ class ManuSystem:
             pruned = prune_folded(self.compaction_coord.tombstones.get(name) or {}, exclusive, ts)
             if pruned is not None:
                 self.compaction_coord.tombstones[name] = pruned
-        self.run_until_idle()
-        return {"partition": partition, "segments_dropped": len(sids)}
+        return sids
 
 
     # ------------------------------------------------------------ mutations
@@ -1007,7 +1079,8 @@ class ManuSystem:
             self.scheduler.flush_writes(coll.info.name)
         result = self.proxy.mutate(coll.info, request)
         coll.last_write_ts = result.watermark_ts
-        self.pump()
+        if not self.config.threaded:
+            self.pump()
         return result
 
     def mutate_async(
@@ -1034,36 +1107,42 @@ class ManuSystem:
     def _after_ingest_flush(self) -> None:
         """Post-flush hook: pump so subscribers observe the just-published
         WAL entries."""
-        self.pump()
+        if not self.config.threaded:
+            self.pump()
 
     # ---------------------------------------------------------------- pump
 
-    def pump(self, rounds: int = 1) -> bool:
-        """One cooperative scheduling round over every component."""
+    def pump(self, rounds: int = 1, *, index_nodes: bool = True) -> bool:
+        """One cooperative scheduling round over every component; the pump
+        thread leaves the index nodes (``index_nodes=False``) to the build
+        thread."""
         progress = False
         for _ in range(rounds):
             # Alive nodes heartbeat every round: consistency waits advance
             # the manual clock, which must never expire a *live* lease.
-            for node_id, qn in self.query_nodes.items():
+            # Snapshots: in threaded mode the main thread may add or drop
+            # nodes while the pump thread walks them.
+            for node_id, qn in list(self.query_nodes.items()):
                 if qn.alive and node_id in self.query_coord.nodes:
                     self.query_coord.heartbeat(node_id)
-            for lg in self.loggers:
+            for lg in list(self.loggers):
                 if not lg.alive:
                     continue
                 try:
                     lg.tick(self.broker.channels("dml/"))
                 except Crash as c:
                     self._mark_crashed("logger", lg, c)
-            for dn in self.data_nodes:
+            for dn in list(self.data_nodes):
                 progress |= self._crashable_step("data", dn)
             progress |= self.index_coord.step()
-            for ix in self.index_nodes:
-                progress |= self._crashable_step("index", ix)
+            if index_nodes:
+                for ix in list(self.index_nodes):
+                    progress |= self._crashable_step("index", ix)
             progress |= self.compaction_coord.step()
-            for cn in self.compaction_nodes:
+            for cn in list(self.compaction_nodes):
                 progress |= self._crashable_step("compaction", cn)
             progress |= self.query_coord.step()
-            for qn in self.query_nodes.values():
+            for qn in list(self.query_nodes.values()):
                 progress |= self._crashable_step("query", qn)
             # Ingest scheduler age trigger: admitted-but-unflushed writes
             # never outlive ``ingest_flush_ms`` of pump activity.
@@ -1102,31 +1181,52 @@ class ManuSystem:
             )
         return rounds
 
+    def _settle(self) -> None:
+        """Cooperatively, run every component until quiescent; in threaded
+        mode the pump thread does that work and the caller goes on."""
+        if not self.config.threaded:
+            self.run_until_idle()
+
+    def _drain(self) -> None:
+        """Return once every component is quiescent: cooperatively by
+        running them, in threaded mode by waiting for the pump thread."""
+        if self.config.threaded:
+            self.wait_idle()
+        else:
+            self.run_until_idle()
+
     def wait_idle(self, timeout_s: float = 30.0) -> None:
         """Poll until no live query node lags its channels, the compaction
         coordinator has consumed the log, and no index build or compaction
         is pending; raise ``TimeoutError`` with ``_diagnostic_dump`` after
-        ``timeout_s``.  The facade has no pump thread, so each poll that
-        finds work pending pumps one round itself."""
+        ``timeout_s``.  Cooperatively, each poll that finds work pending
+        pumps one round itself.  In threaded mode the pump thread does the
+        work, and the wait also needs one whole pump round that began after
+        the wait and made no progress: the reference's checks alone pass in
+        the moment between a flush and the data node's seal."""
         deadline = time.time() + timeout_s
         polls = 0
+        first_round = self._pump_rounds + 2  # the first round begun after now
         while time.time() < deadline:
             polls += 1
+            self._raise_thread_error()
             lag = sum(
                 sub.lag()
-                for qn in self.query_nodes.values()
+                for qn in list(self.query_nodes.values())
                 if qn.alive
-                for sub in qn.subscriptions.values()
+                for sub in list(qn.subscriptions.values())
             )
             if (
                 lag == 0
                 and self.compaction_coord.lag() == 0
                 and not self.index_coord.pending_tasks
                 and not self.compaction_coord.pending
+                and (not self._threads
+                     or (self._quiet_rounds >= 1 and self._pump_rounds >= first_round))
             ):
                 self.event_log.emit("wait_idle", "system", polls=polls, drained=True)
                 return
-            if not self.pump():
+            if self._threads or not self.pump():
                 time.sleep(0.005)
         self.event_log.emit("wait_idle", "system", polls=polls, drained=False)
         raise TimeoutError(self._diagnostic_dump(f"wait_idle timed out after {timeout_s}s"))
@@ -1166,15 +1266,19 @@ class ManuSystem:
         Returns {"tasks", "epoch", "rows_purged"} for THIS cycle; a no-op
         when the policy finds nothing to do."""
         # The coordinator must see all seals and deletes before planning.
-        self.run_until_idle()
+        self._drain()
         purged_before = sum(cn.rows_purged for cn in self.compaction_nodes)
-        tasks = self.compaction_coord.plan(name)
-        self.run_until_idle()
+        tasks = self._plan_compaction(name)
+        self._drain()
         return {
             "tasks": len(tasks),
             "epoch": self.compaction_coord.segment_map.epoch(name),
             "rows_purged": sum(cn.rows_purged for cn in self.compaction_nodes) - purged_before,
         }
+
+    @_serialized
+    def _plan_compaction(self, name: str) -> list:
+        return self.compaction_coord.plan(name)
 
     def gc(self, name: str | None = None, horizon_ts: int | None = None) -> dict:
         """Advance the retention horizon and reclaim unreferenced objects
@@ -1188,11 +1292,15 @@ class ManuSystem:
                 )
             else:
                 horizon_ts = self.tso.next()
-        self.compaction_coord.advance_horizon(horizon_ts, collection=name)
-        self.run_until_idle()
-        report = self.gc_reaper.reap(horizon_ts, collection=name)
-        self.run_until_idle()
+        report = self._reap(name, horizon_ts)
+        self._settle()
         return report
+
+    @_serialized
+    def _reap(self, name: str | None, horizon_ts: int) -> dict:
+        self.compaction_coord.advance_horizon(horizon_ts, collection=name)
+        self._settle()
+        return self.gc_reaper.reap(horizon_ts, collection=name)
 
     # -------------------------------------------------------------- search
     def search(
@@ -1226,7 +1334,8 @@ class ManuSystem:
         guarantee = self._resolve_guarantee(request, session_ts=session_ts)
         return self.proxy.search(
             coll.info, request, guarantee=guarantee,
-            wait_fn=self._cooperative_wait, hedge_timeout_s=hedge_timeout_s,
+            wait_fn=self._threaded_wait if self.config.threaded else self._cooperative_wait,
+            hedge_timeout_s=hedge_timeout_s,
         )
 
     def _resolve_guarantee(
@@ -1314,7 +1423,46 @@ class ManuSystem:
             self._diagnostic_dump("consistency wait did not converge")
         )
 
+    def _threaded_wait(
+        self, node: QueryNode, guarantee: GuaranteeTs, channels=None
+    ) -> None:
+        """Block until the node has consumed a time-tick covering the
+        guarantee on each of its (scoped) channels; the pump thread does
+        the stepping.  A channel the coordinator assigns to the node but
+        the node has not subscribed yet is waited for (the reference's wait
+        passes it, and the read misses every growing row); one re-homed
+        off the node drops out, its new owner runs its own wait.  Raises
+        ``TimeoutError`` after 10 s (the reference returns and answers from
+        whatever the node holds)."""
+        if channels is None:
+            channels = [ch for ch in node.subscriptions if ch.startswith("dml/")]
+        else:
+            channels = list(channels)
+        target = guarantee.wait_target_ts()
+        deadline = time.time() + 10.0
+        for ch in channels:
+            self.broker.wait_for_tick(ch, target, timeout_s=max(0.0, deadline - time.time()))
+        while True:
+            self._raise_thread_error()
+            st = self.query_coord.nodes.get(node.node_id)
+            followers = getattr(self.query_coord, "channel_followers", {})
+            waiting = False
+            for ch in channels:
+                sub = node.subscriptions.get(ch)
+                if sub is None:
+                    waiting |= ((st is not None and ch in st.channels)
+                                or node.node_id in followers.get(ch, ()))
+                else:
+                    wm = sub.last_tick_seen
+                    waiting |= not (wm >= target or guarantee.satisfied_by(wm))
+            if not waiting:
+                return
+            if time.time() >= deadline:
+                raise TimeoutError(self._diagnostic_dump("threaded consistency wait did not converge"))
+            time.sleep(0.001)
+
     # -------------------------------------------------------- time travel
+    @_serialized
     def checkpoint_collection(self, name: str) -> None:
         coll = self.collections[name]
         ts = self.tso.last_issued()
@@ -1335,6 +1483,91 @@ class ManuSystem:
         )
 
     # ------------------------------------------------------------ metrics
+    # ------------------------------------------------------------- threads
+    def start_threads(self) -> None:
+        """Start the pump thread (steps every component but the index
+        nodes, then sleeps ``pump_sleep_s``), the build thread (steps the
+        index nodes outside the step lock, so the query nodes go on
+        consuming ticks and answering reads while an index builds) and the
+        watchdog thread (heartbeats the live query nodes; reconciles every
+        ``reconcile_interval_s``)."""
+        self._stop.clear()
+        self._thread_error = None
+        # The pump thread owns node stepping; the proxy's failover waits
+        # sleep instead of stepping nodes themselves.
+        self.proxy.pump_fn = lambda: time.sleep(self.config.pump_sleep_s)
+
+        def pump_loop():
+            while not self._stop.is_set():
+                with self._step_lock:
+                    progressed = self.pump(index_nodes=False)
+                self._quiet_rounds = 0 if progressed else self._quiet_rounds + 1
+                self._pump_rounds += 1
+                time.sleep(self.config.pump_sleep_s)
+
+        def build_loop():
+            while not self._stop.is_set():
+                built = False
+                for ix in list(self.index_nodes):
+                    built |= self._crashable_step("index", ix)
+                if not built:
+                    self._stop.wait(self.config.pump_sleep_s)
+
+        def watchdog_loop():
+            last_reconcile = 0.0
+            while not self._stop.is_set():
+                for node_id, qn in list(self.query_nodes.items()):
+                    if qn.alive and node_id in self.query_coord.nodes:
+                        self.query_coord.heartbeat(node_id)
+                now = time.time()
+                # Reconcile between pump rounds; never wait for a round
+                # (a compaction can hold one for seconds), so the
+                # heartbeats above keep every live lease fresh meanwhile.
+                if (now - last_reconcile >= self.config.reconcile_interval_s
+                        and self._step_lock.acquire(blocking=False)):
+                    try:
+                        last_reconcile = now
+                        self.query_coord.reconciler.reconcile()
+                    finally:
+                        self._step_lock.release()
+                self._stop.wait(0.05)
+
+        def guarded(loop):
+            def run():
+                try:
+                    loop()
+                except BaseException as exc:  # raised again in the caller's thread
+                    self._thread_error = exc
+                    self._stop.set()
+            return run
+
+        for name, loop in (("manu-pump", pump_loop), ("manu-build", build_loop),
+                           ("manu-watchdog", watchdog_loop)):
+            t = threading.Thread(target=guarded(loop), name=name, daemon=True)
+            t.start()
+            self._threads.append(t)
+
+    def stop_threads(self) -> None:
+        """Stop and join the threads (the build thread may be in an index
+        build); raise if one outlives ``THREAD_JOIN_S`` or if one died of
+        an exception."""
+        self._stop.set()
+        deadline = time.time() + THREAD_JOIN_S
+        for t in self._threads:
+            t.join(timeout=max(0.0, deadline - time.time()))
+        alive = [t.name for t in self._threads if t.is_alive()]
+        if alive:
+            raise RuntimeError(f"threads still running after {THREAD_JOIN_S} s: {alive}")
+        self._threads.clear()
+        self.proxy.pump_fn = None
+        self._raise_thread_error()
+
+    def _raise_thread_error(self) -> None:
+        err = self._thread_error
+        if err is not None:
+            self._thread_error = None
+            raise RuntimeError("a ManuSystem thread failed") from err
+
     def metrics(self) -> MetricsSnapshot:
         """Typed, JSON-serializable snapshot of the shared metrics registry:
         every counter and gauge series, plus a :class:`HistogramRow` per

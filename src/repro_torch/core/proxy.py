@@ -89,6 +89,15 @@ class Proxy:
         # BOUNDED staleness window (ms) for named-level resolution; the
         # system facade threads ``ManuConfig.bounded_staleness_ms`` here.
         self.bounded_staleness_ms = 2_000.0
+        # How to advance message delivery while waiting on a placement
+        # change mid-request (failover / slow load).  None = step the live
+        # query nodes directly (cooperative default); the threaded runtime
+        # installs a short sleep so its pump thread does the stepping.
+        self.pump_fn = None
+        # Taken around the control calls a request makes (failover reports,
+        # reconciles): the system's step lock, so they do not interleave
+        # with a pump thread's round.
+        self.control_lock = threading.RLock()
         # Metadata cache, refreshed via meta-store watch (paper: proxies
         # cache a copy of the metadata for verifying legitimacy).
         self._meta_cache: dict[str, dict] = {}
@@ -362,7 +371,22 @@ class Proxy:
         covered: set[int] = set()  # sealed units already answered
         hedged_units: set[tuple[str, frozenset]] = set()
         wait_scoped: bool | None = None  # does wait_fn accept a channel scope?
-        while pending:
+        late_rounds = 0
+        while True:
+            if not pending:
+                # Under a pump thread (``pump_fn``), a growing segment can be
+                # handed over to its sealed copy between planning and the
+                # scan: the plan has no sealed unit for it and the growing
+                # copy is gone (the reference loses its rows; ROADMAP Queue
+                # 3).  Dispatch every sealed segment placed since and not yet
+                # answered; pk-dedup at the merge absorbs overlap.
+                if self.pump_fn is None or late_rounds == self._LATE_LOAD_ROUNDS:
+                    break
+                pending.extend(self._late_loads(info.name, covered))
+                if not pending:
+                    break
+                late_rounds += 1
+                self.metrics.inc("proxy_late_load_dispatches_total")
             node_id, sids = pending.pop(0)
             is_hedge = (node_id, sids) in hedged_units
             node = self.query_nodes.get(node_id)
@@ -442,7 +466,8 @@ class Proxy:
                         detail="node-dead-mid-request",
                     )
                 if node_id in self.query_coord.nodes:
-                    self.query_coord.on_node_down(node_id)
+                    with self.control_lock:
+                        self.query_coord.on_node_down(node_id)
                 if sids:
                     pending.extend(self._recover_orphans(info.name, sids))
                 pending.extend(
@@ -537,6 +562,7 @@ class Proxy:
 
     # ------------------------------------------------- replica-aware dispatch
     _FAILOVER_ROUNDS = 200  # pump iterations before giving up on a unit
+    _LATE_LOAD_ROUNDS = 4  # late-load dispatch rounds per request
 
     def _alive(self, node_id: str) -> bool:
         qn = self.query_nodes.get(node_id)
@@ -682,9 +708,12 @@ class Proxy:
     def _pump(self) -> None:
         """Advance coordination-message delivery while waiting on a
         placement change (failover reassignment, slow segment load)."""
-        for qn in list(self.query_nodes.values()):
-            if qn.alive:
-                qn.step()
+        if self.pump_fn is not None:
+            self.pump_fn()
+        else:
+            for qn in list(self.query_nodes.values()):
+                if qn.alive:
+                    qn.step()
 
     def _recover_orphans(
         self, collection: str, sids
@@ -694,10 +723,11 @@ class Proxy:
         and pump until a surviving replica has each copy loaded."""
         coord = self.query_coord
         missing = set(sids)
-        for sid in sorted(missing):
-            for n in list(coord.replica_sets.get((collection, sid), ())):
-                if not self._alive(n) and n in coord.nodes:
-                    coord.on_node_down(n)
+        with self.control_lock:
+            for sid in sorted(missing):
+                for n in list(coord.replica_sets.get((collection, sid), ())):
+                    if not self._alive(n) and n in coord.nodes:
+                        coord.on_node_down(n)
         out: dict[str, set[int]] = {}
         for _ in range(self._FAILOVER_ROUNDS):
             for sid in sorted(missing):
@@ -707,7 +737,8 @@ class Proxy:
             missing -= {s for units in out.values() for s in units}
             if not missing:
                 break
-            coord.reconciler.reconcile()
+            with self.control_lock:
+                coord.reconciler.reconcile()
             self._pump()
         if missing:
             raise RuntimeError(
@@ -737,6 +768,18 @@ class Proxy:
         if orphans:
             units.extend(self._recover_orphans(collection, orphans))
         return units
+
+    def _late_loads(self, collection: str, covered: set[int]) -> "list[tuple[str, frozenset[int]]]":
+        """The sealed segments placed and loaded since the request was
+        planned, not yet answered.  One placed but loaded nowhere still has
+        its growing copy on the channel's node, which the request scanned."""
+        out: dict[str, set[int]] = {}
+        for sid in sorted(self.query_coord.placement_for(collection)):
+            if sid not in covered:
+                pick = self._pick_replica(collection, sid, chosen=out)
+                if pick is not None:
+                    out.setdefault(pick, set()).add(sid)
+        return [(n, frozenset(s)) for n, s in sorted(out.items())]
 
     def _channel_dispatches(
         self, collection: str, done_ids: set[str], pending

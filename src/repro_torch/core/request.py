@@ -1,7 +1,9 @@
 """Declarative search and mutation requests (paper §3.1 Table 2, §6.4);
 mirrors ``repro.core.request``.  Query vectors may be numpy arrays or
 tensors: :class:`AnnsQuery` holds them as a float32 tensor, and query nodes
-move them to their device.  Mutation rows stay host numpy (WAL payloads).
+move them to their device.  Mutation rows are host numpy (WAL payloads): an
+insert or upsert given tensors (an ``Embedder``'s rows on the card) copies
+each column to the host once, when the request is made.
 
 The read path is driven by one typed object instead of a kwarg chain:
 a :class:`SearchRequest` carries the top-k budget, the consistency
@@ -55,6 +57,15 @@ def vector_column_of(schema: Schema, field: str | None) -> str:
 # ---------------------------------------------------------------------------
 # Typed mutations (the write-path twin of SearchRequest)
 # ---------------------------------------------------------------------------
+
+
+def host_rows(rows: dict) -> dict:
+    """``rows`` with every tensor column copied to a host numpy array: the
+    log backbone that carries them is host memory."""
+    return {
+        name: col.detach().cpu().numpy() if torch.is_tensor(col) else col
+        for name, col in rows.items()
+    }
 
 
 @dataclass
@@ -111,6 +122,9 @@ class InsertRequest(MutationRequest):
     trace: bool = False  # attach a RequestTrace to the MutationResult
     op = "insert"
 
+    def __post_init__(self):
+        self.rows = host_rows(self.rows)
+
     def validate(self, schema: Schema) -> None:
         from .collection import validate_rows
 
@@ -148,6 +162,9 @@ class UpsertRequest(MutationRequest):
     partition: str = DEFAULT_PARTITION
     trace: bool = False  # attach a RequestTrace to the MutationResult
     op = "upsert"
+
+    def __post_init__(self):
+        self.rows = host_rows(self.rows)
 
     def validate(self, schema: Schema) -> None:
         from .collection import validate_rows

@@ -5,7 +5,10 @@ with a plain C interface (``build/repro_torch_kernels/lib<name>-<hash>.so``
 at the repository root), loaded with ``ctypes``.  The hash covers the
 source and the shared header, so an edited kernel is rebuilt.  Nothing is
 compiled at import: :func:`load` builds on first use, :func:`build_all`
-starts one ``nvcc`` per source at once.
+starts one ``nvcc`` per source at once.  Both hold a module lock, so two
+threads (a threaded ``ManuSystem``'s pump thread and the caller's) never
+build or load one library at once.  :func:`count_launch` is how every
+wrapper counts its launches, from any thread.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -31,6 +35,9 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_lock = threading.RLock()
+_launch_lock = threading.Lock()
+_this_thread = threading.local()
 
 
 def _nvcc() -> str:
@@ -74,6 +81,11 @@ def _finish(name: str, job) -> str:
 def build_all(names=SOURCES) -> dict[str, str]:
     """Compile every named kernel source concurrently; returns nvcc's log
     (register and shared-memory use) per source that was built."""
+    with _lock:
+        return _build_all(names)
+
+
+def _build_all(names) -> dict[str, str]:
     jobs = {n: _start(n) for n in names}
     logs: dict[str, str] = {}
     errors: list[str] = []
@@ -93,7 +105,31 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of one kernel source, built if missing."""
     lib = _loaded.get(name)
     if lib is None:
-        build_all((name,))
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        _loaded[name] = lib
+        with _lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                build_all((name,))
+                lib = ctypes.CDLL(str(_lib_path(name)))
+                _loaded[name] = lib
     return lib
+
+
+def count_launch(wrapper, path: str | None = None) -> None:
+    """Add one launch to ``wrapper.launches`` (and to
+    ``wrapper.path_launches[path]``), under a lock: a threaded
+    ``ManuSystem`` launches from its pump and build threads beside the
+    caller's.  The launching thread's own count (:func:`thread_launches`)
+    moves with it."""
+    with _launch_lock:
+        wrapper.launches += 1
+        if path is not None:
+            wrapper.path_launches[path] += 1
+    counts = getattr(_this_thread, "counts", None)
+    if counts is None:
+        counts = _this_thread.counts = {}
+    counts[wrapper] = counts.get(wrapper, 0) + 1
+
+
+def thread_launches(wrapper) -> int:
+    """The launches of ``wrapper`` the calling thread has made."""
+    return getattr(_this_thread, "counts", {}).get(wrapper, 0)

@@ -99,9 +99,8 @@ def kmeans_assign(x, centroids, *, small_c: int | None = None):
     )
     if rc != 0:
         raise RuntimeError(f"kmeans_assign: kernel launch failed with CUDA error {rc}")
-    kmeans_assign.launches += 1
     path = "tensor_cores" if centroids.shape[0] > small_c else "narrow_rows" if d <= NARROW_D else "byte_bound"
-    kmeans_assign.path_launches[path] += 1
+    _build.count_launch(kmeans_assign, path)
     return assign, min_d2
 
 

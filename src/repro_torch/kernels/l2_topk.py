@@ -190,7 +190,7 @@ def l2_topk(queries, bases, valids, k: int, metric: str = "l2", *, small_q: int 
     )
     if rc != 0:
         raise RuntimeError(f"l2_topk: kernel launch failed with CUDA error {rc}")
-    l2_topk.launches += 1
+    _build.count_launch(l2_topk)
     return out_v, out_i
 
 

@@ -82,7 +82,7 @@ def merge_topk(scores, pks, k: int, metric: str = "l2"):
     )
     if rc != 0:
         raise RuntimeError(f"merge_topk: kernel launch failed with CUDA error {rc}")
-    merge_topk.launches += 1
+    _build.count_launch(merge_topk)
     return out_v, out_p
 
 

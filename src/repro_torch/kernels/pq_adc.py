@@ -116,7 +116,7 @@ def pq_adc_topk(luts, codes, k: int, valid=None):
     )
     if rc != 0:
         raise RuntimeError(f"pq_adc_topk: kernel launch failed with CUDA error {rc}")
-    pq_adc_topk.launches += 1
+    _build.count_launch(pq_adc_topk)
     return out_v, out_i
 
 

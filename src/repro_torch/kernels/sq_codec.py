@@ -109,7 +109,7 @@ def sq_encode(x, vmin, vmax) -> torch.Tensor:
     )
     if rc != 0:
         raise RuntimeError(f"sq_encode: kernel launch failed with CUDA error {rc}")
-    sq_encode.launches += 1
+    _build.count_launch(sq_encode)
     return out
 
 
@@ -146,7 +146,7 @@ def sq_decode(codes, vmin, vmax) -> torch.Tensor:
     )
     if rc != 0:
         raise RuntimeError(f"sq_decode: kernel launch failed with CUDA error {rc}")
-    sq_decode.launches += 1
+    _build.count_launch(sq_decode)
     return out
 
 
@@ -235,7 +235,7 @@ def sq_l2_topk_segmented(queries, codes, vmin, vmax, valids, k: int, metric: str
     )
     if rc != 0:
         raise RuntimeError(f"sq_l2_topk: kernel launch failed with CUDA error {rc}")
-    sq_l2_topk.launches += 1
+    _build.count_launch(sq_l2_topk)
     return out_v, out_i
 
 

@@ -1,0 +1,220 @@
+"""Transformer building blocks in PyTorch: RMSNorm, RoPE, flash attention
+(online softmax over KV blocks), GQA / MQA with the qk-norm and qkv-bias
+options, the SwiGLU MLP; mirrors ``repro.models.layers``.
+
+Weights keep the reference's layout (``x @ w``, ``w`` as [d_in, d_out]) and
+dtype (bf16), so a parameter tree carries over unchanged
+(``models/convert.py``).  Products of bf16 operands accumulate in float32
+where the reference asks for it (``preferred_element_type``): the operands
+are widened first, which is exact for bf16.  The reference's sharding hints
+(``constrain``, ``model_axis_size``) have no counterpart on one card.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .._device import resolve_device
+from .config import ModelConfig
+
+PARAM_DTYPE = torch.bfloat16
+ACT_DTYPE = torch.bfloat16
+
+DEFAULT_KV_BLOCK = 1_024
+DEFAULT_Q_BLOCK = 2_048
+
+#: What the MLA projections raise: the item that ports them.
+MLA_NOT_PORTED = "multi-head latent attention (MLA) is not ported yet: ROADMAP Queue 1 item 4, step 1 (MLA)"
+
+
+# ----------------------------------------------------------------- norms --
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm computed in float32 and cast back to ``x``'s dtype."""
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
+# ------------------------------------------------------------------ rope --
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exponents)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [..., S, H, hd]; positions: [..., S] (int)."""
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)  # [hd/2]
+    angles = positions[..., :, None].float() * freqs[None, :]  # [..., S, hd/2]
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+# -------------------------------------------------------- flash attention --
+def _pad_seq(x: torch.Tensor, to: int) -> torch.Tensor:
+    return F.pad(x, (0, 0, 0, 0, 0, to - x.shape[1]))
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, Sq, H, hd]
+    k: torch.Tensor,  # [B, Sk, KVH, hd]  (KVH divides H: GQA / MQA)
+    v: torch.Tensor,  # [B, Sk, KVH, vd]
+    causal_offset: int | None = 0,
+    kv_block: int = DEFAULT_KV_BLOCK,
+    q_block: int = DEFAULT_Q_BLOCK,
+) -> torch.Tensor:
+    """Online-softmax attention over KV blocks, O(Sq * blk) live memory.
+
+    Queries are grouped [B, qb, KVH, G, hd] and contracted against the raw
+    KV heads, which are never repeated to H.  Both sequences are padded to
+    whole blocks; padded keys are masked.  ``causal_offset``: query i
+    attends to keys j <= i + offset; None disables the causal mask.  Scores,
+    the running (max, denominator, accumulator) and the value product are
+    float32; the output takes ``q``'s dtype."""
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    vd = v.shape[-1]
+    g = h // kvh
+    scale = 1.0 / math.sqrt(hd)
+    kv_block = min(kv_block, sk)
+    q_block = min(q_block, sq)
+    n_kv = -(-sk // kv_block)
+    n_q = -(-sq // q_block)
+    qp = _pad_seq(q, n_q * q_block).float()
+    kb = _pad_seq(k, n_kv * kv_block).float().reshape(b, n_kv, kv_block, kvh, hd)
+    vb = _pad_seq(v, n_kv * kv_block).float().reshape(b, n_kv, kv_block, kvh, vd)
+    dev = q.device
+    outs = []
+    for qi in range(n_q):
+        q5 = qp[:, qi * q_block:(qi + 1) * q_block].reshape(b, q_block, kvh, g, hd)
+        q_pos = qi * q_block + torch.arange(q_block, device=dev)
+        m = torch.full((b, kvh, g, q_block), float("-inf"), device=dev)
+        l = torch.zeros((b, kvh, g, q_block), device=dev)
+        acc = torch.zeros((b, kvh, g, q_block, vd), device=dev)
+        for kj in range(n_kv):
+            s = torch.einsum("bqkgd,bekd->bkgqe", q5, kb[:, kj]) * scale  # [B,KVH,G,qb,kb]
+            k_pos = kj * kv_block + torch.arange(kv_block, device=dev)
+            mask = (k_pos < sk)[None, :]  # padding
+            if causal_offset is not None:
+                mask = mask & (k_pos[None, :] <= q_pos[:, None] + causal_offset)
+            s = torch.where(mask, s, torch.tensor(-1e30, device=dev))
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum("bkgqe,bekd->bkgqd", p, vb[:, kj])
+            m = m_new
+        out = acc / l[..., None].clamp_min(1e-30)  # [B,KVH,G,qb,vd]
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, q_block, h, vd))
+    return torch.cat(outs, 1)[:, :sq].to(q.dtype)
+
+
+def repeat_kv(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B, S, KVH, hd] -> [B, S, H, hd] by repeating each kv head."""
+    kvh = x.shape[2]
+    if kvh == num_heads:
+        return x
+    return x.repeat_interleave(num_heads // kvh, dim=2)
+
+
+# ------------------------------------------------------------ parameters --
+def model_device(device="cuda") -> torch.device:
+    """``resolve_device``, save that ``"meta"`` passes: a shape-only model
+    that ``load_state_dict(..., assign=True)`` then fills."""
+    if torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
+def _normal(shape, scale: float, generator, device) -> nn.Parameter:
+    """A bf16 normal draw times ``scale`` (in bf16, as the reference)."""
+    w = torch.randn(shape, generator=generator, device=device, dtype=PARAM_DTYPE)
+    return nn.Parameter(w.mul_(scale), requires_grad=False)
+
+
+def _const(n: int, value: float, device) -> nn.Parameter:
+    return nn.Parameter(torch.full((n,), value, dtype=PARAM_DTYPE, device=device), requires_grad=False)
+
+
+class Attention(nn.Module):
+    """GQA / MQA self-attention weights (``init_attention_params``)."""
+
+    def __init__(self, cfg: ModelConfig, generator=None, device="cuda"):
+        super().__init__()
+        if cfg.attn_type == "mla":
+            raise NotImplementedError(MLA_NOT_PORTED)
+        device = model_device(device)
+        d = cfg.d_model
+        s = 1.0 / math.sqrt(d)
+        self.w_q = _normal((d, cfg.q_dim), s, generator, device)
+        self.w_k = _normal((d, cfg.kv_dim), s, generator, device)
+        self.w_v = _normal((d, cfg.kv_dim), s, generator, device)
+        self.w_o = _normal((cfg.q_dim, d), 1.0 / math.sqrt(cfg.q_dim), generator, device)
+        if cfg.qkv_bias:
+            self.b_q = _const(cfg.q_dim, 0.0, device)
+            self.b_k = _const(cfg.kv_dim, 0.0, device)
+            self.b_v = _const(cfg.kv_dim, 0.0, device)
+        if cfg.qk_norm:
+            self.q_head_norm = _const(cfg.head_dim, 1.0, device)
+            self.k_head_norm = _const(cfg.head_dim, 1.0, device)
+
+
+def gqa_qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor, positions: torch.Tensor):
+    """Project to (q [B,S,H,hd], k [B,S,KVH,hd], v [B,S,KVH,hd]) with rope."""
+    b, s, _ = x.shape
+    q = x @ p.w_q
+    k = x @ p.w_k
+    v = x @ p.w_v
+    if cfg.qkv_bias:
+        q = q + p.b_q
+        k = k + p.b_k
+        v = v + p.b_v
+    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_head_norm, cfg.norm_eps)
+        k = rms_norm(k, p.k_head_norm, cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def mla_qkv(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor):
+    """MLA projections (``repro.models.layers.mla_qkv``): not ported."""
+    raise NotImplementedError(MLA_NOT_PORTED)
+
+
+def attention_block(
+    cfg: ModelConfig, p: Attention, x: torch.Tensor, positions: torch.Tensor,
+    kv_block: int = DEFAULT_KV_BLOCK,
+) -> torch.Tensor:
+    """Full causal self-attention for a whole sequence."""
+    if cfg.attn_type == "mla":
+        raise NotImplementedError(MLA_NOT_PORTED)
+    q, k, v = gqa_qkv(cfg, p, x, positions)
+    out = flash_attention(q, k, v, causal_offset=0, kv_block=kv_block)
+    b, s = x.shape[:2]
+    return out.reshape(b, s, cfg.q_dim) @ p.w_o
+
+
+# ------------------------------------------------------------------- MLP --
+class MLP(nn.Module):
+    """SwiGLU weights (``init_mlp_params``)."""
+
+    def __init__(self, d: int, f: int, generator=None, device="cuda"):
+        super().__init__()
+        device = model_device(device)
+        self.w_gate = _normal((d, f), 1.0 / math.sqrt(d), generator, device)
+        self.w_up = _normal((d, f), 1.0 / math.sqrt(d), generator, device)
+        self.w_down = _normal((f, d), 1.0 / math.sqrt(f), generator, device)
+
+
+def mlp_block(p: MLP, x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down

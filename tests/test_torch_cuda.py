@@ -796,3 +796,56 @@ def test_facade_round_trip_on_card(dev):
         testing.assert_oracle_answer(step, (got.scores, got.pks), oracle, *SCORE_TOL["l2"])
     assert sq_mod.sq_decode.launches > before
     assert not torch.isin(got.pks, doomed).any()
+
+
+def test_threaded_round_trip_on_card(dev):
+    """The same flow on a threaded system: the pump thread seals, builds
+    and loads on the card while the caller inserts and searches; STRONG
+    answers equal the float64 oracle, and ``stop_threads()`` leaves no
+    thread."""
+    import threading
+
+    from repro_torch import testing
+    from repro_torch.core import ConsistencyLevel, ManuConfig, ManuSystem, SearchRequest
+
+    manu = ManuSystem(ManuConfig(seal_rows=1_000, slice_rows=256, threaded=True, manual_clock=False),
+                      device=dev)
+    try:
+        coll = manu.create_collection("c", dim=64)
+        coll.create_index("vector", "ivf_flat", {"nlist": 16, "nprobe": 4})
+        rng = np.random.default_rng(10)
+        x = rng.standard_normal((3_000, 64)).astype(np.float32)
+        q = torch.from_numpy(rng.standard_normal((8, 64)).astype(np.float32)).to(dev)
+        for lo in range(0, 3_000, 500):
+            coll.insert({"vector": torch.from_numpy(x[lo:lo + 500]).to(dev)})
+            got = coll.search(SearchRequest.single(q, k=50, consistency=ConsistencyLevel.STRONG))
+            manu.wait_idle()
+            nodes = list(manu.query_nodes.values())
+            got_idle = coll.search(SearchRequest.single(q, k=50, consistency=ConsistencyLevel.STRONG))
+            oracle = testing.system_oracle(nodes, "c", q, 50, got_idle.query_ts, None)
+            testing.assert_oracle_answer(f"{lo}", (got_idle.scores, got_idle.pks), oracle,
+                                         *SCORE_TOL["l2"])
+            assert int((got.pks >= 0).sum()) == 8 * min(50, lo + 500)  # every row visible
+    finally:
+        manu.stop_threads()
+    assert not [t for t in threading.enumerate() if t.name.startswith("manu-") and t.is_alive()]
+
+
+def test_embedder_on_card_matches_the_cpu(dev):
+    """A reduced yi-9b embeds on the card as on the CPU (one seeded model
+    moved over): within 0.02 in L2 per row, unit norm, finite."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.models.embedder import Embedder
+
+    cfg = get_arch("yi-9b").reduced(d_model=256, num_layers=4, vocab_size=1_000, d_ff=512)
+    cpu_model = M.init_params(cfg, seed=3, device="cpu")
+    card_model = M.Transformer(cfg, device="meta")
+    card_model.load_state_dict({k: v.to(dev) for k, v in cpu_model.state_dict().items()}, assign=True)
+    tok = np.random.default_rng(4).integers(0, cfg.vocab_size, (21, 64))
+    want = Embedder(cfg, cpu_model, max_batch=8).embed(tok)
+    got = Embedder(cfg, card_model, max_batch=8).embed(tok)
+    assert got.device.type == "cuda" and got.dtype == torch.float32 and torch.isfinite(got).all()
+    torch.testing.assert_close(torch.linalg.vector_norm(got, dim=1).cpu(), torch.ones(21),
+                               rtol=0, atol=1e-5)
+    assert torch.linalg.vector_norm(got.cpu() - want, dim=1).max().item() <= 0.02

@@ -1,6 +1,7 @@
 """The port stands alone: importing it loads neither jax nor the reference
 package, and no file of the port (or chip_smoke.py) imports either."""
 
+import json
 import os
 import re
 import subprocess
@@ -71,3 +72,45 @@ def test_maintenance_modules_are_checked_and_import_alone():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+#: The model zoo (``models``) and the architecture registry (``configs``):
+#: each must load on its own, without jax and without the reference (they
+#: keep their own copies of ``repro.models.config`` and ``repro.configs``,
+#: which import no jax themselves).
+MODEL_MODULES = sorted(
+    [m for m in MODULES if m.startswith(("repro_torch.models.", "repro_torch.configs."))]
+    + ["repro_torch.models", "repro_torch.configs"]
+)
+
+
+def test_model_modules_are_all_listed():
+    assert {"repro_torch.models.config", "repro_torch.models.layers", "repro_torch.models.model",
+            "repro_torch.models.embedder", "repro_torch.models.convert",
+            "repro_torch.configs.yi_9b"} <= set(MODEL_MODULES)
+    assert len([m for m in MODEL_MODULES if m.startswith("repro_torch.configs.")]) == 10
+
+
+@pytest.fixture(scope="module")
+def model_imports():
+    """One interpreter imports the model modules in turn and records, after
+    each, any jax or reference module loaded so far."""
+    code = (
+        "import importlib, json, sys\n"
+        "out = {}\n"
+        f"for m in {MODEL_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "    out[m] = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "print(json.dumps(out))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout)
+
+
+@pytest.mark.parametrize("module", MODEL_MODULES)
+def test_model_modules_import_without_jax_or_reference(model_imports, module):
+    assert model_imports[module] == []

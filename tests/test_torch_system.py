@@ -9,8 +9,8 @@ within rtol=1e-5, atol=1e-4 (two float32 expansions of one distance).
 
 Also: async ingest rejects at the same request in both packages, batched
 reads give the per-request answers, an IVF-SQ collection equals the port's
-float64 oracle over what its query nodes hold, and threaded mode raises
-``NotImplementedError`` naming its ROADMAP item."""
+float64 oracle over what its query nodes hold, and threaded mode needs the
+wall clock."""
 
 import numpy as np
 import pytest
@@ -277,9 +277,16 @@ def test_ivf_sq_collection_matches_port_oracle():
 
 @pytest.mark.parametrize("kwargs", [{"config": "threaded"}])
 def test_unported_modes_raise(kwargs):
-    config = port.ManuConfig(threaded=kwargs.pop("config", None) == "threaded")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: threaded mode"):
-        port.ManuSystem(config, device="cpu", **kwargs)
+    """Threaded mode is ported; it runs on the wall clock only, and a
+    manual clock (the default) raises instead of hanging every wait."""
+    threaded = kwargs.pop("config", None) == "threaded"
+    with pytest.raises(ValueError, match="wall clock"):
+        port.ManuSystem(port.ManuConfig(threaded=threaded), device="cpu", **kwargs)
+    manu = port.ManuSystem(port.ManuConfig(threaded=threaded, manual_clock=False),
+                           device="cpu", **kwargs)
+    assert [t.name for t in manu._threads] == ["manu-pump", "manu-build", "manu-watchdog"]
+    manu.stop_threads()
+    assert not manu._threads
 
 
 def _hedged(pkg):
