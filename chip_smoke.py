@@ -110,7 +110,26 @@
    medians split into embed and search, peak device memory, profiles and
    topic-match@1 (not gated); ``l2_topk`` at d 4,096 is checked and timed
    at every shape the path launched it at.
-9. Each path runs with every launch counter at 0 and fails unless each of
+9. Serve path (``repro_torch.launch.serve``'s ``prefill`` / ``decode_step``):
+   each of the ten configurations at its published widths, depth cut to
+   one effective period (2 layers where the period is one layer; jamba's
+   8: 7 SSM, 1 attention, 4 MoE FFNs of 16 experts, 4 dense MLPs) and
+   minicpm3-4b whole (62 MLA layers), random weights from --seed drawn on
+   the card, one model at a time.  Teacher-forced: B=4, an 8-token prompt
+   (after 256 patch embeddings for paligemma), 16 decode steps fed fixed
+   tokens, each held to one prefill over the whole sequence within the
+   reference's 0.15 (greedy tokens equal outside near-ties); MoE at its
+   published capacity factor, with the slots the full prefill drops and the
+   tokens routed otherwise counted from the router and their rows left out
+   (every row left out fails).  Serving-sized: jamba and minicpm3-4b at
+   B=8, a 1,024-token prefill and 64 greedy steps (prefill tokens/s and
+   TFLOP/s beside the bf16 peak, decode median ms/step and tokens/s,
+   launches and idle share of a profiled step, MoE drops).  The ten
+   reduced configurations on the card against the CPU (one seeded model
+   moved over, prefill + 8 steps: logits within ``testing.logit_atol``),
+   and ``serve.main(--local)`` in process for each.  Prints peak device
+   memory per configuration.  No kernel of the seven is on this path.
+10. Each path runs with every launch counter at 0 and fails unless each of
    its kernels was launched; ``kmeans_assign``'s launches are also counted
    per (N, C, D), ``merge_topk``'s per (nq, M, k) and ``sq_decode``'s per
    (n, d), each adding up to the wrapper's count, and the three kernels are
@@ -271,6 +290,27 @@ EMBED_KERNELS = ("l2_topk", "merge_topk", "kmeans_assign")
 # within EMBED_BATCH_TOL (L2) of its embedding alone: the two batches run
 # other matmul tilings, whose bf16 roundings differ through 48 layers.
 EMBED_NORM_TOL, EMBED_BATCH_TOL = 1e-4, 0.05
+# Serve path (``repro_torch.launch.serve``'s prefill / decode_step at the
+# published widths).  Teacher-forced check at one effective period (2
+# layers where the period is one layer; jamba's 8-slot period: 7 SSM, 1
+# attention, 4 MoE): B=4, an 8-token prompt (after 256 patch embeddings
+# for paligemma), SERVE_STEPS decode steps fed fixed tokens, each held to
+# one prefill over the whole sequence within testing.DECODE_ATOL.
+# SERVE_FULL_DEPTH runs whole as well: the same decode against prefill
+# measured beside two prefills of the same rows in batches of 2 and 4 (the
+# card's rounding noise at that depth), greedy tokens checked.
+# Serving-sized run (SERVE_LOAD_ARCHS, jamba at one period, minicpm3-4b
+# whole): B=8, a 1,024-token prefill, 64 greedy steps.
+SERVE_ARCHS = ("yi-9b", "qwen3-32b", "minicpm3-4b", "qwen1.5-4b", "paligemma-3b", "qwen3-moe-30b-a3b",
+               "deepseek-moe-16b", "mamba2-370m", "musicgen-medium", "jamba-v0.1-52b")
+SERVE_FULL_DEPTH = ("minicpm3-4b",)
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 8, 16
+# MoE configurations also run a window capacity cannot bind: 8 positions,
+# so no expert's 8 rows overflow (a token's k experts are distinct).
+SERVE_WINDOW_PROMPT, SERVE_WINDOW_STEPS = 2, 6
+SERVE_LOAD_ARCHS = ("jamba-v0.1-52b", "minicpm3-4b")
+SERVE_LOAD_BATCH, SERVE_LOAD_PROMPT, SERVE_LOAD_STEPS = 8, 1_024, 64
+SERVE_CPU_STEPS, SERVE_LOCAL_TOKENS = 8, 16
 # Dense bf16 peak of one H100 SXM at 700 W (NVIDIA data sheet).
 PEAK_BF16_FLOPS = 989e12
 # Matmul kernels by name in a profile: cuBLAS / cuBLASLt / CUTLASS.
@@ -330,11 +370,12 @@ def device_ms(torch, fn, reps: int, warmup: int = 2) -> float:
                          f"than the {hold_s:.4f} s hold")
 
 
-def profile_request(torch, fn, label: str):
+def profile_request(torch, fn, label: str, stats: dict | None = None):
     """One warm request under torch.profiler: wall time, device busy time
     (sum of kernel self times; one stream, so no overlap), kernel launches
     and host-device syncs, the kernels and host ops that take the most.
-    Returns the profiled call's result."""
+    Returns the profiled call's result; fills ``stats`` (wall_ms, busy_ms,
+    idle_share, launches) where given."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -357,6 +398,9 @@ def profile_request(torch, fn, label: str):
     # time too, so summing every record counts a torch op's kernels twice.
     kernels = [e for e in events if getattr(e, "device_type", None) == DeviceType.CUDA]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    if stats is not None:
+        stats.update(wall_ms=wall_ms, busy_ms=busy_ms, launches=launches,
+                     idle_share=max(0.0, 1 - busy_ms / wall_ms) if busy_ms else None)
     top_dev = sorted(kernels, key=dev_us, reverse=True)[:6]
     top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]
     if busy_ms == 0:
@@ -2281,6 +2325,306 @@ def embedder_path(torch, gen, dev, phases, counts, testing, seed: int) -> dict:
             "shapes": shapes, "model": model, "peak_gib": peak_gib}
 
 
+def serve_depth(cfg, full: bool = False) -> int:
+    """Layers the serve phase keeps: every one with ``full``, else one
+    effective period (two layers where the period is one layer)."""
+    from repro_torch.models import model as M
+
+    if full:
+        return cfg.num_layers
+    period = len(M.effective_pattern(cfg))
+    return period if period > 1 else 2
+
+
+def token_flops(cfg, context: float) -> float:
+    """Operations of one token through every layer, counted from the
+    shapes (2 per weight it meets; MoE: the router and its top-k and shared
+    experts only), attending to ``context`` positions: QK and PV over the
+    heads (MLA: decompressed nope + rope keys, v_head_dim values); SSD:
+    C.B and the weighted inputs over the chunk's positions up to
+    ``context``, and the state read and update.  The LM head apart."""
+    from repro_torch.models import model as M
+
+    d = cfg.d_model
+    total = 0.0
+    for kind, is_moe in M.layer_kinds(cfg):
+        if kind == "attn" and cfg.attn_type == "mla":
+            qr, h, r = cfg.q_lora_rank or d, cfg.num_heads, cfg.kv_lora_rank
+            qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+            total += 2 * (d * qr + qr * h * qk + d * (r + cfg.qk_rope_head_dim)
+                          + r * h * (cfg.qk_nope_head_dim + cfg.v_head_dim) + h * cfg.v_head_dim * d)
+            total += 2 * h * (qk + cfg.v_head_dim) * context
+        elif kind == "attn":
+            total += 2 * (d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d) + 2 * 2 * cfg.q_dim * context
+        else:
+            di, n, h, hd = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+            total += 2 * (d * (2 * di + 2 * n + h) + di * d) + 2 * cfg.ssm_conv * (di + 2 * n)
+            total += 2 * min(cfg.ssm_chunk, context) * (n + h * hd) + 4 * h * hd * n
+        if is_moe:
+            total += 2 * d * cfg.moe_num_experts + 6 * d * cfg.moe_d_ff * (cfg.moe_top_k + cfg.moe_num_shared)
+        elif cfg.d_ff > 0:
+            total += 6 * d * cfg.d_ff
+    return total
+
+
+def serve_model(torch, name: str, dev, seed: int, full: bool = False):
+    """``name`` at its published widths, cut to ``serve_depth`` layers,
+    drawn on the card from ``seed``."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as M
+
+    base = get_arch(name)
+    cfg = dataclasses.replace(base, num_layers=serve_depth(base, full))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = M.init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    kinds = collections.Counter(("moe " if moe else "") + kind for kind, moe in M.layer_kinds(cfg))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"serve model {name}: {cfg.num_layers} of {base.num_layers} layers ({dict(kinds)}; depth cut, "
+        f"widths as published: d_model {cfg.d_model}, heads {cfg.num_heads} / {cfg.num_kv_heads}, d_ff "
+        f"{cfg.d_ff}, experts {cfg.moe_num_experts} x {cfg.moe_d_ff} top {cfg.moe_top_k}, SSM state "
+        f"{cfg.ssm_state} / d_inner {cfg.ssm_d_inner if cfg.ssm_state else 0}, vocabulary {cfg.vocab_size}); "
+        f"{n_params / 1e9:.3f} B parameters, {torch.cuda.memory_allocated() / 2**30:.2f} GiB, init {init_s:.3f} s")
+    return cfg, model
+
+
+def serve_check(torch, testing, M, cfg, model, tally, gen, dev, gated: bool = True,
+                prompt: int = SERVE_PROMPT, steps: int = SERVE_STEPS) -> dict:
+    """Teacher-forced: prefill ``prompt`` tokens, then ``steps`` decode
+    steps fed fixed tokens; the prefill's last logits and each step's
+    against one prefill over the whole sequence.  MoE, read from the
+    router: a position is left out from a row's first token whose slot the
+    full prefill dropped, or whose experts differ between the two passes (a
+    near-tie in the router that their bf16 roundings break apart); the
+    positions before it are computed as with no drop (slots take buffer
+    rows in token order, attention and SSM are causal).  ``gated``: the
+    positions kept within ``DECODE_ATOL`` (``testing.assert_logits_close``).
+    Otherwise (a whole deep model) the difference is measured beside a
+    control, the first two rows prefilled alone against the same rows in
+    the batch of four, and only finite logits and greedy tokens equal
+    outside near-ties are checked."""
+    b, s = SERVE_BATCH, prompt
+    tokens = torch.randint(0, cfg.vocab_size, (b, s + steps), generator=gen, device=dev)
+    prefix = None
+    if cfg.frontend == "vlm_stub":
+        prefix = torch.randn((b, cfg.num_prefix_embeddings, cfg.d_model), generator=gen, device=dev)
+    p = 0 if prefix is None else prefix.shape[1]
+    n_moe = sum(moe for _kind, moe in M.layer_kinds(cfg))
+    label = f"serve {cfg.name} x{cfg.num_layers} decode vs prefill ({s} + {steps})"
+    with torch.no_grad():
+        tally["drops"].clear()
+        tally["routes"].clear()
+        cache = M.init_cache(cfg, b, p + s + steps, device=dev)
+        first, cache = M.prefill(cfg, model, tokens[:, :s], cache, prefix, last_only=True)
+        got = [first]
+        for i in range(steps):
+            logits, cache = M.decode_step(cfg, model, cache, tokens[:, s + i:s + i + 1])
+            got.append(logits)
+        incremental = sum(int(d.sum()) for d in tally["drops"])
+        # per MoE layer, the experts of every position: the prompt's call, then one per step
+        inc_routes = [torch.cat(tally["routes"][j::n_moe], 1) for j in range(n_moe)]
+        tally["drops"].clear()
+        tally["routes"].clear()
+        full, _ = M.prefill(cfg, model, tokens, M.init_cache(cfg, b, p + s + steps, device=dev), prefix)
+        dropped = torch.zeros((b, p + s + steps), dtype=torch.bool, device=dev)
+        rerouted = torch.zeros_like(dropped)
+        for j in range(n_moe):
+            dropped |= tally["drops"][j]
+            rerouted |= (tally["routes"][j] != inc_routes[j]).any(-1)
+        first_bad = torch.where((dropped | rerouted).any(1), (dropped | rerouted).int().argmax(1),
+                                p + s + steps).cpu()
+        got = torch.cat(got, 1).cpu()
+        want = full[:, p + s - 1:].cpu()
+        keep = (p + s - 1 + torch.arange(steps + 1))[None, :] < first_bad[:, None]  # [B, steps + 1]
+        if not keep[:, 1:].any():
+            raise AssertionError(f"{label}: every decode position follows a dropped or rerouted token "
+                                 f"(first per row {first_bad.tolist()})")
+        control = None
+        if gated:
+            ties = testing.assert_logits_close(label, got[keep], want[keep], testing.DECODE_ATOL)
+        else:
+            pair, _ = M.prefill(cfg, model, tokens[:2], M.init_cache(cfg, 2, p + s + steps, device=dev),
+                                None if prefix is None else prefix[:2])
+            control = (pair - full[:2]).abs().max().item()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{label}: non-finite logits")
+            bad, ties = testing.greedy_mismatches(got[keep], want[keep], testing.DECODE_ATOL)
+            if bad:
+                raise AssertionError(f"{label}: {bad} greedy tokens differ outside the near-ties")
+        err = (got - want).abs().amax(-1)  # [B, steps + 1]
+    out = {"layers": cfg.num_layers, "gated": gated, "prompt": s, "steps": steps,
+           "max_abs_err": err[keep].max().item(), "near_ties": ties, "positions_kept": int(keep.sum()),
+           "decode_positions_kept": int(keep[:, 1:].sum()), "max_abs_err_per_step": err.amax(0).tolist(),
+           "control_prefill_b2_vs_b4": control, "first_left_out_per_row": (first_bad - p).tolist(),
+           "full_prefill_drops": int(dropped.sum()), "rerouted_tokens": int(rerouted.sum()),
+           "incremental_drops": incremental, "max_abs_logit": want.abs().max().item()}
+    log(f"{'check' if gated else 'measure'} {label}: prefill of {p + s} positions ({p} patches) + {steps} decode "
+        f"steps against one prefill of {p + s + steps}: max |err| {out['max_abs_err']:.4g} over "
+        f"{out['positions_kept']} of {keep.numel()} positions ({out['decode_positions_kept']} decoded; "
+        f"{'bound' if gated else 'not gated at this depth; the reference bound'} {testing.DECODE_ATOL}; all "
+        f"positions per step {[round(e, 3) for e in out['max_abs_err_per_step']]}; max |logit| "
+        f"{out['max_abs_logit']:.3g}"
+        + ("" if gated else f"; control: rows 0-1 prefilled alone vs in the batch of 4 differ by {control:.4g}")
+        + f"), greedy tokens equal outside {ties} near-ties; MoE at capacity factor {cfg.moe_capacity_factor}: "
+        f"tokens with a slot dropped by the full prefill {out['full_prefill_drops']}, by prefill + decode "
+        f"{incremental}, tokens routed otherwise {out['rerouted_tokens']}; first token left out per row "
+        f"{out['first_left_out_per_row']} (of {s + steps})")
+    return out
+
+
+def serve_load(torch, M, cfg, model, tally, gen, dev) -> dict:
+    """Serving-sized: B=SERVE_LOAD_BATCH, a SERVE_LOAD_PROMPT-token prefill
+    (last position's logits only), then SERVE_LOAD_STEPS greedy decode
+    steps, each timed by the host clock around a synchronized call; one
+    more step profiled; MoE drops of the prefill counted in a second,
+    untimed prefill."""
+    b, s, steps = SERVE_LOAD_BATCH, SERVE_LOAD_PROMPT, SERVE_LOAD_STEPS
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    with torch.no_grad():
+        M.prefill(cfg, model, tokens[:, :16], M.init_cache(cfg, b, 16, device=dev), last_only=True)  # warm-up
+        cache = M.init_cache(cfg, b, s + steps + 2, device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = M.prefill(cfg, model, tokens, cache, last_only=True)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        tok = logits[:, -1:].argmax(-1)
+        times = []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = M.decode_step(cfg, model, cache, tok)
+            tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"{cfg.name}: non-finite decode logits")
+        stats = {}
+        profile_request(torch, lambda: M.decode_step(cfg, model, cache, tok), f"serve {cfg.name} decode step "
+                        f"(B={b}, position {s + steps})", stats)
+        tally["on"] = True
+        tally["drops"].clear()
+        tally["slots_dropped"] = 0
+        M.prefill(cfg, model, tokens, M.init_cache(cfg, b, s, device=dev), last_only=True)
+        tally["on"] = False
+        drops = tally["slots_dropped"]
+        tally["routes"].clear()
+    flops = b * s * token_flops(cfg, (s + 1) / 2) + b * 2 * cfg.d_model * cfg.vocab_size
+    med = statistics.median(times)
+    slots = b * s * cfg.moe_top_k * sum(moe for _k, moe in M.layer_kinds(cfg))
+    out = {"prefill_s": prefill_s, "prefill_tokens_per_s": b * s / prefill_s,
+           "prefill_tflops": flops / prefill_s / 1e12, "prefill_peak_share": flops / prefill_s / PEAK_BF16_FLOPS,
+           "decode_median_ms": med * 1e3, "decode_min_ms": min(times) * 1e3, "decode_max_ms": max(times) * 1e3,
+           "decode_tokens_per_s": b / med, "decode_step_launches": stats.get("launches"),
+           "decode_step_idle_share": stats.get("idle_share"), "moe_drops": drops, "moe_slots": slots}
+    log(f"serve load {cfg.name}: B={b}, prefill of {s} tokens {prefill_s:.4f} s ({out['prefill_tokens_per_s']:.1f} "
+        f"tokens/s, {out['prefill_tflops']:.2f} TFLOP/s = {out['prefill_peak_share']:.4f} of the "
+        f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s dense bf16 peak; {flops / (b * s) / 1e9:.3f} GFLOP per token); "
+        f"{steps} greedy decode steps: median {out['decode_median_ms']:.3f} ms/step (min "
+        f"{out['decode_min_ms']:.3f}, max {out['decode_max_ms']:.3f}), {out['decode_tokens_per_s']:.1f} tokens/s; "
+        f"launches per decode step {out['decode_step_launches']}, idle share {out['decode_step_idle_share']}; "
+        f"MoE slots dropped by the prefill at capacity factor {cfg.moe_capacity_factor}: {drops} of {slots}")
+    return out
+
+
+def serve_path(torch, dev, phases, counts, testing, seed: int) -> None:
+    """The model-serving path (``repro_torch.launch.serve``): each of the
+    ten configurations at its published widths through ``prefill`` /
+    ``decode_step`` on the card, teacher-forced against one prefill at one
+    effective period (``serve_check``), SERVE_FULL_DEPTH also whole
+    (measured beside the card's noise); jamba (one period) and minicpm3-4b
+    (whole) at serving size (``serve_load``); the ten reduced
+    configurations on the card against the CPU
+    (``testing.compare_decode``); ``serve.main(--local)`` for each.  MoE
+    drops and routes are read from ``moe.route`` by wrapping
+    ``models.model.moe_block``."""
+    import copy
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+
+    counts.reset()
+    t0 = time.perf_counter()
+    tally = {"on": True, "drops": [], "routes": [], "slots_dropped": 0}
+    moe_block = M.moe_block
+
+    def counted_moe_block(cfg, p, x):
+        if tally["on"]:
+            _gate, experts, _pos, kept = moe_mod.route(cfg, p, x)
+            b, s = x.shape[:2]
+            tally["drops"].append((~kept).reshape(b, s, -1).any(-1))  # [B, S]: a token lost a slot
+            tally["slots_dropped"] += int((~kept).sum())
+            tally["routes"].append(experts.reshape(b, s, -1).sort(-1).values)
+        return moe_block(cfg, p, x)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 20)
+    summary = {}
+    M.moe_block = counted_moe_block
+    try:
+        for name in SERVE_ARCHS:
+            t = time.perf_counter()
+            cfg, model = serve_model(torch, name, dev, seed)
+            tally["on"] = True
+            summary[name] = serve_check(torch, testing, M, cfg, model, tally, gen, dev)
+            if cfg.moe_num_experts:
+                summary[name]["window"] = serve_check(torch, testing, M, cfg, model, tally, gen, dev,
+                                                      prompt=SERVE_WINDOW_PROMPT, steps=SERVE_WINDOW_STEPS)
+            if name in SERVE_FULL_DEPTH:
+                del model
+                cfg, model = serve_model(torch, name, dev, seed, full=True)
+                summary[name]["full_depth"] = serve_check(torch, testing, M, cfg, model, tally, gen, dev,
+                                                          gated=False)
+            tally["on"] = False
+            if name in SERVE_LOAD_ARCHS:
+                summary[name]["load"] = serve_load(torch, M, cfg, model, tally, gen, dev)
+            summary[name]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            summary[name]["seconds"] = time.perf_counter() - t
+            log(f"serve {name}: peak device memory {summary[name]['peak_gib']:.2f} GiB (the last model built), "
+                f"{summary[name]['seconds']:.2f} s")
+            del model
+    finally:
+        M.moe_block = moe_block
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases["serve_full_width_s"] = time.perf_counter() - t0
+
+    t = time.perf_counter()
+    for name in SERVE_ARCHS:
+        cfg = get_arch(name).reduced()
+        cpu_model = M.init_params(cfg, seed=seed, device="cpu")
+        gen_cpu = torch.Generator().manual_seed(seed + 21)
+        tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=gen_cpu)
+        prefix = None
+        if cfg.frontend == "vlm_stub":
+            prefix = torch.randn((SERVE_BATCH, cfg.num_prefix_embeddings, cfg.d_model), generator=gen_cpu)
+        res = testing.compare_decode(cfg, cpu_model, copy.deepcopy(cpu_model).to(dev), tokens, prefix,
+                                     SERVE_CPU_STEPS, testing.logit_atol(cfg))
+        summary[name]["card_vs_cpu"] = {k: res[k] for k in ("max_abs_err", "near_ties")}
+        log(f"check serve {name} reduced, card against CPU: prefill + {SERVE_CPU_STEPS} decode steps, max |err| "
+            f"{res['max_abs_err']:.4g} (bound {testing.logit_atol(cfg):.3g}), greedy tokens equal outside "
+            f"{res['near_ties']} near-ties")
+    phases["serve_card_vs_cpu_s"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    for name in SERVE_ARCHS:
+        seq = serve.main(["--arch", name, "--local", "--tokens", str(SERVE_LOCAL_TOKENS)])
+        if seq.shape != (4, SERVE_LOCAL_TOKENS) or not ((seq >= 0) & (seq < get_arch(name).vocab_size)).all():
+            raise AssertionError(f"serve --local {name}: tokens {seq.shape}")
+    phases["serve_local_s"] = time.perf_counter() - t
+    launches = counts.read()
+    log(f"serve path launches of the seven kernels: {launches} (no TPU kernel is on this path)")
+    log("serve summary: " + json.dumps(summary))
+
+
 def scan_shape_times(torch, l2_mod, testing, shapes: dict, gen, dev) -> dict:
     """``l2_topk`` at every (nq, rows per segment, D, k, metric) in
     ``shapes`` (the paths' launches at the widths in
@@ -2860,6 +3204,8 @@ def main() -> int:
     del emb["model"]
     gc.collect()
     torch.cuda.empty_cache()
+    # --------------------------------------------------------- serve path
+    serve_path(torch, dev, phases, counts, testing, args.seed)
     t0 = time.perf_counter()
     # merge_topk, sq_decode and kmeans_assign at every shape the paths
     # launched them at (FLAT builds none and decodes none)

@@ -3,10 +3,13 @@
 ``params_from_jax`` takes ``repro.models.model.init_params``'s tree with
 every leaf as a numpy array (bf16 leaves widened to float32 by the caller,
 which is exact: ``torch.from_numpy`` takes no ``ml_dtypes.bfloat16``) and
-returns the port's ``Transformer`` with bf16 parameters, which rounds
-nothing.  The reference stacks each slot's layers along a leading
-``periods`` axis; layer ``period * len(pattern) + slot`` is row ``period``
-of ``layers/slot<slot>``.
+returns the port's ``Transformer``.  Each leaf takes the dtype the port's
+model declares for it, which is the reference's: bf16, save the MoE
+``router`` and the SSM's ``a_log`` / ``d_skip`` / ``dt_bias``, which stay
+float32, so nothing is rounded.  The reference stacks each slot's layers
+along a leading ``periods`` axis; layer ``period * len(pattern) + slot`` is
+row ``period`` of ``layers/slot<slot>``; nested dicts (``attn``, ``ssm``,
+``moe`` with its ``shared`` MLP) become dotted names.
 """
 
 from __future__ import annotations
@@ -16,30 +19,29 @@ import torch
 
 from .._device import resolve_device
 from .config import ModelConfig
-from .layers import PARAM_DTYPE
 from .model import Transformer, effective_pattern, num_periods
 
 
-def _tensor(leaf, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(leaf)).to(device=device, dtype=PARAM_DTYPE)
+def _flatten(tree: dict, prefix: str, out: dict, row=None) -> None:
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            _flatten(leaf, f"{prefix}{name}.", out, row)
+        else:
+            out[prefix + name] = leaf if row is None else leaf[row]
 
 
 def params_from_jax(cfg: ModelConfig, tree: dict, device="cuda") -> Transformer:
     dev = resolve_device(device)
     pattern = effective_pattern(cfg)
-    state = {"embed": _tensor(tree["embed"], dev), "ln_final": _tensor(tree["ln_final"], dev)}
-    if not cfg.tie_embeddings:
-        state["lm_head"] = _tensor(tree["lm_head"], dev)
+    leaves: dict = {}
+    _flatten({k: v for k, v in tree.items() if k != "layers"}, "", leaves)
     for period in range(num_periods(cfg)):
         for slot in range(len(pattern)):
-            prefix = f"layers.{period * len(pattern) + slot}."
-            stack = tree["layers"][f"slot{slot}"]
-            for name, leaf in stack.items():
-                if isinstance(leaf, dict):
-                    for sub, arr in leaf.items():
-                        state[prefix + f"{name}.{sub}"] = _tensor(arr[period], dev)
-                else:
-                    state[prefix + name] = _tensor(leaf[period], dev)
+            _flatten(tree["layers"][f"slot{slot}"], f"layers.{period * len(pattern) + slot}.",
+                     leaves, period)
     model = Transformer(cfg, device="meta")
+    dtypes = {k: p.dtype for k, p in model.state_dict().items()}
+    state = {k: torch.from_numpy(np.array(v)).to(device=dev, dtype=dtypes.get(k, torch.float32))
+             for k, v in leaves.items()}
     model.load_state_dict(state, strict=True, assign=True)
     return model.requires_grad_(False)

@@ -1,6 +1,7 @@
 """Transformer building blocks in PyTorch: RMSNorm, RoPE, flash attention
 (online softmax over KV blocks), GQA / MQA with the qk-norm and qkv-bias
-options, the SwiGLU MLP; mirrors ``repro.models.layers``.
+options, multi-head latent attention (MLA), the SwiGLU MLP; mirrors
+``repro.models.layers``.
 
 Weights keep the reference's layout (``x @ w``, ``w`` as [d_in, d_out]) and
 dtype (bf16), so a parameter tree carries over unchanged
@@ -26,10 +27,6 @@ ACT_DTYPE = torch.bfloat16
 
 DEFAULT_KV_BLOCK = 1_024
 DEFAULT_Q_BLOCK = 2_048
-
-#: What the MLA projections raise: the item that ports them.
-MLA_NOT_PORTED = "multi-head latent attention (MLA) is not ported yet: ROADMAP Queue 1 item 4, step 1 (MLA)"
-
 
 # ----------------------------------------------------------------- norms --
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -132,26 +129,40 @@ def model_device(device="cuda") -> torch.device:
     return resolve_device(device)
 
 
-def _normal(shape, scale: float, generator, device) -> nn.Parameter:
-    """A bf16 normal draw times ``scale`` (in bf16, as the reference)."""
-    w = torch.randn(shape, generator=generator, device=device, dtype=PARAM_DTYPE)
+def _normal(shape, scale: float, generator, device, dtype=PARAM_DTYPE) -> nn.Parameter:
+    """A normal draw times ``scale``, both in ``dtype`` (bf16 by default,
+    as the reference)."""
+    w = torch.randn(shape, generator=generator, device=device, dtype=dtype)
     return nn.Parameter(w.mul_(scale), requires_grad=False)
 
 
-def _const(n: int, value: float, device) -> nn.Parameter:
-    return nn.Parameter(torch.full((n,), value, dtype=PARAM_DTYPE, device=device), requires_grad=False)
+def _const(n: int, value: float, device, dtype=PARAM_DTYPE) -> nn.Parameter:
+    return nn.Parameter(torch.full((n,), value, dtype=dtype, device=device), requires_grad=False)
 
 
 class Attention(nn.Module):
-    """GQA / MQA self-attention weights (``init_attention_params``)."""
+    """Self-attention weights (``init_attention_params``): GQA / MQA, or
+    MLA's low-rank query and key-value projections."""
 
     def __init__(self, cfg: ModelConfig, generator=None, device="cuda"):
         super().__init__()
-        if cfg.attn_type == "mla":
-            raise NotImplementedError(MLA_NOT_PORTED)
         device = model_device(device)
         d = cfg.d_model
         s = 1.0 / math.sqrt(d)
+        if cfg.attn_type == "mla":
+            qr = cfg.q_lora_rank or d
+            qhd = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+            r, h = cfg.kv_lora_rank, cfg.num_heads
+            self.w_dq = _normal((d, qr), s, generator, device)
+            self.q_norm = _const(qr, 1.0, device)
+            self.w_uq = _normal((qr, h * qhd), 1.0 / math.sqrt(qr), generator, device)
+            self.w_dkv = _normal((d, r + cfg.qk_rope_head_dim), s, generator, device)
+            self.kv_norm = _const(r, 1.0, device)
+            self.w_ukv = _normal((r, h * (cfg.qk_nope_head_dim + cfg.v_head_dim)),
+                                 1.0 / math.sqrt(r), generator, device)
+            self.w_o = _normal((h * cfg.v_head_dim, d), 1.0 / math.sqrt(h * cfg.v_head_dim),
+                               generator, device)
+            return
         self.w_q = _normal((d, cfg.q_dim), s, generator, device)
         self.w_k = _normal((d, cfg.kv_dim), s, generator, device)
         self.w_v = _normal((d, cfg.kv_dim), s, generator, device)
@@ -186,9 +197,25 @@ def gqa_qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor, positions: torch.Te
     return q, k, v
 
 
-def mla_qkv(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor):
-    """MLA projections (``repro.models.layers.mla_qkv``): not ported."""
-    raise NotImplementedError(MLA_NOT_PORTED)
+def mla_qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor, positions: torch.Tensor):
+    """MLA projections.  Returns (q [B,S,H,nope+rope], k [B,S,H,nope+rope],
+    v [B,S,H,vd], the cache payload c [B,S,kv_lora+rope]).
+
+    The payload is the compressed c_kv followed by the shared rope key
+    *after* RoPE: what a serving cache stores and the absorbed decode
+    reads.  k and v are the decompressed views."""
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    nope, rope_d, vd, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    cq = rms_norm(x @ p.w_dq, p.q_norm, cfg.norm_eps)
+    q = (cq @ p.w_uq).reshape(b, s, h, nope + rope_d)
+    q = torch.cat([q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)], -1)
+    dkv = x @ p.w_dkv  # [B,S,r+rope]
+    c_kv = rms_norm(dkv[..., :r], p.kv_norm, cfg.norm_eps)
+    k_rope = apply_rope(dkv[..., r:].reshape(b, s, 1, rope_d), positions, cfg.rope_theta)
+    ukv = (c_kv @ p.w_ukv).reshape(b, s, h, nope + vd)
+    k = torch.cat([ukv[..., :nope], k_rope.expand(b, s, h, rope_d)], -1)
+    return q, k, ukv[..., nope:], torch.cat([c_kv, k_rope[:, :, 0]], -1)
 
 
 def attention_block(
@@ -196,11 +223,13 @@ def attention_block(
     kv_block: int = DEFAULT_KV_BLOCK,
 ) -> torch.Tensor:
     """Full causal self-attention for a whole sequence."""
+    b, s = x.shape[:2]
     if cfg.attn_type == "mla":
-        raise NotImplementedError(MLA_NOT_PORTED)
+        q, k, v, _payload = mla_qkv(cfg, p, x, positions)
+        out = flash_attention(q, k, v, causal_offset=0, kv_block=kv_block)
+        return out.reshape(b, s, cfg.num_heads * cfg.v_head_dim) @ p.w_o
     q, k, v = gqa_qkv(cfg, p, x, positions)
     out = flash_attention(q, k, v, causal_offset=0, kv_block=kv_block)
-    b, s = x.shape[:2]
     return out.reshape(b, s, cfg.q_dim) @ p.w_o
 
 

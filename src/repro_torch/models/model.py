@@ -1,25 +1,38 @@
-"""The decoder-only model in PyTorch; mirrors ``repro.models.model`` for
-dense GQA / MQA configurations.
+"""The decoder-only model in PyTorch for all ten architectures; mirrors
+``repro.models.model``.
 
-The reference stacks equal-structure layers along a ``periods`` axis and
-scans over it; here each decoder layer is an ``nn.Module`` in an
-``nn.ModuleList`` and the forward pass is a loop over it
+Layer kinds come from ``cfg.layer_pattern`` (attn / ssm) repeated over
+depth, with MoE FFNs on the layers ``cfg.is_moe_layer`` picks and no MLP
+where ``d_ff == 0`` (mamba2).  The reference stacks equal-structure layers
+along a ``periods`` axis and scans over it; here each layer is an
+``nn.Module`` in an ``nn.ModuleList`` and the passes are loops over it
 (``models/convert.py`` unstacks a reference parameter tree into it).
-Parameters are bf16 (the reference's ``PARAM_DTYPE``) on an explicit
-device, drawn from an explicit ``torch.Generator`` at the reference's
-scales; the bytes differ from the reference's, whose RNG is JAX's.
+Parameters are bf16 (the reference's ``PARAM_DTYPE``; the MoE router and
+the SSM's ``a_log`` / ``d_skip`` / ``dt_bias`` float32, as there) on an
+explicit device, drawn from an explicit ``torch.Generator`` at the
+reference's scales; the bytes differ from the reference's, whose RNG is
+JAX's.
 
-Ported: ``effective_pattern``, ``num_periods``, ``init_params``,
-``embed_inputs``, ``hidden_states`` and ``forward`` (logits) for
-``family == "dense"`` with ``attn_type == "gqa"``.  Every other family
-(MLA, MoE, SSM and hybrid stacks, the VLM / audio stub frontends) raises
-``NotImplementedError`` naming its ROADMAP item, as do caches, ``prefill``,
-``decode_step`` and ``lm_loss``.
+Entry points: ``init_params``, ``embed_inputs`` (with the VLM stub's
+projected patch prefix; the audio stub changes nothing, as in the
+reference), ``hidden_states``, ``forward``, ``init_cache`` /
+``cache_shape``, ``prefill`` and ``decode_step`` (GQA caches k / v, MLA
+the compressed c_kv ‖ k_rope payload with the absorbed decode, SSM the
+recurrent state).  ``lm_loss`` raises ``NotImplementedError`` naming its
+ROADMAP item.
+
+The cache is a dict ``{"length": int, "layers": [per-layer dict]}``, one
+entry per layer rather than stacked over periods; ``prefill`` and
+``decode_step`` write the attention caches in place and replace each SSM
+state, and return the same dict.  ``remat`` and ``cache_mode`` are the
+reference's XLA memory devices (rematerialization, carry vs. ys): they are
+taken for call-site parity and change nothing here.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import torch
 from torch import nn
@@ -28,23 +41,24 @@ from .._device import resolve_device
 from .config import ModelConfig
 from .layers import (
     ACT_DTYPE,
-    MLA_NOT_PORTED,
     MLP,
     PARAM_DTYPE,
     Attention,
+    _normal,
+    apply_rope,
     attention_block,
+    flash_attention,
+    gqa_qkv,
+    mla_qkv,
     mlp_block,
     model_device,
     rms_norm,
 )
+from .moe import MoE, moe_block
+from .ssm import SSM, init_ssm_state, ssm_block, ssm_block_with_state, ssm_decode_step
 
 #: What the unported parts raise, each naming its ROADMAP item.
 NOT_PORTED = {
-    "mla": MLA_NOT_PORTED,
-    "moe": "mixture-of-experts layers are not ported yet: ROADMAP Queue 1 item 4, step 2 (MoE)",
-    "ssm": "SSM and hybrid stacks are not ported yet: ROADMAP Queue 1 item 4, step 3 (SSM / hybrid)",
-    "frontend": "the VLM / audio stub frontends are not ported yet: ROADMAP Queue 1 item 4, step 4 (stub frontends)",
-    "decode": "caches, prefill and decode_step are not ported yet: ROADMAP Queue 1 item 4, step 5 (caches)",
     "loss": "lm_loss is not ported yet: ROADMAP Queue 1 item 4, step 6 (lm_loss with train/)",
 }
 
@@ -68,42 +82,64 @@ def num_periods(cfg: ModelConfig) -> int:
     return cfg.num_layers // len(effective_pattern(cfg))
 
 
+def layer_kinds(cfg: ModelConfig) -> list[tuple[str, bool]]:
+    """(kind, is_moe) of every layer: the effective pattern over depth."""
+    return effective_pattern(cfg) * num_periods(cfg)
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` (naming the ROADMAP item) unless the
-    configuration is a dense GQA / MQA decoder without a frontend."""
-    if cfg.attn_type == "mla":
-        raise NotImplementedError(NOT_PORTED["mla"])
-    if cfg.family in ("ssm", "hybrid") or "ssm" in cfg.pattern():
-        raise NotImplementedError(NOT_PORTED["ssm"])
-    if cfg.family == "moe" or cfg.moe_num_experts:
-        raise NotImplementedError(NOT_PORTED["moe"])
-    if cfg.frontend is not None or cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(NOT_PORTED["frontend"])
+    """Every family of ``repro_torch.configs`` is ported: this raises only
+    what ``effective_pattern`` raises (a depth that is not a whole number
+    of periods)."""
+    effective_pattern(cfg)
+
+
+def _ones(d: int, device) -> nn.Parameter:
+    return nn.Parameter(torch.ones(d, dtype=PARAM_DTYPE, device=device), requires_grad=False)
 
 
 class DecoderLayer(nn.Module):
-    """One pre-norm decoder layer: attention, then the SwiGLU MLP."""
+    """One pre-norm layer (``_init_layer``): attention or an SSM block,
+    then a MoE FFN, the SwiGLU MLP, or nothing where ``d_ff == 0``."""
 
-    def __init__(self, cfg: ModelConfig, generator=None, device="cuda"):
+    def __init__(self, cfg: ModelConfig, kind: str = "attn", is_moe: bool = False,
+                 generator=None, device="cuda"):
         super().__init__()
         device = model_device(device)
-        d = cfg.d_model
-        self.ln_attn = nn.Parameter(torch.ones(d, dtype=PARAM_DTYPE, device=device), requires_grad=False)
-        self.attn = Attention(cfg, generator, device)
-        self.ln_mlp = nn.Parameter(torch.ones(d, dtype=PARAM_DTYPE, device=device), requires_grad=False)
-        self.mlp = MLP(d, cfg.d_ff, generator, device)
+        self.kind, self.is_moe = kind, is_moe
+        self.ln_attn = _ones(cfg.d_model, device)
+        if kind == "attn":
+            self.attn = Attention(cfg, generator, device)
+        else:
+            self.ssm = SSM(cfg, generator, device)
+        self.has_ffn = is_moe or cfg.d_ff > 0
+        if self.has_ffn:
+            self.ln_mlp = _ones(cfg.d_model, device)
+        if is_moe:
+            self.moe = MoE(cfg, generator, device)
+        elif cfg.d_ff > 0:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, generator, device)
+
+    def ffn(self, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+        """The residual FFN sublayer (identity without one)."""
+        if not self.has_ffn:
+            return x
+        h = rms_norm(x, self.ln_mlp, cfg.norm_eps)
+        return x + (moe_block(cfg, self.moe, h) if self.is_moe else mlp_block(self.mlp, h))
 
     def forward(self, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        """``repro.models.model._layer_forward`` for an attention slot."""
+        """``repro.models.model._layer_forward``."""
         h = rms_norm(x, self.ln_attn, cfg.norm_eps)
-        x = x + attention_block(cfg, self.attn, h, positions)
-        h = rms_norm(x, self.ln_mlp, cfg.norm_eps)
-        return x + mlp_block(self.mlp, h)
+        if self.kind == "attn":
+            x = x + attention_block(cfg, self.attn, h, positions)
+        else:
+            x = x + ssm_block(cfg, self.ssm, h)
+        return self.ffn(cfg, x)
 
 
 class Transformer(nn.Module):
-    """The token embedding, the decoder layers, the final norm and the LM
-    head (absent with ``tie_embeddings``)."""
+    """The token embedding, the layers, the final norm, the LM head (absent
+    with ``tie_embeddings``) and, for the VLM stub, ``vision_proj``."""
 
     def __init__(self, cfg: ModelConfig, generator=None, device="cuda"):
         super().__init__()
@@ -111,75 +147,254 @@ class Transformer(nn.Module):
         device = model_device(device)
         self.cfg = cfg
         d, v = cfg.d_model, cfg.vocab_size
-        self.embed = nn.Parameter(
-            torch.randn((v, d), generator=generator, device=device, dtype=PARAM_DTYPE).mul_(0.02),
-            requires_grad=False,
-        )
-        self.ln_final = nn.Parameter(torch.ones(d, dtype=PARAM_DTYPE, device=device), requires_grad=False)
-        self.layers = nn.ModuleList(DecoderLayer(cfg, generator, device) for _ in range(cfg.num_layers))
-        self.lm_head = None
-        if not cfg.tie_embeddings:
-            self.lm_head = nn.Parameter(
-                torch.randn((d, v), generator=generator, device=device, dtype=PARAM_DTYPE).mul_(0.02),
-                requires_grad=False,
-            )
+        self.embed = _normal((v, d), 0.02, generator, device)
+        self.ln_final = _ones(d, device)
+        self.layers = nn.ModuleList(DecoderLayer(cfg, kind, is_moe, generator, device)
+                                    for kind, is_moe in layer_kinds(cfg))
+        self.lm_head = None if cfg.tie_embeddings else _normal((d, v), 0.02, generator, device)
+        self.vision_proj = None
+        if cfg.frontend == "vlm_stub":  # applied to precomputed patch embeddings (SigLIP stub)
+            self.vision_proj = _normal((d, d), 1.0 / math.sqrt(d), generator, device)
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return forward(self.cfg, self, tokens)
+    def forward(self, tokens: torch.Tensor, prefix_embeds: torch.Tensor | None = None) -> torch.Tensor:
+        return forward(self.cfg, self, tokens, prefix_embeds)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Transformer:
-    """A model with the reference's initial distributions: normal weights
-    scaled by 1/sqrt(fan-in), embeddings and head by 0.02, norms at one,
-    biases at zero, all bf16, drawn on ``device`` from a generator seeded
-    with ``seed``."""
+    """A model with the reference's initial distributions (normal weights
+    scaled by 1/sqrt(fan-in), embeddings and head by 0.02, the SSM conv by
+    0.1, norms at one, biases at zero, ``a_log`` = log(linspace(1, 16))),
+    drawn on ``device`` from a generator seeded with ``seed``."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return Transformer(cfg, gen, dev)
 
 
+def _head(cfg: ModelConfig, params: Transformer) -> torch.Tensor:
+    return params.embed.T if cfg.tie_embeddings else params.lm_head
+
+
+def _logits(cfg: ModelConfig, params: Transformer, x: torch.Tensor) -> torch.Tensor:
+    """float32 logits of bf16 hidden states: bf16 products (exact in
+    float32), float32 sums."""
+    return x.float() @ _head(cfg, params).float()
+
+
 def embed_inputs(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
                  prefix_embeds: torch.Tensor | None = None) -> torch.Tensor:
-    if cfg.frontend is not None or prefix_embeds is not None:
-        raise NotImplementedError(NOT_PORTED["frontend"])
-    return params.embed[tokens].to(ACT_DTYPE)
+    """Token embeddings [B, S, D]; the VLM stub puts its projected patch
+    embeddings in front (and raises ``ValueError`` without them)."""
+    x = params.embed[tokens].to(ACT_DTYPE)
+    if cfg.frontend == "vlm_stub":
+        if prefix_embeds is None:
+            raise ValueError(f"{cfg.name} needs prefix patch embeddings")
+        pe = prefix_embeds.to(ACT_DTYPE) @ params.vision_proj
+        x = torch.cat([pe, x], 1)
+    return x
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, device=device).expand(b, s)
 
 
 def hidden_states(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
-                  prefix_embeds: torch.Tensor | None = None) -> torch.Tensor:
-    """Final-norm hidden states [B, S, D] (no LM head)."""
-    check_supported(cfg)
+                  prefix_embeds: torch.Tensor | None = None, remat: bool = True) -> torch.Tensor:
+    """Final-norm hidden states [B, S_total, D] (no LM head)."""
     x = embed_inputs(cfg, params, tokens, prefix_embeds)
-    b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device).expand(b, s)
+    positions = _positions(x.shape[0], x.shape[1], x.device)
     for layer in params.layers:
         x = layer(cfg, x, positions)
     return rms_norm(x, params.ln_final, cfg.norm_eps)
 
 
 def forward(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
-            prefix_embeds: torch.Tensor | None = None) -> torch.Tensor:
-    """Causal LM logits [B, S, V] in float32 (bf16 products, float32 sums)."""
-    x = hidden_states(cfg, params, tokens, prefix_embeds)
-    head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    return x.float() @ head.float()
+            prefix_embeds: torch.Tensor | None = None, remat: bool = True) -> torch.Tensor:
+    """Causal LM logits [B, S_total, V] in float32."""
+    return _logits(cfg, params, hidden_states(cfg, params, tokens, prefix_embeds))
 
 
-def init_cache(*_args, **_kwargs):
-    raise NotImplementedError(NOT_PORTED["decode"])
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
 
 
-def prefill(*_args, **_kwargs):
-    raise NotImplementedError(NOT_PORTED["decode"])
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=ACT_DTYPE, device="cuda") -> dict:
+    """A zeroed decode cache, one entry per layer: GQA ``k`` / ``v``
+    [B, max_seq, KVH, hd] and MLA ``c`` [B, max_seq, kv_lora+rope] in
+    ``dtype``; SSM ``h`` [B, H, hd, N] float32 and ``conv``
+    [B, conv-1, di+2N] bf16.  ``device="meta"`` gives shapes only."""
+    device = model_device(device)
+    layers = []
+    for kind, _moe in layer_kinds(cfg):
+        if kind != "attn":
+            layers.append(init_ssm_state(cfg, batch, device=device))
+        elif cfg.attn_type == "mla":
+            payload = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+            layers.append({"c": torch.zeros((batch, max_seq, payload), dtype=dtype, device=device)})
+        else:
+            shp = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+            layers.append({"k": torch.zeros(shp, dtype=dtype, device=device),
+                           "v": torch.zeros(shp, dtype=dtype, device=device)})
+    return {"length": 0, "layers": layers}
 
 
-def decode_step(*_args, **_kwargs):
-    raise NotImplementedError(NOT_PORTED["decode"])
+def cache_shape(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    """``init_cache`` on the meta device: shapes and dtypes, no memory."""
+    return init_cache(cfg, batch, max_seq, device="meta")
+
+
+def _cache_max_seq(cfg: ModelConfig, cache: dict) -> int:
+    for (kind, _moe), lc in zip(layer_kinds(cfg), cache["layers"]):
+        if kind == "attn":
+            return (lc["c"] if cfg.attn_type == "mla" else lc["k"]).shape[1]
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# Prefill: logits for all positions + populated cache
+# ---------------------------------------------------------------------------
+
+
+def _attn_prefill(cfg: ModelConfig, p: Attention, h: torch.Tensor, positions: torch.Tensor,
+                  slot_cache: dict) -> torch.Tensor:
+    """Attention over the prompt; writes the prompt's cache rows."""
+    b, s, _ = h.shape
+    if cfg.attn_type == "mla":
+        q, k, v, payload = mla_qkv(cfg, p, h, positions)
+        slot_cache["c"][:, :s] = payload
+        out = flash_attention(q, k, v, causal_offset=0)
+        return out.reshape(b, s, cfg.num_heads * cfg.v_head_dim) @ p.w_o
+    q, k, v = gqa_qkv(cfg, p, h, positions)
+    slot_cache["k"][:, :s] = k
+    slot_cache["v"][:, :s] = v
+    out = flash_attention(q, k, v, causal_offset=0)
+    return out.reshape(b, s, cfg.q_dim) @ p.w_o
+
+
+def prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, cache: dict,
+            prefix_embeds: torch.Tensor | None = None, remat: bool = True,
+            last_only: bool = False, cache_mode: str = "carry") -> tuple[torch.Tensor, dict]:
+    """Logits [B, S_total, V] float32 (only the last position's with
+    ``last_only``) and the cache filled with the prompt; every SSM state
+    starts from zero."""
+    x = embed_inputs(cfg, params, tokens, prefix_embeds)
+    b, s, _ = x.shape
+    if s > _cache_max_seq(cfg, cache) > 0:
+        raise ValueError(f"prefill of {s} positions into a cache of {_cache_max_seq(cfg, cache)}")
+    positions = _positions(b, s, x.device)
+    for layer, lc in zip(params.layers, cache["layers"]):
+        h = rms_norm(x, layer.ln_attn, cfg.norm_eps)
+        if layer.kind == "attn":
+            x = x + _attn_prefill(cfg, layer.attn, h, positions, lc)
+        else:
+            out, state = ssm_block_with_state(cfg, layer.ssm, h, {})
+            lc["h"], lc["conv"] = state["h"].to(lc["h"].dtype), state["conv"].to(lc["conv"].dtype)
+            x = x + out
+        x = layer.ffn(cfg, x)
+    x = rms_norm(x, params.ln_final, cfg.norm_eps)
+    if last_only:  # serving needs only the next-token distribution
+        x = x[:, -1:]
+    cache["length"] = s
+    return _logits(cfg, params, x), cache
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+# Decode attention is injectable: the distributed layer's flash-decode over
+# sequence-sharded caches plugs in here; the dense defaults below are the
+# single-device reference.  Signatures:
+#   gqa: (q, k_new, v_new, k_cache, v_cache, pos) -> (out, k_cache, v_cache)
+#   mla: (q_c, q_rope, payload, c_cache, pos, r, scale_dim) -> (ctx, c_cache)
+DecodeAttnFn = Callable[..., tuple]
+
+
+def dense_gqa_decode_attn(q, k_new, v_new, k_cache, v_cache, pos: int):
+    """Writes row ``pos`` of the caches in place and attends over the whole
+    cache: float32 scores, -1e30 past ``pos``, float32 softmax."""
+    b, _one, h, hd = q.shape
+    k_cache[:, pos:pos + 1] = k_new
+    v_cache[:, pos:pos + 1] = v_new
+    s, kvh = k_cache.shape[1], k_cache.shape[2]
+    q5 = q.reshape(b, 1, kvh, h // kvh, hd).float()
+    scores = torch.einsum("bqkgd,bskd->bkgqs", q5, k_cache.float()) / math.sqrt(hd)
+    scores = scores.masked_fill(torch.arange(s, device=q.device) > pos, -1e30)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, v_cache.float())
+    return out.reshape(b, 1, h, hd).to(q.dtype), k_cache, v_cache
+
+
+def dense_mla_decode_attn(q_c, q_rope, payload, c_cache, pos: int, r: int, scale_dim: int):
+    """Absorbed MLA decode over the compressed cache: writes row ``pos`` in
+    place, scores q_c · c_kv + q_rope · k_rope at 1/sqrt(scale_dim) in
+    float32, -1e30 past ``pos``; returns the context in the latent space."""
+    c_cache[:, pos:pos + 1] = payload
+    s = c_cache.shape[1]
+    c_kv = c_cache[..., :r].float()
+    k_rope = c_cache[..., r:].float()
+    scores = (torch.einsum("bqhr,bsr->bhqs", q_c.float(), c_kv)
+              + torch.einsum("bqhn,bsn->bhqs", q_rope.float(), k_rope)) / math.sqrt(scale_dim)
+    scores = scores.masked_fill(torch.arange(s, device=q_c.device) > pos, -1e30)
+    w = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhqs,bsr->bqhr", w, c_kv)
+    return ctx.to(q_c.dtype), c_cache
+
+
+def _attn_decode(cfg: ModelConfig, p: Attention, h: torch.Tensor, slot_cache: dict, pos: int,
+                 positions: torch.Tensor, gqa_attn_impl, mla_attn_impl) -> torch.Tensor:
+    b = h.shape[0]
+    if cfg.attn_type == "mla":
+        nope, rope_d, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
+        vd, hn = cfg.v_head_dim, cfg.num_heads
+        cq = rms_norm(h @ p.w_dq, p.q_norm, cfg.norm_eps)
+        q = (cq @ p.w_uq).reshape(b, 1, hn, nope + rope_d)
+        q_nope, q_rope = q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)
+        dkv = h @ p.w_dkv  # [B,1,r+rope]
+        c_kv = rms_norm(dkv[..., :r], p.kv_norm, cfg.norm_eps)
+        k_rope = apply_rope(dkv[..., r:].reshape(b, 1, 1, rope_d), positions,
+                            cfg.rope_theta).reshape(b, 1, rope_d)
+        # Absorbed query / value projections: score and read in the
+        # compressed space.
+        w_ukv = p.w_ukv.reshape(r, hn, nope + vd)
+        q_c = torch.einsum("bqhn,rhn->bqhr", q_nope.float(), w_ukv[..., :nope].float()).to(h.dtype)
+        ctx, slot_cache["c"] = mla_attn_impl(q_c, q_rope, torch.cat([c_kv, k_rope], -1),
+                                             slot_cache["c"], pos, r, nope + rope_d)
+        out = torch.einsum("bqhr,rhv->bqhv", ctx.float(), w_ukv[..., nope:].float()).to(h.dtype)
+        return out.reshape(b, 1, hn * vd) @ p.w_o
+    q, k, v = gqa_qkv(cfg, p, h, positions)
+    out, slot_cache["k"], slot_cache["v"] = gqa_attn_impl(q, k, v, slot_cache["k"], slot_cache["v"], pos)
+    return out.reshape(b, 1, cfg.q_dim) @ p.w_o
+
+
+def decode_step(cfg: ModelConfig, params: Transformer, cache: dict, tokens: torch.Tensor,
+                gqa_attn_impl: DecodeAttnFn = dense_gqa_decode_attn,
+                mla_attn_impl: DecodeAttnFn = dense_mla_decode_attn,
+                cache_mode: str = "carry") -> tuple[torch.Tensor, dict]:
+    """One decode step for tokens [B, 1] at position ``cache["length"]``:
+    (logits [B, 1, V] float32, the cache advanced by one)."""
+    pos = int(cache["length"])
+    if pos >= _cache_max_seq(cfg, cache) > 0:
+        raise ValueError(f"decode at position {pos} past a cache of {_cache_max_seq(cfg, cache)}")
+    x = params.embed[tokens].to(ACT_DTYPE)
+    positions = torch.full((x.shape[0], 1), pos, device=x.device)
+    for layer, lc in zip(params.layers, cache["layers"]):
+        h = rms_norm(x, layer.ln_attn, cfg.norm_eps)
+        if layer.kind == "attn":
+            x = x + _attn_decode(cfg, layer.attn, h, lc, pos, positions, gqa_attn_impl, mla_attn_impl)
+        else:
+            out, state = ssm_decode_step(cfg, layer.ssm, h, lc)
+            lc.update(state)
+            x = x + out
+        x = layer.ffn(cfg, x)
+    x = rms_norm(x, params.ln_final, cfg.norm_eps)
+    cache["length"] = pos + 1
+    return _logits(cfg, params, x), cache
 
 
 def lm_loss(*_args, **_kwargs):

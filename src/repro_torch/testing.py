@@ -607,3 +607,80 @@ def assert_oracle_answer(label: str, got, oracle: dict, rtol: float, atol: float
             oracle["all_scores"][qi, col_of_pk[pk]], want_s[qi, slot], rtol=rtol, atol=atol
         )  # a pk the oracle never scored reads +inf and fails here
     return int(diff.sum())
+
+
+# ------------------------------------------------------------- models --
+#: Logit bound (float32 logits of a bf16 model) between two runs of one
+#: model whose bf16 products add in other orders: the CPU tests hold the
+#: port's logits to the reference's within it at the reduced (2-layer)
+#: sizes.  Deeper models drift by about one bf16 ulp of the residual per
+#: layer, so ``logit_atol`` scales it by depth over 2 (reduced jamba's one
+#: 8-layer period: 4x, as ``tests/_torch_model_refs.DEPTH_SCALE``).
+LOGIT_ATOL = 2e-2
+#: Decode against one prefill over the whole sequence: the reference's
+#: ``test_prefill_decode_parity`` bound.
+DECODE_ATOL = 0.15
+
+
+def logit_atol(cfg) -> float:
+    return LOGIT_ATOL * max(1.0, cfg.num_layers / 2)
+
+
+def greedy_mismatches(got, want, tie: float) -> tuple[int, int]:
+    """Positions whose argmax differs between ``got`` and ``want`` (float32
+    logits [..., V]) while ``want``'s top two lie more than ``tie`` apart,
+    and the positions where they lie within it (near-ties)."""
+    top2 = want.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) <= tie
+    return int(((got.argmax(-1) != want.argmax(-1)) & ~near).sum()), int(near.sum())
+
+
+def assert_logits_close(label: str, got, want, atol: float) -> int:
+    """``got`` within ``atol`` of ``want`` (float32 logits [B, S, V]); the
+    argmax equal at every position except where ``want``'s top two lie
+    within ``atol`` of each other.  Returns the number of such near-ties."""
+    got, want = got.float().cpu(), want.float().cpu()
+    err = (got - want).abs().max().item()
+    if got.shape != want.shape or not torch.isfinite(got).all() or err > atol:
+        raise AssertionError(f"{label}: shape {tuple(got.shape)} vs {tuple(want.shape)}, "
+                             f"max |err| {err:.4g} > {atol}")
+    bad, ties = greedy_mismatches(got, want, atol)
+    if bad:
+        raise AssertionError(f"{label}: {bad} greedy tokens differ outside the near-ties")
+    return ties
+
+
+def compare_decode(cfg, cpu_model, model, tokens, prefix, steps: int, atol: float) -> dict:
+    """``prefill`` of ``tokens`` [B, S] (after ``prefix``) and ``steps``
+    ``decode_step``s through two copies of one model, ``cpu_model`` on the
+    CPU and ``model`` on another device, both fed the CPU copy's greedy
+    token each step.  Raises unless each step's logits agree within
+    ``atol`` (``assert_logits_close``).  Returns the largest difference,
+    the near-ties and the CPU's greedy tokens."""
+    from .models import model as M
+
+    b, s = tokens.shape
+    p = 0 if prefix is None else prefix.shape[1]
+    dev = model.device
+    caches = [M.init_cache(cfg, b, p + s + steps, device=m.device) for m in (cpu_model, model)]
+    out = {"max_abs_err": 0.0, "near_ties": 0, "tokens": []}
+
+    def check(label, want, got):
+        out["near_ties"] += assert_logits_close(label, got, want, atol)
+        out["max_abs_err"] = max(out["max_abs_err"], (got.float().cpu() - want).abs().max().item())
+
+    with torch.no_grad():
+        want, caches[0] = M.prefill(cfg, cpu_model, tokens.cpu(), caches[0],
+                                    None if prefix is None else prefix.cpu())
+        got, caches[1] = M.prefill(cfg, model, tokens.to(dev), caches[1],
+                                   None if prefix is None else prefix.to(dev))
+        check(f"{cfg.name} prefill", want, got)
+        tok = want[:, -1:].argmax(-1)
+        for step in range(steps):
+            out["tokens"].append(tok)
+            want, caches[0] = M.decode_step(cfg, cpu_model, caches[0], tok)
+            got, caches[1] = M.decode_step(cfg, model, caches[1], tok.to(dev))
+            check(f"{cfg.name} decode step {step}", want, got)
+            tok = want.argmax(-1)
+    out["tokens"] = torch.cat(out["tokens"], 1)
+    return out

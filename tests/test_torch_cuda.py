@@ -849,3 +849,31 @@ def test_embedder_on_card_matches_the_cpu(dev):
     torch.testing.assert_close(torch.linalg.vector_norm(got, dim=1).cpu(), torch.ones(21),
                                rtol=0, atol=1e-5)
     assert torch.linalg.vector_norm(got.cpu() - want, dim=1).max().item() <= 0.02
+
+
+ALL_ARCHS = ["deepseek-moe-16b", "jamba-v0.1-52b", "mamba2-370m", "minicpm3-4b", "musicgen-medium",
+             "paligemma-3b", "qwen1.5-4b", "qwen3-32b", "qwen3-moe-30b-a3b", "yi-9b"]
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_decode_on_card_matches_the_cpu(dev, arch):
+    """A reduced model's prefill and 8 decode steps on the card as on the
+    CPU (one seeded model moved over, both fed the CPU's greedy tokens):
+    logits within ``testing.logit_atol``, greedy tokens equal outside
+    near-ties."""
+    import copy
+
+    from repro_torch import testing
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as M
+
+    cfg = get_arch(arch).reduced()
+    cpu_model = M.init_params(cfg, seed=7, device="cpu")
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    gen = torch.Generator().manual_seed(8)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 8), generator=gen)
+    prefix = None
+    if cfg.frontend == "vlm_stub":
+        prefix = torch.randn((4, cfg.num_prefix_embeddings, cfg.d_model), generator=gen)
+    res = testing.compare_decode(cfg, cpu_model, card_model, tokens, prefix, 8, testing.logit_atol(cfg))
+    assert res["tokens"].shape == (4, 8) and res["max_abs_err"] <= testing.logit_atol(cfg)

@@ -22,6 +22,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import repro.core as ref_core  # noqa: E402
+from _torch_model_refs import DEPTH_SCALE, FAMILIES, carried, inputs  # noqa: E402
 import repro_torch.core as port_core  # noqa: E402
 from repro.configs import ARCHS as REF_ARCHS  # noqa: E402
 from repro.models import model as RM  # noqa: E402
@@ -49,10 +50,10 @@ def small():
     return _models()
 
 
-def _assert_embeddings_close(got: np.ndarray, want: np.ndarray) -> None:
+def _assert_embeddings_close(got: np.ndarray, want: np.ndarray, scale: float = 1.0) -> None:
     assert got.dtype == np.float32 and got.shape == want.shape
-    np.testing.assert_allclose(got, want, rtol=0, atol=EMBED_ATOL)
-    assert np.linalg.norm(got - want, axis=1).max(initial=0.0) <= EMBED_L2
+    np.testing.assert_allclose(got, want, rtol=0, atol=scale * EMBED_ATOL)
+    assert np.linalg.norm(got - want, axis=1).max(initial=0.0) <= scale * EMBED_L2
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["no-mask", "mask"])
@@ -183,3 +184,28 @@ def test_serve_embedder_flow_system_state_matches(served):
     assert port_stats["index_builds"] == ref_stats["index_builds"] > 0
     for node, st in ref_stats["query_nodes"].items():
         assert port_stats["query_nodes"][node]["rows"] == st["rows"], node
+
+
+@pytest.mark.parametrize("name", [n for n in FAMILIES if n != "paligemma-3b"])
+def test_embed_tokens_takes_every_family(name):
+    """The MLA, MoE, SSM, hybrid and audio-stub configurations embed as the
+    reference's (weights carried across with every vector leaf perturbed;
+    reduced jamba's 8 layers at ``DEPTH_SCALE`` times the bounds)."""
+    cfg, params, model = carried(name)
+    tok, _ = inputs(cfg, 3, 10, seed=6)
+    mask = np.ones((3, 10), np.int32)
+    mask[1, 4:] = 0
+    want = np.asarray(ref_embed_tokens(cfg, params, jnp.asarray(tok), jnp.asarray(mask)))
+    with torch.no_grad():
+        got = embed_tokens(model.cfg, model, torch.from_numpy(tok).long(), torch.from_numpy(mask))
+    assert np.isfinite(got.numpy()).all()
+    _assert_embeddings_close(got.numpy(), want, DEPTH_SCALE.get(name, 1.0))
+
+
+def test_embedder_raises_the_references_error_for_the_vlm_stub():
+    cfg, params, model = carried("paligemma-3b")
+    tok, _ = inputs(cfg, 2, 6)
+    with pytest.raises(ValueError, match="needs prefix patch embeddings"):
+        ref_embed_tokens(cfg, params, jnp.asarray(tok))
+    with pytest.raises(ValueError, match="needs prefix patch embeddings"):
+        Embedder(model.cfg, model).embed(tok)

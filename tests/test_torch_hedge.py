@@ -72,21 +72,23 @@ class _Busy:
 @pytest.fixture
 def serve_overlap(monkeypatch):
     """Wraps ``QueryNode._search_request`` (the scan of one dispatch): the
-    most dispatches any one node scanned at once."""
+    most dispatches any one node scanned at once.  Nodes are told apart by
+    identity: each repeat builds a new system whose nodes reuse the ids, and
+    a hedge straggler of the last one may still be scanning its own node."""
     lock = threading.Lock()
-    live: dict[str, int] = {}
+    live: dict[int, int] = {}
     peak = {"max": 0}
     inner = QueryNode._search_request
 
     def counted(self, request):
         with lock:
-            live[self.node_id] = live.get(self.node_id, 0) + 1
-            peak["max"] = max(peak["max"], live[self.node_id])
+            live[id(self)] = live.get(id(self), 0) + 1
+            peak["max"] = max(peak["max"], live[id(self)])
         try:
             return inner(self, request)
         finally:
             with lock:
-                live[self.node_id] -= 1
+                live[id(self)] -= 1
 
     monkeypatch.setattr(QueryNode, "_search_request", counted)
     return peak

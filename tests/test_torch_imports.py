@@ -87,6 +87,7 @@ MODEL_MODULES = sorted(
 def test_model_modules_are_all_listed():
     assert {"repro_torch.models.config", "repro_torch.models.layers", "repro_torch.models.model",
             "repro_torch.models.embedder", "repro_torch.models.convert",
+            "repro_torch.models.moe", "repro_torch.models.ssm",
             "repro_torch.configs.yi_9b"} <= set(MODEL_MODULES)
     assert len([m for m in MODEL_MODULES if m.startswith("repro_torch.configs.")]) == 10
 
@@ -114,3 +115,26 @@ def model_imports():
 @pytest.mark.parametrize("module", MODEL_MODULES)
 def test_model_modules_import_without_jax_or_reference(model_imports, module):
     assert model_imports[module] == []
+
+
+#: The serving path's new modules: each loads alone, in a fresh interpreter,
+#: without jax and without the reference.
+SERVING_MODULES = ["repro_torch.models.moe", "repro_torch.models.ssm", "repro_torch.launch.serve"]
+
+
+@pytest.mark.parametrize("module", SERVING_MODULES)
+def test_serving_modules_import_alone_without_jax_or_reference(module):
+    assert module in MODULES
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

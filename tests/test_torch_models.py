@@ -1,4 +1,6 @@
-"""The port's dense decoder against ``repro.models`` on the CPU.
+"""The port's dense decoder against ``repro.models`` on the CPU (the other
+families: ``test_torch_model_families.py``; caches and decode:
+``test_torch_decode.py``).
 
 The same seeded numpy inputs go through both packages; weights are the
 reference's ``init_params`` tree carried across by
@@ -32,6 +34,8 @@ from repro.models import model as RM  # noqa: E402
 from repro_torch.configs import ARCHS, SHAPES, cells, get_arch, skipped_cells  # noqa: E402
 from repro_torch.models import layers as PL  # noqa: E402
 from repro_torch.models import model as PM  # noqa: E402
+from repro_torch.models import moe as PMoE  # noqa: E402
+from repro_torch.models import ssm as PS  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -202,40 +206,26 @@ def test_registry_cells_and_shapes_match_reference():
         get_arch("no-such-arch")
 
 
-#: The configurations this slice cannot run, and the ROADMAP step each names.
-UNPORTED = {
-    "minicpm3-4b": "step 1 (MLA)",
-    "qwen3-moe-30b-a3b": "step 2 (MoE)",
-    "deepseek-moe-16b": "step 2 (MoE)",
-    "mamba2-370m": "step 3 (SSM / hybrid)",
-    "jamba-v0.1-52b": "step 3 (SSM / hybrid)",
-    "paligemma-3b": "step 4 (stub frontends)",
-    "musicgen-medium": "step 4 (stub frontends)",
-}
-
-
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_families_raise_naming_their_item(name):
-    cfg = ARCHS[name].reduced()
-    match = "ROADMAP Queue 1 item 4, " + UNPORTED[name].replace("(", r"\(").replace(")", r"\)")
-    with pytest.raises(NotImplementedError, match=match):
-        PM.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        PM.check_supported(cfg)
-
-
 def test_unported_entry_points_raise_naming_their_item():
-    with pytest.raises(NotImplementedError, match=r"step 5 \(caches\)"):
-        PM.prefill()
-    with pytest.raises(NotImplementedError, match=r"step 5 \(caches\)"):
-        PM.decode_step()
+    """Every family, cache and decode path is ported (``tests/test_torch_
+    model_families.py``, ``test_torch_decode.py``); ``lm_loss`` waits for
+    ``train/``."""
     with pytest.raises(NotImplementedError, match=r"step 6 \(lm_loss"):
         PM.lm_loss()
-    with pytest.raises(NotImplementedError, match=r"step 1 \(MLA\)"):
-        PL.mla_qkv(ARCHS["minicpm3-4b"].reduced(), None, None, None)
 
 
-@pytest.mark.parametrize("build", ["Transformer", "DecoderLayer", "Attention", "MLP", "init_params"])
+class _CacheTensors:
+    """A cache's tensors behind ``parameters()``, as the modules' weights."""
+
+    def __init__(self, cache):
+        self.tensors = [v for layer in cache["layers"] for v in layer.values()]
+
+    def parameters(self):
+        return iter(self.tensors)
+
+
+@pytest.mark.parametrize("build", ["Transformer", "DecoderLayer", "Attention", "MLP", "init_params",
+                                   "MLA", "MoE", "SSM", "init_cache"])
 def test_model_constructors_default_to_the_card(build, monkeypatch):
     """Every model constructor, like every entry point of the port, places
     its weights on the card unless the caller asks for the CPU: with no
@@ -248,10 +238,14 @@ def test_model_constructors_default_to_the_card(build, monkeypatch):
         "Attention": lambda **kw: PL.Attention(cfg, **kw),
         "MLP": lambda **kw: PL.MLP(cfg.d_model, cfg.d_ff, **kw),
         "init_params": lambda **kw: PM.init_params(cfg, **kw),
+        "MLA": lambda **kw: PL.Attention(get_arch("minicpm3-4b").reduced(), **kw),
+        "MoE": lambda **kw: PMoE.MoE(get_arch("qwen3-moe-30b-a3b").reduced(), **kw),
+        "SSM": lambda **kw: PS.SSM(get_arch("mamba2-370m").reduced(), **kw),
+        "init_cache": lambda **kw: _CacheTensors(PM.init_cache(get_arch("jamba-v0.1-52b").reduced(), 1, 4, **kw)),
     }[build]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
     on_cpu = make(device="cpu")
     assert {p.device.type for p in on_cpu.parameters()} == {"cpu"}
-    if build != "init_params":  # a shape-only model, as params_from_jax fills
+    if build != "init_params":  # shape only, as params_from_jax fills and cache_shape gives
         assert {p.device.type for p in make(device="meta").parameters()} == {"meta"}
