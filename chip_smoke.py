@@ -129,7 +129,33 @@
    moved over, prefill + 8 steps: logits within ``testing.logit_atol``),
    and ``serve.main(--local)`` in process for each.  Prints peak device
    memory per configuration.  No kernel of the seven is on this path.
-10. Each path runs with every launch counter at 0 and fails unless each of
+10. Train path (``repro_torch.train`` / ``launch.steps.build_train_cell``):
+   yi-9b at its published widths, depth cut to 8 of 48 layers (1.91 B
+   parameters drawn from --seed; bf16 parameters, float32 AdamW moments),
+   12 steps of ``synthetic_lm_batches`` at B=8 x 1,024 with remat: every
+   step's loss (the last must be below the first), seconds, tokens/s and
+   share of the bf16 peak (6 x matmul weights x tokens + attention, the
+   recompute apart), a profiled step, peak device memory.  At 2 layers,
+   full width: two micro-batches against one on one batch (the float32
+   accumulated gradients within ``testing.GRAD_RTOL`` of the full batch's,
+   global relative L2; the reference's bounds: loss rtol 1e-3, grad norm
+   rtol 1e-2, parameters rtol 2e-2 / atol 2e-3); a run crashed at step 3
+   of 6 and resumed from the object store (its own final checkpoint not
+   written), held to the spread of two uninterrupted runs, the
+   checkpoint's bytes and save / restore seconds printed.  One step of the reduced configuration on the card
+   against the CPU (``testing.compare_train_step``), and
+   ``launch.train.main(--local)``.  No kernel of the seven is on this path.
+11. Distributed path (``repro_torch.distributed``) on an NCCL process group
+   of world size 1: the search over 1M x 768 rows at nq 1 and 100, k=100,
+   through ``l2_topk`` and ``merge_topk`` (its launches count toward the
+   kernel line), equal to ``ops.topk_scan`` on the same rows and held to
+   the plain version; GQA (yi-9b) and MLA (minicpm3-4b) flash decode at one
+   period and full width through ``decode_step``'s hooks, 16 steps against
+   the dense decode within FLASH_DECODE_ATOL, beside two controls of the
+   dense decode against itself (positions summed in reverse; rows 0-1 in a
+   batch of 2); the expert-parallel MoE block (qwen3-moe-30b-a3b) and a
+   prefill under ``act_sharding.policy`` against the dense ones.
+12. Each path runs with every launch counter at 0 and fails unless each of
    its kernels was launched; ``kmeans_assign``'s launches are also counted
    per (N, C, D), ``merge_topk``'s per (nq, M, k) and ``sq_decode``'s per
    (n, d), each adding up to the wrapper's count, and the three kernels are
@@ -311,6 +337,35 @@ SERVE_WINDOW_PROMPT, SERVE_WINDOW_STEPS = 2, 6
 SERVE_LOAD_ARCHS = ("jamba-v0.1-52b", "minicpm3-4b")
 SERVE_LOAD_BATCH, SERVE_LOAD_PROMPT, SERVE_LOAD_STEPS = 8, 1_024, 64
 SERVE_CPU_STEPS, SERVE_LOCAL_TOKENS = 8, 16
+# Train path (repro_torch.train / launch.steps): yi-9b at its published
+# widths, depth cut to TRAIN_LAYERS of 48, synthetic_lm_batches at
+# TRAIN_BATCH x TRAIN_SEQ, TRAIN_STEPS steps of build_train_cell with remat
+# and its default AdamW (the reference's: lr 3e-4 after 100 warm-up steps;
+# train.loop's lr 3e-3 over 20, set for the reduced models, took yi-9b's
+# loss from 11.8 to 26 in one step at full width); the micro-batch and
+# resume checks at TRAIN_CHECK_LAYERS layers, full width; the card against
+# the CPU on the reduced configuration.
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "yi-9b", 8, 8, 1_024, 12
+TRAIN_CHECK_LAYERS, TRAIN_RESUME_STEPS, TRAIN_CRASH_AT = 2, 6, 3
+TRAIN_LOCAL_STEPS = 6
+# A resumed run's losses may differ from an uninterrupted run's by what two
+# uninterrupted runs differ by (the embedding backward adds with atomics):
+# held to RESUME_SPREADS times that spread, and never below RESUME_FLOOR.
+RESUME_SPREADS, RESUME_FLOOR = 4.0, 1e-4
+# Distributed path (repro_torch.distributed) on an NCCL group of world 1:
+# the search over the FLAT cell's 1M x 768 base at DIST_NQ, k = K; flash
+# decode through decode_step's hooks on DIST_DECODE_ARCHS (one period, full
+# width; DIST_DECODE_STEPS teacher-forced steps against the dense decode);
+# the expert-parallel MoE block on DIST_MOE_ARCH (one period, full width).
+DIST_NQ, DIST_REPS = (1, 100), {1: 20, 100: 10}
+DIST_DECODE_ARCHS, DIST_DECODE_STEPS = ("yi-9b", "minicpm3-4b"), 16
+# Flash decode's logits against the dense decode's: bf16 activations round
+# apart once the float32 attention sums in another order.  Set from the
+# card's readings beside two controls of the dense decode alone (its
+# positions summed in reverse; rows 0-1 decoded in a batch of 2), which
+# are measured in every run (readings in PERF.md, section 6).
+FLASH_DECODE_ATOL = 0.05
+DIST_MOE_ARCH, DIST_MOE_TOKENS = "qwen3-moe-30b-a3b", 256
 # Dense bf16 peak of one H100 SXM at 700 W (NVIDIA data sheet).
 PEAK_BF16_FLOPS = 989e12
 # Matmul kernels by name in a profile: cuBLAS / cuBLASLt / CUTLASS.
@@ -2625,6 +2680,481 @@ def serve_path(torch, dev, phases, counts, testing, seed: int) -> None:
     log("serve summary: " + json.dumps(summary))
 
 
+def train_flops(cfg, batch: int, seq: int) -> dict:
+    """Operations of one training step, counted from the shapes: 6 per
+    matmul weight and token (forward, and the two backward products), the
+    LM head included; attention's QK and PV over the full square the plain
+    flash attention computes (4 S^2 q_dim per sequence and layer forward,
+    twice that backward).  ``recompute`` adds what remat runs again: each
+    layer's forward and the loss chunks' head products."""
+    d, tokens = cfg.d_model, batch * seq
+    layer = d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d + 3 * d * cfg.d_ff
+    attn = 4 * batch * seq * seq * cfg.q_dim * cfg.num_layers
+    model = 6 * (layer * cfg.num_layers + d * cfg.vocab_size) * tokens + 3 * attn
+    recompute = 2 * (layer * cfg.num_layers + d * cfg.vocab_size) * tokens + attn
+    return {"model": model, "with_recompute": model + recompute,
+            "matmul_params": layer * cfg.num_layers + d * cfg.vocab_size}
+
+
+class SimulatedCrash(Exception):
+    """Raised by the resume check's ``on_step`` to stop a run mid-way."""
+
+
+def train_path(torch, dev, phases, counts, testing, seed: int) -> dict:
+    """The training path (``repro_torch.train.loop`` / ``launch.steps``):
+    TRAIN_ARCH at its published widths and TRAIN_LAYERS layers for
+    TRAIN_STEPS steps (loss, seconds, tokens/s and TFLOP/s per step, a
+    profiled step, peak memory; the loss must fall); at TRAIN_CHECK_LAYERS
+    layers the micro-batch check (two against one: the accumulated
+    gradients within ``testing.GRAD_RTOL``, the grad norm, loss and update
+    within the reference's bounds) and the resume check (crash at TRAIN_CRASH_AT of TRAIN_RESUME_STEPS and
+    resume from the store, held to two uninterrupted runs' spread, save
+    and restore timed with their bytes); the card against the CPU on the
+    reduced configuration (``testing.compare_train_step``);
+    ``launch.train.main(--local)`` on the card.  None of the seven kernels
+    is on this path."""
+    import copy
+    import dataclasses
+    import shutil
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.object_store import MemoryObjectStore
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.launch.steps import accumulate_grads, build_train_cell
+    from repro_torch.models import model as M
+    from repro_torch.train import loop
+    from repro_torch.train.checkpoint import committed_steps
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+
+    counts.reset()
+    t0 = time.perf_counter()
+    base = get_arch(TRAIN_ARCH)
+    adamw = AdamWConfig()
+    out: dict = {}
+
+    # ------------------------------------------- full width, TRAIN_LAYERS
+    cfg = dataclasses.replace(base, num_layers=TRAIN_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = M.init_params(cfg, seed=seed, device=dev)
+    opt = init_opt_state(dict(model.named_parameters()))
+    n_params = sum(p.numel() for p in model.parameters())
+    state_gib = torch.cuda.memory_allocated() / 2**30
+    tc = loop.TrainConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=seed)
+    batches = loop.synthetic_lm_batches(cfg, tc, dev)
+    step = build_train_cell(cfg, adamw, remat=True)
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    losses, norms, times = [], [], []
+    for i in range(TRAIN_STEPS):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model, opt, metrics = step(model, opt, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(loss)
+        norms.append(float(metrics["grad_norm"]))
+        log(f"train {TRAIN_ARCH} x{TRAIN_LAYERS} step {i}: loss {loss:.5f}, grad norm {norms[-1]:.4f}, "
+            f"{times[-1]:.4f} s, {tokens / times[-1]:.1f} tokens/s, "
+            f"{flops['model'] / times[-1] / PEAK_BF16_FLOPS:.4f} of the bf16 peak")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train {TRAIN_ARCH}: the loss did not fall: {losses}")
+    stats: dict = {}
+    batch = next(batches)
+    profile_request(torch, lambda: step(model, opt, batch),
+                    f"train {TRAIN_ARCH} x{TRAIN_LAYERS} step (B={TRAIN_BATCH}, S={TRAIN_SEQ})", stats)
+    med = statistics.median(times[2:])
+    out["full_width"] = {
+        "layers": TRAIN_LAYERS, "params": n_params, "state_gib_before_steps": state_gib,
+        "losses": losses, "grad_norms": norms, "step_s": times, "median_step_s": med,
+        "tokens_per_s": tokens / med, "model_tflops": flops["model"] / med / 1e12,
+        "peak_share": flops["model"] / med / PEAK_BF16_FLOPS,
+        "peak_share_with_recompute": flops["with_recompute"] / med / PEAK_BF16_FLOPS,
+        "profiled_step": stats, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    log(f"train {TRAIN_ARCH} x{TRAIN_LAYERS} of {base.num_layers} layers (depth cut; widths as published: "
+        f"d_model {cfg.d_model}, heads {cfg.num_heads} / {cfg.num_kv_heads}, d_ff {cfg.d_ff}, vocabulary "
+        f"{cfg.vocab_size}): {n_params / 1e9:.3f} B parameters, {state_gib:.2f} GiB of bf16 parameters and "
+        f"float32 moments; B={TRAIN_BATCH} x S={TRAIN_SEQ}, remat, {adamw}; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"median step {med:.4f} s over steps 2-{TRAIN_STEPS - 1}, {tokens / med:.1f} tokens/s, "
+        f"{flops['model'] / med / 1e12:.2f} TFLOP/s = {flops['model'] / med / PEAK_BF16_FLOPS:.4f} of the "
+        f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 peak counting 6 x {flops['matmul_params'] / 1e9:.3f} B "
+        f"matmul weights x tokens + attention, the recompute not counted "
+        f"({flops['with_recompute'] / med / PEAK_BF16_FLOPS:.4f} with it); peak device memory "
+        f"{out['full_width']['peak_gib']:.2f} GiB")
+    del model, opt, step, batches, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases["train_full_width_s"] = time.perf_counter() - t0
+
+    # ------------------------------- micro-batching at TRAIN_CHECK_LAYERS
+    t = time.perf_counter()
+    cfg2 = dataclasses.replace(base, num_layers=TRAIN_CHECK_LAYERS)
+    model = M.init_params(cfg2, seed=seed, device=dev)
+    batch = next(loop.synthetic_lm_batches(cfg2, loop.TrainConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                                                    seed=seed + 1), dev))
+    # The gradients themselves: the update alone cannot show a wrong
+    # accumulation (Adam's first step is lr * sign(g), far under atol).
+    full_g = accumulate_grads(cfg2, copy.deepcopy(model), batch)[1]
+    split_g = accumulate_grads(cfg2, copy.deepcopy(model), batch, microbatches=2)[1]
+    grad_rel = testing.grad_rel_l2(split_g, full_g)
+    leaf_rel = sorted(((testing.grad_rel_l2({k: g}, {k: full_g[k]}), k) for k, g in split_g.items()), reverse=True)
+    del split_g
+    half_g = accumulate_grads(cfg2, copy.deepcopy(model), {k: v[:TRAIN_BATCH // 2] for k, v in batch.items()})[1]
+    half_rel = testing.grad_rel_l2(half_g, full_g)  # what a partial accumulation would read
+    del full_g, half_g
+    if not grad_rel <= testing.GRAD_RTOL or not half_rel > 3 * testing.GRAD_RTOL:
+        raise AssertionError(f"micro-batching: gradients {grad_rel:.4g} from the full batch's (one half's: "
+                             f"{half_rel:.4g}), bound {testing.GRAD_RTOL}")
+    runs = []
+    for mb in (1, 2):
+        m = copy.deepcopy(model)
+        m, _opt, metrics = build_train_cell(cfg2, adamw, microbatches=mb)(
+            m, init_opt_state(dict(m.named_parameters())), batch)
+        runs.append((m, float(metrics["loss"]), float(metrics["grad_norm"])))
+        del _opt
+    (full, loss1, norm1), (split, loss2, norm2) = runs
+    if not abs(loss2 - loss1) <= 1e-3 * abs(loss1) or not abs(norm2 - norm1) <= 1e-2 * abs(norm1):
+        raise AssertionError(f"micro-batching: loss {loss2} against {loss1}, grad norm {norm2} against {norm1}")
+    worst = 0.0
+    for (name, a), b in zip(full.named_parameters(), split.parameters()):
+        torch.testing.assert_close(b.float(), a.float(), rtol=2e-2, atol=2e-3, msg=name)
+        worst = max(worst, (a.float() - b.float()).abs().max().item())
+    out["microbatch"] = {"loss_1": loss1, "loss_2": loss2, "grad_norm_1": norm1, "grad_norm_2": norm2,
+                         "grad_rel_l2": grad_rel, "half_batch_grad_rel_l2": half_rel,
+                         "worst_leaves_rel_l2": {k: v for v, k in leaf_rel[:4]},
+                         "max_param_abs_diff": worst}
+    log(f"check train microbatches {TRAIN_ARCH} x{TRAIN_CHECK_LAYERS}: 2 micro-batches against 1 on one "
+        f"B={TRAIN_BATCH} x S={TRAIN_SEQ} batch: float32 accumulated gradients {grad_rel:.4g} from the full "
+        f"batch's (global relative L2, bound {testing.GRAD_RTOL}; one half's gradients alone read "
+        f"{half_rel:.4g}; the leaves furthest apart: "
+        f"{', '.join(f'{k} {v:.3g}' for v, k in leaf_rel[:4])}); loss {loss2:.6f} vs {loss1:.6f} (rtol 1e-3), grad norm {norm2:.5f} vs {norm1:.5f} "
+        f"(rtol 1e-2), parameters after the update within rtol 2e-2 / atol 2e-3 (max |diff| {worst:.3g})")
+    del model, full, split, runs, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases["train_microbatch_s"] = time.perf_counter() - t
+
+    # ------------------------------------ resume at TRAIN_CHECK_LAYERS
+    t = time.perf_counter()
+    io_s = {"save": [], "restore": []}
+    save, restore = loop.save_checkpoint, loop.restore_latest
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            io_s[key].append(time.perf_counter() - t1)
+            return result
+        return run
+
+    def crash(step_i, _loss):
+        if step_i >= TRAIN_CRASH_AT:
+            raise SimulatedCrash
+
+    rtc = loop.TrainConfig(steps=TRAIN_RESUME_STEPS, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                           checkpoint_every=TRAIN_CRASH_AT, log_every=10**9, run_name="resume", seed=seed)
+    run_s = {}
+    try:
+        # two uninterrupted runs, their checkpoints not written (nothing
+        # reads them; a 2-layer checkpoint is ~10 GB)
+        loop.save_checkpoint = lambda *args, **kwargs: ""
+        control = []
+        for i in range(2):
+            t1 = time.perf_counter()
+            _m, _o, losses = loop.train(cfg2, MemoryObjectStore(), rtc, adamw, device=dev)
+            run_s[f"control {i}"] = time.perf_counter() - t1
+            control.append(losses)
+            del _m, _o
+            gc.collect()
+        loop.save_checkpoint, loop.restore_latest = timed("save", save), timed("restore", restore)
+        store = MemoryObjectStore()
+        t1 = time.perf_counter()
+        try:
+            loop.train(cfg2, store, rtc, adamw, on_step=crash, device=dev)
+            raise AssertionError("the resume check's run did not crash")
+        except SimulatedCrash:
+            pass
+        run_s["crashed"] = time.perf_counter() - t1
+        gc.collect()
+        torch.cuda.empty_cache()
+        if committed_steps(store, "resume") != [TRAIN_CRASH_AT]:
+            raise AssertionError(f"committed after the crash: {committed_steps(store, 'resume')}")
+        ckpt_bytes = sum(meta.size for meta in store.list("ckpt/"))
+        # the resumed run's own final checkpoint is not written: the crashed
+        # run's save is the one read back (a 2-layer save takes ~31 s)
+        loop.save_checkpoint = lambda *args, **kwargs: ""
+        t1 = time.perf_counter()
+        _m, _o, resumed = loop.train(cfg2, store, rtc, adamw, device=dev)
+        run_s["resumed"] = time.perf_counter() - t1
+        del _m, _o
+    finally:
+        loop.save_checkpoint, loop.restore_latest = save, restore
+    spread = max(abs(a - b) for a, b in zip(control[0], control[1]))
+    bound = max(RESUME_SPREADS * spread, RESUME_FLOOR)
+    diff = max(abs(a - b) for a, b in zip(resumed, control[0][TRAIN_CRASH_AT:]))
+    if len(resumed) != TRAIN_RESUME_STEPS - TRAIN_CRASH_AT or not diff <= bound:
+        raise AssertionError(f"resume: losses {resumed} against {control}")
+    out["resume"] = {"control": control, "resumed": resumed, "control_spread": spread, "max_diff": diff,
+                     "bound": bound, "checkpoint_bytes": ckpt_bytes, "save_s": io_s["save"],
+                     "restore_s": io_s["restore"], "run_s": run_s}
+    log(f"check train resume {TRAIN_ARCH} x{TRAIN_CHECK_LAYERS}: crashed at step {TRAIN_CRASH_AT} of "
+        f"{TRAIN_RESUME_STEPS}, resumed from the store: losses {[round(v, 6) for v in resumed]} against two "
+        f"uninterrupted runs {[[round(v, 6) for v in c[TRAIN_CRASH_AT:]] for c in control]} (their spread "
+        f"{spread:.3g} over all steps; max |diff| {diff:.3g}, bound {bound:.3g}); a checkpoint is "
+        f"{ckpt_bytes / 1e9:.3f} GB of .npy (bf16 parameters widened to float32, float32 moments); save "
+        f"{[round(v, 3) for v in io_s['save']]} s, restore {[round(v, 3) for v in io_s['restore']]} s; "
+        f"each run's seconds {json.dumps({k: round(v, 3) for k, v in run_s.items()})}")
+    del store
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases["train_resume_s"] = time.perf_counter() - t
+
+    # ------------------------------------------- card against CPU, reduced
+    t = time.perf_counter()
+    small = base.reduced()
+    cpu_model = M.init_params(small, seed=seed, device="cpu")
+    cpu_batch = next(loop.synthetic_lm_batches(small, loop.TrainConfig(batch=4, seq_len=64, seed=seed), "cpu"))
+    res = testing.compare_train_step(small, cpu_model, copy.deepcopy(cpu_model).to(dev), cpu_batch, adamw)
+    out["card_vs_cpu"] = res
+    log(f"check train {TRAIN_ARCH} reduced, card against CPU, one step: loss {res['device']['loss']:.6f} vs "
+        f"{res['cpu']['loss']:.6f} (|diff| {res['loss_abs_err']:.3g}, bound {testing.loss_atol(small):.3g}), "
+        f"grad norm {res['device']['grad_norm']:.6f} vs {res['cpu']['grad_norm']:.6f} (relative "
+        f"{res['grad_norm_rel_err']:.3g}, bound {testing.GRAD_RTOL})")
+    ckpt_dir = ROOT / "build" / "train_local_ckpts"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        local = train_launcher.main(["--arch", TRAIN_ARCH, "--local", "--steps", str(TRAIN_LOCAL_STEPS),
+                                     "--ckpt-dir", str(ckpt_dir)])
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if len(local) != TRAIN_LOCAL_STEPS or not all(np.isfinite(local)):
+        raise AssertionError(f"train --local: losses {local}")
+    phases["train_card_vs_cpu_s"] = time.perf_counter() - t
+    out["launches"] = counts.read()
+    log(f"train path launches of the seven kernels: {out['launches']} (no TPU kernel is on this path)")
+    phases["train_s"] = time.perf_counter() - t0
+    log("train summary: " + json.dumps(out))
+    return out
+
+
+def flash_attention_check(torch, cfg, hooks: dict, gen, dev) -> float:
+    """The flash impl against the dense one on float32 inputs at ``cfg``'s
+    attention shapes (B=SERVE_BATCH, a cache of SERVE_PROMPT +
+    DIST_DECODE_STEPS positions, the new token at its middle): outputs
+    within rtol = atol = 2e-4, caches equal.  Returns the max |err|."""
+    from repro_torch.models import model as M
+
+    b, s = SERVE_BATCH, SERVE_PROMPT + DIST_DECODE_STEPS
+    pos = s // 2
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    if cfg.attn_type == "mla":
+        r, rope = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        args = (rand(b, 1, cfg.num_heads, r), rand(b, 1, cfg.num_heads, rope), rand(b, 1, r + rope))
+        cache = rand(b, s, r + rope)
+        scale_dim = cfg.qk_nope_head_dim + rope
+        want, want_c = M.dense_mla_decode_attn(*args, cache.clone(), pos, r, scale_dim)
+        got, got_c = hooks["mla_attn_impl"](*args, cache.clone(), pos, r, scale_dim)
+        caches = [(got_c, want_c)]
+    else:
+        h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        args = (rand(b, 1, h, hd), rand(b, 1, kvh, hd), rand(b, 1, kvh, hd))
+        kc, vc = rand(b, s, kvh, hd), rand(b, s, kvh, hd)
+        want, want_k, want_v = M.dense_gqa_decode_attn(*args, kc.clone(), vc.clone(), pos)
+        got, got_k, got_v = hooks["gqa_attn_impl"](*args, kc.clone(), vc.clone(), pos)
+        caches = [(got_k, want_k), (got_v, want_v)]
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    for a, b_ in caches:
+        torch.testing.assert_close(a, b_, rtol=0, atol=0)
+    return (got - want).abs().max().item()
+
+
+def reordered_decode_hooks(torch) -> dict:
+    """A control for flash decode: ``decode_step`` hooks that compute the
+    dense decode's attention with the cache's positions up to ``pos``
+    summed in reverse order: the same math, another float32 order."""
+    import math
+
+    def gqa(q, k_new, v_new, k_cache, v_cache, pos: int):
+        k_cache[:, pos:pos + 1] = k_new
+        v_cache[:, pos:pos + 1] = v_new
+        b, _one, h, hd = q.shape
+        kvh = k_cache.shape[2]
+        k, v = k_cache[:, :pos + 1].flip(1).float(), v_cache[:, :pos + 1].flip(1).float()
+        q5 = q.reshape(b, 1, kvh, h // kvh, hd).float()
+        w = torch.softmax(torch.einsum("bqkgd,bskd->bkgqs", q5, k) / math.sqrt(hd), dim=-1)
+        out = torch.einsum("bkgqs,bskd->bqkgd", w, v)
+        return out.reshape(b, 1, h, hd).to(q.dtype), k_cache, v_cache
+
+    def mla(q_c, q_rope, payload, c_cache, pos: int, r: int, scale_dim: int):
+        c_cache[:, pos:pos + 1] = payload
+        c = c_cache[:, :pos + 1].flip(1).float()
+        scores = (torch.einsum("bqhr,bsr->bhqs", q_c.float(), c[..., :r])
+                  + torch.einsum("bqhn,bsn->bhqs", q_rope.float(), c[..., r:])) / math.sqrt(scale_dim)
+        ctx = torch.einsum("bhqs,bsr->bqhr", torch.softmax(scores, dim=-1), c[..., :r])
+        return ctx.to(q_c.dtype), c_cache
+
+    return {"gqa_attn_impl": gqa, "mla_attn_impl": mla}
+
+
+def distributed_path(torch, dev, gen, phases, counts, testing, seed: int) -> dict:
+    """The distributed layer (``repro_torch.distributed``) on an NCCL
+    process group of world size 1 (NCCL puts one rank on a card): the
+    search over 1M x 768 rows at DIST_NQ, k = K, through ``l2_topk`` and
+    ``merge_topk`` (its launches counted), held to ``ops.topk_scan`` on the
+    same rows exactly and to the plain version within SCORE_TOL (ids exact
+    outside near-ties); GQA and MLA flash decode against the dense decode
+    on one layer's float32 inputs at the model's shapes within 2e-4 (the
+    reference's bound, ``tests/test_distributed.py:42,78``), then through
+    ``decode_step``'s hooks for DIST_DECODE_STEPS steps within
+    FLASH_DECODE_ATOL, beside two controls of the dense decode against
+    itself (``reordered_decode_hooks``; rows 0-1 in a batch of 2); the
+    expert-parallel MoE block against the dense one within 2e-2 (the
+    reference's bound) and a prefill under the policy within
+    ``testing.logit_atol``."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import act_sharding
+    from repro_torch.distributed.decode_attn import make_gqa_flash_decode, make_mla_flash_decode
+    from repro_torch.distributed.search import make_distributed_search
+    from repro_torch.kernels import l2_topk as l2_mod
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+
+    t0 = time.perf_counter()
+    rendezvous = ROOT / "build" / "dist_rendezvous"
+    rendezvous.parent.mkdir(parents=True, exist_ok=True)
+    rendezvous.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(rendezvous), 1), rank=0, world_size=1)
+    out: dict = {"latency": {}}
+    try:
+        # ---------------------------------------------------------- search
+        x = torch.randn((N_ROWS, DIM), generator=gen, device=dev)
+        valid = torch.ones(N_ROWS, dtype=torch.int32, device=dev)
+        queries = {nq: torch.randn((nq, DIM), generator=gen, device=dev) for nq in DIST_NQ}
+        search = make_distributed_search(None, K, "l2")
+        results = {}
+        counts.reset()
+        for nq, q in queries.items():
+            times = []
+            for _ in range(DIST_REPS[nq] + 1):  # the first call is the warm-up
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                results[nq] = search(q, x, valid)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            out["latency"][f"distributed search nq={nq}"] = times
+        launches = counts.read()
+        out["launches"] = launches
+        out["shapes"] = counts.read_shapes(launches, "distributed", ())
+        log(f"distributed path launches: {launches}")
+        for kname in ("l2_topk", "merge_topk"):
+            if launches[kname] <= 0:
+                raise AssertionError(f"{kname} was not launched on the distributed path")
+        out["max_abs_err"] = 0.0
+        rtol, atol = testing.SCORE_TOL["l2"]
+        for nq, q in queries.items():
+            got = results[nq]
+            single = ops.topk_scan(q, x, K, "l2", valid=valid.bool())
+            if not (torch.equal(got[0], single[0]) and torch.equal(got[1], single[1])):
+                raise AssertionError(f"distributed search nq={nq}: differs from the single-rank scan")
+            plain = l2_mod.l2_topk_plain(q, [x], [valid.bool()], K, "l2")
+            testing.assert_topk_near_tie(got, plain, rtol, atol)
+            err = (got[0] - plain[0]).abs().max().item()
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            log(f"check distributed search nq={nq} over {N_ROWS} x {DIM}, k={K}, world 1: equal to "
+                f"ops.topk_scan on the same rows; against the plain version max |err| {err:.3g} (rtol {rtol}, "
+                f"atol {atol}), ids equal outside near-ties; median "
+                f"{statistics.median(out['latency'][f'distributed search nq={nq}'][1:]):.3f} ms")
+        del x, valid, queries, results
+        gc.collect()
+        torch.cuda.empty_cache()
+        phases["distributed_search_s"] = time.perf_counter() - t0
+
+        # ---------------------------------------------------- flash decode
+        t = time.perf_counter()
+        hooks = {"gqa_attn_impl": make_gqa_flash_decode(), "mla_attn_impl": make_mla_flash_decode()}
+        reordered = reordered_decode_hooks(torch)
+        b, s = SERVE_BATCH, SERVE_PROMPT
+        for name in DIST_DECODE_ARCHS:
+            cfg, model = serve_model(torch, name, dev, seed)
+            attn_err = flash_attention_check(torch, cfg, hooks, gen, dev)
+            tokens = torch.randint(0, cfg.vocab_size, (b, s + DIST_DECODE_STEPS), generator=gen, device=dev)
+            # dense, flash, the reordered control; then rows 0-1 alone (dense)
+            runs = [(b, {}), (b, hooks), (b, reordered), (2, {})]
+            with torch.no_grad():
+                caches = []
+                for rows, _h in runs:
+                    cache = M.init_cache(cfg, rows, s + DIST_DECODE_STEPS, device=dev)
+                    M.prefill(cfg, model, tokens[:rows, :s], cache, last_only=True)
+                    caches.append(cache)
+                logits = [[] for _ in runs]
+                for i in range(DIST_DECODE_STEPS):
+                    for (rows, impls), cache, seq in zip(runs, caches, logits):
+                        seq.append(M.decode_step(cfg, model, cache, tokens[:rows, s + i:s + i + 1], **impls)[0])
+                want, got, reord, pair = (torch.cat(seq, 1) for seq in logits)
+                ties = testing.assert_logits_close(f"flash decode {name}", got, want, FLASH_DECODE_ATOL)
+                err = (got - want).abs().max().item()
+                ctrl_order = (reord - want).abs().max().item()
+                ctrl_batch = (pair - want[:2]).abs().max().item()
+            out[f"flash_decode {name}"] = {"attention_max_abs_err": attn_err, "max_abs_err": err, "near_ties": ties,
+                                           "control_reversed_order": ctrl_order, "control_batch_of_2": ctrl_batch}
+            log(f"check flash decode {name} x{cfg.num_layers} ({cfg.attn_type}, world 1): one layer's attention "
+                f"against the dense decode's on float32 inputs, max |err| {attn_err:.3g} (rtol = atol = 2e-4); "
+                f"{DIST_DECODE_STEPS} decode steps through decode_step's hooks against the dense decode, max |err| "
+                f"{err:.4g} (bound {FLASH_DECODE_ATOL}), greedy tokens equal outside {ties} near-ties at that "
+                f"bound; controls, the dense decode against itself: positions summed in reverse {ctrl_order:.4g}, "
+                f"rows 0-1 in a batch of 2 {ctrl_batch:.4g}")
+            del model, caches
+            gc.collect()
+            torch.cuda.empty_cache()
+        phases["distributed_decode_s"] = time.perf_counter() - t
+
+        # ---------------------------------------------- expert-parallel MoE
+        t = time.perf_counter()
+        cfg, model = serve_model(torch, DIST_MOE_ARCH, dev, seed)
+        layer = next(lay for lay in model.layers if lay.is_moe)
+        tokens = torch.randint(0, cfg.vocab_size, (b, DIST_MOE_TOKENS // b), generator=gen, device=dev)
+        with torch.no_grad():
+            h = torch.randn((b, DIST_MOE_TOKENS // b, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+            dense = moe_mod.moe_block(cfg, layer.moe, h)
+            dense_logits, _ = M.prefill(cfg, model, tokens, M.init_cache(cfg, b, tokens.shape[1], device=dev))
+            with act_sharding.policy(None):
+                sharded = moe_mod.moe_block(cfg, layer.moe, h)
+                sharded_logits, _ = M.prefill(cfg, model, tokens, M.init_cache(cfg, b, tokens.shape[1], device=dev))
+        block_err = (sharded.float() - dense.float()).abs().max().item()
+        torch.testing.assert_close(sharded.float(), dense.float(), rtol=2e-2, atol=2e-2)
+        ties = testing.assert_logits_close(f"expert-parallel {DIST_MOE_ARCH}", sharded_logits, dense_logits,
+                                           testing.logit_atol(cfg))
+        logit_err = (sharded_logits - dense_logits).abs().max().item()
+        out["expert_parallel"] = {"block_max_abs_err": block_err, "prefill_max_abs_err": logit_err,
+                                  "near_ties": ties}
+        log(f"check expert-parallel MoE {DIST_MOE_ARCH} x{cfg.num_layers} ({cfg.moe_num_experts} experts "
+            f"over world 1): the block on {DIST_MOE_TOKENS} tokens against the dense block, max |err| "
+            f"{block_err:.4g} (rtol = atol = 2e-2); a prefill under the policy against the dense one, max "
+            f"|err| {logit_err:.4g} (bound {testing.logit_atol(cfg)}), {ties} near-ties")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        phases["distributed_moe_s"] = time.perf_counter() - t
+    finally:
+        dist.destroy_process_group()
+        rendezvous.unlink(missing_ok=True)
+    phases["distributed_s"] = time.perf_counter() - t0
+    return out
+
+
 def scan_shape_times(torch, l2_mod, testing, shapes: dict, gen, dev) -> dict:
     """``l2_topk`` at every (nq, rows per segment, D, k, metric) in
     ``shapes`` (the paths' launches at the widths in
@@ -3206,11 +3736,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     # --------------------------------------------------------- serve path
     serve_path(torch, dev, phases, counts, testing, args.seed)
+    # --------------------------------------------------------- train path
+    train_path(torch, dev, phases, counts, testing, args.seed)
+    # --------------------------------------------------- distributed path
+    dpath = distributed_path(torch, dev, gen, phases, counts, testing, args.seed)
+    max_err["l2_topk"] = max(max_err["l2_topk"], dpath["max_abs_err"])
     t0 = time.perf_counter()
     # merge_topk, sq_decode and kmeans_assign at every shape the paths
     # launched them at (FLAT builds none and decodes none)
     shapes = {kname: sum((src[kname] for src in (flat_shapes, ivf_shapes, fam_shapes, fac["shapes"],
-                                                 maint["shapes"], emb["shapes"])), collections.Counter())
+                                                 maint["shapes"], emb["shapes"], dpath["shapes"])),
+                         collections.Counter())
               for kname in LaunchCounts.SHAPED}
     floor_ms = empty_kernel_ms(torch)
     merge_rows = merge_shape_times(torch, merge_mod, shapes["merge_topk"], gen, dev, floor_ms)
@@ -3228,14 +3764,14 @@ def main() -> int:
     phases["kernel_timing_s"] += time.perf_counter() - t0
 
     for key, times in {**latency, **ivf_latency, **fam_latency, **fac["latency"],
-                       **maint["latency"], **emb["latency"]}.items():
+                       **maint["latency"], **emb["latency"], **dpath["latency"]}.items():
         steady = times[1:]
         log(f"request {key}: first {times[0]:.3f} ms, median {statistics.median(steady):.3f} ms "
             f"over {len(steady)} (min {min(steady):.3f}, max {max(steady):.3f})")
     log("phases: " + json.dumps({k: round(v, 3) for k, v in phases.items()}))
 
     launches = {k: flat_launches[k] + ivf_launches[k] + fam_launches[k] + fac["launches"][k]
-                + maint["launches"][k] + emb["launches"][k] for k in KERNEL_NAMES}
+                + maint["launches"][k] + emb["launches"][k] + dpath["launches"][k] for k in KERNEL_NAMES}
 
     def index_row(kname, key, replaces, source):
         row = it[key]

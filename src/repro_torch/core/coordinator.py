@@ -42,11 +42,20 @@ class IdAllocator:
 
     The watermark is checkpointed to the meta store (``id_alloc/{coll}``)
     so a restarted system never re-issues an id and no-match rejection
-    stays sound across crashes."""
+    stays sound across crashes.
+
+    String primary keys get int64 surrogate ids (``string_ids``), dense per
+    collection in the order the keys are first written: segments, tombstones
+    and binlogs carry the ids; the WAL record carries both.  Each batch of
+    new keys is checkpointed as one ``string_pks/{coll}/{first id}`` record,
+    so a restarted system maps every key to the id its rows were written
+    under.  (The reference keeps the strings in its segments.)"""
 
     def __init__(self, meta: "MetaStore | None" = None) -> None:
         self._next: dict[str, int] = {}
+        self._string_ids: dict[str, dict[str, int]] = {}
         self.meta = meta
+        self._lock = threading.Lock()
 
     def _persist(self, collection: str) -> None:
         if self.meta is not None:
@@ -78,18 +87,43 @@ class IdAllocator:
         """Exclusive upper bound of every pk ever seen for the collection."""
         return self._next.get(collection, 0)
 
+    def string_ids(self, collection: str, keys, assign: bool = True) -> "np.ndarray":
+        """int64 surrogate ids of string keys: a key seen before keeps its
+        id; a new one takes the next id when ``assign``, else -1."""
+        import numpy as np
+
+        keys = np.asarray(keys).astype(np.str_).tolist()
+        with self._lock:
+            ids = self._string_ids.setdefault(collection, {})
+            if assign:
+                fresh = list(dict.fromkeys(k for k in keys if k not in ids))
+                if fresh:
+                    start = len(ids)
+                    ids.update((k, start + i) for i, k in enumerate(fresh))
+                    if self.meta is not None:
+                        self.meta.put(f"string_pks/{collection}/{start:012d}", {"keys": fresh})
+            return np.array([ids.get(k, -1) for k in keys], np.int64)
+
     def forget(self, collection: str) -> None:
         self._next.pop(collection, None)
+        self._string_ids.pop(collection, None)
         if self.meta is not None:
             self.meta.delete(f"id_alloc/{collection}")
+            for key in self.meta.scan(f"string_pks/{collection}/"):
+                self.meta.delete(key)
 
     def recover(self) -> None:
-        """Reload watermarks from the meta-store checkpoints."""
+        """Reload watermarks and string-key ids from the meta-store
+        checkpoints."""
         if self.meta is None:
             return
         for key, rec in self.meta.scan("id_alloc/").items():
             coll = key.split("/", 1)[1]
             self._next[coll] = max(self._next.get(coll, 0), int(rec.get("next", 0)))
+        for key, rec in sorted(self.meta.scan("string_pks/").items()):
+            _, coll, start = key.rsplit("/", 2)
+            ids = self._string_ids.setdefault(coll, {})
+            ids.update((k, int(start) + i) for i, k in enumerate(rec["keys"]))
 
 
 # ---------------------------------------------------------------------------

@@ -193,6 +193,8 @@ class Logger:
             self.data_coord.id_alloc.note_explicit(info.name, pks)
         else:
             pks = self.data_coord.allocate_pks(info.name, n)
+        # String keys route by their own hash; rows carry their int64 ids.
+        ids = self._string_ids(info, pks, assign=True)
         # Fresh auto-IDs cannot collide: nothing to replace, plain insert.
         upsert = upsert and explicit
 
@@ -232,7 +234,7 @@ class Logger:
                 "shard": shard,
                 "segment_id": segment_id,
                 "partition": partition,
-                "pk": pks[sel],
+                **self._pk_payload(pks, ids, sel),
                 "vector": vectors[sel],
                 "extras": {f: a[sel] for f, a in extras_all.items()},
             }
@@ -246,7 +248,7 @@ class Logger:
             )
             shard_lsns[shard] = lsn
         if upsert and shard_lsns:
-            self._broadcast_tombstones(info.name, pks, lsn)
+            self._broadcast_tombstones(info.name, pks if ids is None else ids, lsn)
         return MutationResult(
             op="upsert" if upsert else "insert",
             pks=pks,
@@ -264,6 +266,9 @@ class Logger:
             # high watermark (or negative) were never inserted.
             high = self.data_coord.id_alloc.high(info.name)
             pks = pks[(pks >= 0) & (pks < high)]
+        ids = self._string_ids(info, pks, assign=False)
+        if ids is not None:  # string keys never written match nothing
+            pks, ids = pks[ids >= 0], ids[ids >= 0]
         if pks.size == 0:
             # No-op: publish nothing, but hand back a valid watermark — the
             # last issued timestamp is already covered by any read that
@@ -291,12 +296,12 @@ class Logger:
                     payload={
                         "collection": info.name,
                         "shard": shard,
-                        "pk": pks[sel],
+                        **self._pk_payload(pks, ids, sel),
                     },
                 ),
             )
             shard_lsns[shard] = lsn
-        self._broadcast_tombstones(info.name, pks, lsn)
+        self._broadcast_tombstones(info.name, pks if ids is None else ids, lsn)
         return MutationResult(
             op="delete",
             pks=pks,
@@ -305,6 +310,21 @@ class Logger:
             row_count=requested,
             ack_rows=len(pks),
         )
+
+    def _string_ids(self, info: CollectionInfo, pks: np.ndarray, assign: bool):
+        """The int64 ids of string keys (``IdAllocator.string_ids``); None
+        for integer keys, which are their own ids."""
+        if pks.dtype.kind not in "USO":
+            return None
+        return self.data_coord.id_alloc.string_ids(info.name, pks, assign=assign)
+
+    @staticmethod
+    def _pk_payload(pks: np.ndarray, ids, sel: np.ndarray) -> dict:
+        """A WAL record's keys: ``pk`` is what segments and tombstones
+        store (int64); string keys ride beside their ids as ``user_pk``."""
+        if ids is None:
+            return {"pk": pks[sel]}
+        return {"pk": ids[sel], "user_pk": pks[sel]}
 
     def _broadcast_tombstones(
         self, collection: str, pks: np.ndarray, lsn: int

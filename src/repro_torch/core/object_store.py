@@ -66,8 +66,13 @@ def _etag(data: bytes) -> str:
 
 
 class MemoryObjectStore(ObjectStore):
+    """Objects in a dict.  Each object's ETag is computed once, at ``put``,
+    and kept beside it, as S3 keeps it: ``list`` does not hash the stored
+    bytes again (a checkpoint's objects run to gigabytes)."""
+
     def __init__(self) -> None:
         self._objects: dict[str, bytes] = {}
+        self._etags: dict[str, str] = {}
         self._lock = threading.RLock()
         self.put_count = 0
         self.get_count = 0
@@ -79,11 +84,14 @@ class MemoryObjectStore(ObjectStore):
     def put(self, key: str, data: bytes) -> ObjectMeta:
         if not isinstance(data, (bytes, bytearray)):
             raise TypeError(f"object value must be bytes, got {type(data)}")
+        data = bytes(data)
+        etag = _etag(data)
         with self._lock:
-            self._objects[key] = bytes(data)
+            self._objects[key] = data
+            self._etags[key] = etag
             self.put_count += 1
             self.bytes_written += len(data)
-            return ObjectMeta(key, len(data), _etag(data))
+            return ObjectMeta(key, len(data), etag)
 
     def get(self, key: str) -> bytes:
         with self._lock:
@@ -103,6 +111,7 @@ class MemoryObjectStore(ObjectStore):
             data = self._objects.pop(key, None)
             if data is None:
                 return False
+            del self._etags[key]
             self.delete_count += 1
             self.bytes_deleted += len(data)
             return True
@@ -110,7 +119,7 @@ class MemoryObjectStore(ObjectStore):
     def list(self, prefix: str = "") -> Iterator[ObjectMeta]:
         with self._lock:
             keys = sorted(k for k in self._objects if k.startswith(prefix))
-            metas = [ObjectMeta(k, len(self._objects[k]), _etag(self._objects[k])) for k in keys]
+            metas = [ObjectMeta(k, len(self._objects[k]), self._etags[k]) for k in keys]
         yield from metas
 
 

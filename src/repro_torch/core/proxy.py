@@ -285,6 +285,15 @@ class Proxy:
                 k=k if k is not None else 10,
                 filter=filter_expr,
             )
+        pk_field = info.schema.primary()
+        if pk_field is not None and pk_field.dtype is FieldType.STRING:
+            # Rows hold int64 surrogates of string keys (``IdAllocator.
+            # string_ids``); answers would name those, not the user's keys.
+            # The reference fails here too, deep in its merge.
+            raise TypeError(
+                f"collection '{info.name}' has string primary keys: it ingests, "
+                "deletes and counts them, but search over it is not supported"
+            )
         # Never mutate the caller's request object — it may be reused.
         active_filter = request.filter if request.filter is not None else filter_expr
         active_fexpr = self._compile_filter(info.name, active_filter)

@@ -8,7 +8,8 @@ arrays on the host, where filter expressions are evaluated; 2-D extras
 
 A tombstone ``(pk, dts)`` kills exactly the row versions with
 ``row_ts < dts``, so an upsert's delete half leaves its own insert half
-visible.  Primary keys are integers: string pks are not ported yet.
+visible.  Primary keys are integers: string keys reach segments as the
+int64 surrogate ids the data coordinator assigns (``IdAllocator.string_ids``).
 """
 
 from __future__ import annotations

@@ -1,3 +1,4 @@
-"""Launchers; mirrors ``repro.launch``.  Ported: ``serve`` (``--local``).
-Training launchers and the TPU-mesh lowering (``--dry-run``) wait for
-ROADMAP Queue 1 item 4, steps 6 and 7."""
+"""Launchers; mirrors ``repro.launch``.  Ported: ``serve`` and ``train``
+(``--local``) and the training step (``steps.build_train_cell``).  The
+TPU-mesh lowering (``--dry-run``, ``dryrun``, ``mesh``, ``report``) and the
+sharded prefill / decode cells wait for ROADMAP Queue 1 item 4, step 7."""

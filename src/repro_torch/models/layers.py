@@ -100,7 +100,7 @@ def flash_attention(
             mask = (k_pos < sk)[None, :]  # padding
             if causal_offset is not None:
                 mask = mask & (k_pos[None, :] <= q_pos[:, None] + causal_offset)
-            s = torch.where(mask, s, torch.tensor(-1e30, device=dev))
+            s = s.masked_fill(~mask, -1e30)  # a scalar: no host-to-device copy, no sync
             m_new = torch.maximum(m, s.amax(-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)

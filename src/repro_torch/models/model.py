@@ -18,15 +18,20 @@ projected patch prefix; the audio stub changes nothing, as in the
 reference), ``hidden_states``, ``forward``, ``init_cache`` /
 ``cache_shape``, ``prefill`` and ``decode_step`` (GQA caches k / v, MLA
 the compressed c_kv ‖ k_rope payload with the absorbed decode, SSM the
-recurrent state).  ``lm_loss`` raises ``NotImplementedError`` naming its
-ROADMAP item.
+recurrent state) and ``lm_loss`` (sequence-chunked cross entropy).
 
 The cache is a dict ``{"length": int, "layers": [per-layer dict]}``, one
 entry per layer rather than stacked over periods; ``prefill`` and
 ``decode_step`` write the attention caches in place and replace each SSM
-state, and return the same dict.  ``remat`` and ``cache_mode`` are the
-reference's XLA memory devices (rematerialization, carry vs. ys): they are
-taken for call-site parity and change nothing here.
+state, and return the same dict.
+
+``remat`` (``hidden_states``, ``forward``, ``lm_loss``) recomputes each
+effective period's activations in the backward pass
+(``torch.utils.checkpoint``, as the reference wraps its period body in
+``jax.checkpoint``) when autograd records; serving runs under
+``torch.no_grad`` and builds no graph.  ``cache_mode`` is the reference's
+XLA memory device (carry vs. ys): taken for call-site parity, it changes
+nothing here.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from typing import Callable
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from .config import ModelConfig
@@ -56,12 +62,6 @@ from .layers import (
 )
 from .moe import MoE, moe_block
 from .ssm import SSM, init_ssm_state, ssm_block, ssm_block_with_state, ssm_decode_step
-
-#: What the unported parts raise, each naming its ROADMAP item.
-NOT_PORTED = {
-    "loss": "lm_loss is not ported yet: ROADMAP Queue 1 item 4, step 6 (lm_loss with train/)",
-}
-
 
 def _lcm(a: int, b: int) -> int:
     return a * b // math.gcd(a, b)
@@ -202,20 +202,34 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device).expand(b, s)
 
 
+def _period_forward(cfg: ModelConfig, layers, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    for layer in layers:
+        x = layer(cfg, x, positions)
+    return x
+
+
 def hidden_states(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
                   prefix_embeds: torch.Tensor | None = None, remat: bool = True) -> torch.Tensor:
-    """Final-norm hidden states [B, S_total, D] (no LM head)."""
+    """Final-norm hidden states [B, S_total, D] (no LM head).  With
+    ``remat`` and autograd recording, each effective period keeps only its
+    input and is recomputed in the backward pass."""
     x = embed_inputs(cfg, params, tokens, prefix_embeds)
     positions = _positions(x.shape[0], x.shape[1], x.device)
-    for layer in params.layers:
-        x = layer(cfg, x, positions)
+    period = len(effective_pattern(cfg))
+    recompute = remat and torch.is_grad_enabled()
+    for lo in range(0, len(params.layers), period):
+        layers = params.layers[lo:lo + period]
+        if recompute:
+            x = checkpoint(_period_forward, cfg, layers, x, positions, use_reentrant=False)
+        else:
+            x = _period_forward(cfg, layers, x, positions)
     return rms_norm(x, params.ln_final, cfg.norm_eps)
 
 
 def forward(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
             prefix_embeds: torch.Tensor | None = None, remat: bool = True) -> torch.Tensor:
     """Causal LM logits [B, S_total, V] in float32."""
-    return _logits(cfg, params, hidden_states(cfg, params, tokens, prefix_embeds))
+    return _logits(cfg, params, hidden_states(cfg, params, tokens, prefix_embeds, remat=remat))
 
 
 # ---------------------------------------------------------------------------
@@ -379,8 +393,11 @@ def decode_step(cfg: ModelConfig, params: Transformer, cache: dict, tokens: torc
     """One decode step for tokens [B, 1] at position ``cache["length"]``:
     (logits [B, 1, V] float32, the cache advanced by one)."""
     pos = int(cache["length"])
-    if pos >= _cache_max_seq(cfg, cache) > 0:
-        raise ValueError(f"decode at position {pos} past a cache of {_cache_max_seq(cfg, cache)}")
+    # a sequence-sharded cache (``distributed.decode_attn``) holds 1 / seq_shards of the positions
+    impl = mla_attn_impl if cfg.attn_type == "mla" else gqa_attn_impl
+    capacity = _cache_max_seq(cfg, cache) * getattr(impl, "seq_shards", 1)
+    if pos >= capacity > 0:
+        raise ValueError(f"decode at position {pos} past a cache of {capacity}")
     x = params.embed[tokens].to(ACT_DTYPE)
     positions = torch.full((x.shape[0], 1), pos, device=x.device)
     for layer, lc in zip(params.layers, cache["layers"]):
@@ -397,5 +414,41 @@ def decode_step(cfg: ModelConfig, params: Transformer, cache: dict, tokens: torc
     return _logits(cfg, params, x), cache
 
 
-def lm_loss(*_args, **_kwargs):
-    raise NotImplementedError(NOT_PORTED["loss"])
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def _chunk_nll(head: torch.Tensor, x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Summed negative log-likelihood of one chunk: float32 logits of the
+    bf16 hidden states, labels below 0 left out."""
+    logp = torch.log_softmax(x.float() @ head.float(), dim=-1)
+    valid = labels >= 0
+    nll = -logp.gather(-1, torch.where(valid, labels, 0)[..., None].long())[..., 0]
+    return (nll * valid).sum()
+
+
+def lm_loss(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, labels: torch.Tensor,
+            prefix_embeds: torch.Tensor | None = None, remat: bool = True,
+            seq_chunk: int = 1_024) -> torch.Tensor:
+    """Sequence-chunked cross entropy over next-token ``labels`` [B, S]
+    (-100 = ignore): the mean over the labelled positions, a float32
+    scalar.  The VLM stub's patch positions carry no label and are cut off.
+    The head matmul and log-softmax run one chunk of ``seq_chunk``
+    positions at a time, each recomputed in the backward pass, so the
+    [B, S, V] logits are never materialized: peak memory is one chunk's
+    [B, seq_chunk, V]."""
+    x = hidden_states(cfg, params, tokens, prefix_embeds, remat=remat)
+    if cfg.frontend == "vlm_stub" and prefix_embeds is not None:
+        x = x[:, prefix_embeds.shape[1]:]
+    head = _head(cfg, params)
+    chunk = min(seq_chunk, x.shape[1])
+    recompute = torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, x.shape[1], chunk):
+        xc, lc = x[:, lo:lo + chunk], labels[:, lo:lo + chunk]
+        if recompute:
+            total = total + checkpoint(_chunk_nll, head, xc, lc, use_reentrant=False)
+        else:
+            total = total + _chunk_nll(head, xc, lc)
+    return total / (labels >= 0).sum().clamp_min(1)

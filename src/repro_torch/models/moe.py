@@ -10,9 +10,18 @@ contributes zero.  Expert MLPs are batched matmuls over the dense
 by its gate (renormalized over the top k only with ``moe_norm_topk``).
 DeepSeek's shared experts are a dense MLP added unconditionally.
 
-The reference's expert-parallel ``shard_map`` path (``_moe_local_compute``
-/ ``_moe_block_shard_map``) needs a device mesh: it waits for
-``distributed/`` (ROADMAP Queue 1 item 3).
+Inside ``distributed.act_sharding.policy(group)`` the block is expert
+parallel, as the reference's ``shard_map`` path (``_moe_local_compute`` /
+``_moe_block_shard_map``): every rank routes the whole batch (the
+activations are replicated), computes the slots of its ``E / world``
+experts into a [B, E / world, C, D] buffer, and the ranks' float32 partial
+outputs are summed by an ``all_reduce``; the shared experts are added
+after.  The ``all_reduce`` records no gradient: the expert-parallel block
+serves, raises when autograd would record it, and training runs the dense
+one.  Capacity positions are ranks
+over all experts, so the slots kept are the dense path's.  The reference
+takes that path only on a ``model`` axis of more than one device; here a
+policy takes it at any world size (one card runs it at world 1).
 """
 
 from __future__ import annotations
@@ -20,9 +29,11 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed import act_sharding
 from .config import ModelConfig
 from .layers import MLP, _normal, model_device
 
@@ -69,27 +80,66 @@ def route(cfg: ModelConfig, p: MoE, x: torch.Tensor):
     return gate, e_flat, pos, pos < moe_capacity(cfg, s)
 
 
-def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor) -> torch.Tensor:
-    """x: [B, S, D] -> [B, S, D] (``_moe_block_dense``)."""
+def _expert_slots(cfg: ModelConfig, p: MoE, x: torch.Tensor, e0: int, e_l: int) -> torch.Tensor:
+    """Each slot's gated expert output [B, S, k, D] for the experts
+    [e0, e0 + e_l); zero for the other experts' slots and dropped ones."""
     b, s, d = x.shape
-    e, k = cfg.moe_num_experts, cfg.moe_top_k
+    k = cfg.moe_top_k
     c = moe_capacity(cfg, s)
     gate, e_flat, pos, in_cap = route(cfg, p, x)
+    local = in_cap & (e_flat >= e0) & (e_flat < e0 + e_l)
     # Scatter each kept slot's token into its (row, expert, position); the
     # dropped ones all land on one spare row past the buffer, discarded.
     # Kept slots have distinct targets, so the scatter is exact.
     rows = torch.arange(b, device=x.device)[:, None]
-    target = torch.where(in_cap, (rows * e + e_flat) * c + pos, b * e * c)
+    target = torch.where(local, (rows * e_l + e_flat - e0) * c + pos, b * e_l * c)
     src = x[:, torch.arange(s * k, device=x.device) // k]  # [B, S*k, D]
-    buffer = x.new_zeros((b * e * c + 1, d))
+    buffer = x.new_zeros((b * e_l * c + 1, d))
     buffer[target.reshape(-1)] = src.reshape(-1, d)
-    buf = buffer[:-1].reshape(b, e, c, d).transpose(0, 1).reshape(e, b * c, d)
-    h = F.silu(buf @ p.w_gate) * (buf @ p.w_up)
-    out_buf = (h @ p.w_down).reshape(e, b, c, d).transpose(0, 1).reshape(b * e * c, d)
-    gathered = out_buf[torch.where(in_cap, target, 0)]  # [B, S*k, D]
-    gathered = gathered * (gate.reshape(b, s * k, 1) * in_cap[..., None]).to(x.dtype)
-    out = gathered.reshape(b, s, k, d).sum(2)
-    if p.shared is not None:
-        sp = p.shared
-        out = out + (F.silu(x @ sp.w_gate) * (x @ sp.w_up)) @ sp.w_down
-    return out
+    buf = buffer[:-1].reshape(b, e_l, c, d).transpose(0, 1).reshape(e_l, b * c, d)
+    experts = slice(e0, e0 + e_l)
+    h = F.silu(buf @ p.w_gate[experts]) * (buf @ p.w_up[experts])
+    out_buf = (h @ p.w_down[experts]).reshape(e_l, b, c, d).transpose(0, 1).reshape(b * e_l * c, d)
+    gathered = out_buf[torch.where(local, target, 0)]  # [B, S*k, D]
+    gathered = gathered * (gate.reshape(b, s * k, 1) * local[..., None]).to(x.dtype)
+    return gathered.reshape(b, s, k, d)
+
+
+def _shared(p: MoE, x: torch.Tensor) -> torch.Tensor:
+    sp = p.shared
+    return (F.silu(x @ sp.w_gate) * (x @ sp.w_up)) @ sp.w_down
+
+
+def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor) -> torch.Tensor:
+    """x: [B, S, D] -> [B, S, D]: ``_moe_block_dense``, or expert parallel
+    inside an ``act_sharding.policy`` (``_moe_block_expert_parallel``)."""
+    pol = act_sharding.current_policy()
+    if pol is not None and pol["moe_impl"] == "expert_parallel":
+        return _moe_block_expert_parallel(cfg, p, x, pol["group"])
+    out = _expert_slots(cfg, p, x, 0, cfg.moe_num_experts).sum(2)
+    return out if p.shared is None else out + _shared(p, x)
+
+
+def _moe_block_expert_parallel(cfg: ModelConfig, p: MoE, x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's E / world experts, then the float32 sum over the ranks.
+
+    Inference only: the in-place ``all_reduce`` is not recorded by
+    autograd, so the replicated router, attention and embedding would get
+    this rank's experts' share of their gradients.  Training under a
+    policy waits for ROADMAP Queue 1 item 4, step 7 (the sharded train
+    cell), and raises here.
+    """
+    if torch.is_grad_enabled() and (x.requires_grad or p.router.requires_grad):
+        raise NotImplementedError(
+            "the expert-parallel MoE block does not propagate gradients across ranks; "
+            "training under act_sharding.policy waits for ROADMAP Queue 1 item 4, step 7 "
+            "(train with the dense block, outside the policy)")
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    e = cfg.moe_num_experts
+    if e % world:
+        raise ValueError(f"{e} experts do not split over {world} ranks")
+    e_l = e // world
+    partial = _expert_slots(cfg, p, x, rank * e_l, e_l).float().sum(2)
+    dist.all_reduce(partial, group=group)
+    out = partial.to(x.dtype)
+    return out if p.shared is None else out + _shared(p, x)

@@ -684,3 +684,51 @@ def compare_decode(cfg, cpu_model, model, tokens, prefix, steps: int, atol: floa
             tok = want.argmax(-1)
     out["tokens"] = torch.cat(out["tokens"], 1)
     return out
+
+
+# ----------------------------------------------------------- training --
+#: ``lm_loss`` of one bf16 model computed two ways (the port against the
+#: reference on the CPU, or the card against the CPU): 2-layer models
+#: differ by at most 4e-4 in the CPU tests, reduced jamba (8 layers) by
+#: 7e-4.  ``loss_atol`` scales it with depth as ``logit_atol`` does.
+LOSS_ATOL = 2e-3
+#: The global relative L2 difference of two bf16 gradient trees of one
+#: model (the port against ``jax.grad``: 1.2-1.5% on 2-layer models): each
+#: bf16 rounding in the backward pass falls elsewhere.
+GRAD_RTOL = 3e-2
+
+
+def loss_atol(cfg) -> float:
+    return LOSS_ATOL * max(1.0, cfg.num_layers / 2)
+
+
+def grad_rel_l2(got: dict, want: dict) -> float:
+    """The global relative L2 difference of two gradient trees with the
+    same keys, in float32: ||got - want|| / ||want|| over every leaf."""
+    num = sum(float((got[k].float() - w.float()).square().sum()) for k, w in want.items())
+    den = sum(float(w.float().square().sum()) for w in want.values())
+    return (num / den) ** 0.5
+
+
+def compare_train_step(cfg, cpu_model, model, batch: dict, adamw=None) -> dict:
+    """One ``launch.steps.build_train_cell`` step through two copies of one
+    model, ``cpu_model`` on the CPU and ``model`` on another device, on the
+    same batch.  Raises unless the losses agree within ``loss_atol`` and
+    the gradient norms within ``GRAD_RTOL``.  Returns both differences."""
+    from .launch.steps import build_train_cell
+    from .train.optimizer import init_opt_state
+
+    step = build_train_cell(cfg, adamw)
+    dev = model.device
+    out = {}
+    for key, m in (("cpu", cpu_model), ("device", model)):
+        mb = {k: v.to(m.device) for k, v in batch.items() if v is not None}
+        _m, _o, metrics = step(m, init_opt_state(dict(m.named_parameters())), mb)
+        out[key] = {k: float(v) for k, v in metrics.items()}
+    loss_err = abs(out["device"]["loss"] - out["cpu"]["loss"])
+    norm_err = abs(out["device"]["grad_norm"] / out["cpu"]["grad_norm"] - 1)
+    if not loss_err <= loss_atol(cfg) or not norm_err <= GRAD_RTOL:
+        raise AssertionError(f"{cfg.name} train step on {dev} against the CPU: loss {out['device']['loss']:.6f} "
+                             f"vs {out['cpu']['loss']:.6f}, grad norm {out['device']['grad_norm']:.6f} vs "
+                             f"{out['cpu']['grad_norm']:.6f}")
+    return {"loss_abs_err": loss_err, "grad_norm_rel_err": norm_err, **out}

@@ -877,3 +877,26 @@ def test_decode_on_card_matches_the_cpu(dev, arch):
         prefix = torch.randn((4, cfg.num_prefix_embeddings, cfg.d_model), generator=gen)
     res = testing.compare_decode(cfg, cpu_model, card_model, tokens, prefix, 8, testing.logit_atol(cfg))
     assert res["tokens"].shape == (4, 8) and res["max_abs_err"] <= testing.logit_atol(cfg)
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "minicpm3-4b", "qwen3-moe-30b-a3b", "mamba2-370m"])
+def test_train_step_on_card_matches_the_cpu(dev, arch):
+    """One ``build_train_cell`` step of a reduced model on the card as on
+    the CPU (one seeded model moved over, one synthetic batch): the loss
+    within ``testing.loss_atol``, the gradient norm within
+    ``testing.GRAD_RTOL`` (``testing.compare_train_step``), and the
+    parameters still finite after the update."""
+    import copy
+
+    from repro_torch import testing
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.train.loop import TrainConfig, synthetic_lm_batches
+
+    cfg = get_arch(arch).reduced()
+    cpu_model = M.init_params(cfg, seed=5, device="cpu")
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    batch = next(synthetic_lm_batches(cfg, TrainConfig(batch=4, seq_len=64, seed=6), device="cpu"))
+    res = testing.compare_train_step(cfg, cpu_model, card_model, batch)
+    assert res["loss_abs_err"] <= testing.loss_atol(cfg)
+    assert all(torch.isfinite(p).all() for p in card_model.parameters())

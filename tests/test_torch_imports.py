@@ -138,3 +138,34 @@ def test_serving_modules_import_alone_without_jax_or_reference(module):
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+#: The training and distributed modules: each loads alone, in a fresh
+#: interpreter, without jax and without the reference, and importing it
+#: starts no process group.
+TRAIN_AND_DISTRIBUTED_MODULES = [
+    "repro_torch.train.optimizer", "repro_torch.train.checkpoint", "repro_torch.train.loop",
+    "repro_torch.launch.steps", "repro_torch.launch.train",
+    "repro_torch.distributed.search", "repro_torch.distributed.decode_attn",
+    "repro_torch.distributed.act_sharding",
+]
+
+
+@pytest.mark.parametrize("module", TRAIN_AND_DISTRIBUTED_MODULES)
+def test_train_and_distributed_modules_import_alone(module):
+    assert module in MODULES
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "import torch.distributed as dist\n"
+        "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+        "assert not dist.is_initialized()\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

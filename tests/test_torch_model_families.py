@@ -58,7 +58,7 @@ def test_every_configuration_is_supported():
     for name, cfg in ARCHS.items():
         PM.check_supported(cfg)
         PM.check_supported(cfg.reduced())
-    assert set(PM.NOT_PORTED) == {"loss"}
+    assert not hasattr(PM, "NOT_PORTED")  # lm_loss too: nothing of the model raises
 
 
 def test_hidden_states_and_logits_match_reference(family):

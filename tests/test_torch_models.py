@@ -207,11 +207,17 @@ def test_registry_cells_and_shapes_match_reference():
 
 
 def test_unported_entry_points_raise_naming_their_item():
-    """Every family, cache and decode path is ported (``tests/test_torch_
-    model_families.py``, ``test_torch_decode.py``); ``lm_loss`` waits for
-    ``train/``."""
-    with pytest.raises(NotImplementedError, match=r"step 6 \(lm_loss"):
-        PM.lm_loss()
+    """Every family, cache, decode path and ``lm_loss`` is ported
+    (``tests/test_torch_model_families.py``, ``test_torch_decode.py``,
+    ``test_torch_train.py``); what still waits is the launchers' TPU-mesh
+    lowering, ``--dry-run``, which names ROADMAP Queue 1 item 4, step 7."""
+    from repro_torch.launch import serve, train
+
+    assert not hasattr(PM, "NOT_PORTED")
+    for launcher in (serve, train):
+        with pytest.raises(SystemExit):
+            launcher.main(["--arch", "yi-9b", "--dry-run"])
+    assert "step 7" in serve.DRY_RUN_NOT_PORTED
 
 
 class _CacheTensors:
