@@ -129,7 +129,7 @@
    moved over, prefill + 8 steps: logits within ``testing.logit_atol``),
    and ``serve.main(--local)`` in process for each.  Prints peak device
    memory per configuration.  No kernel of the seven is on this path.
-10. Train path (``repro_torch.train`` / ``launch.steps.build_train_cell``):
+10. Train path (``repro_torch.train`` / ``launch.steps.build_local_train_cell``):
    yi-9b at its published widths, depth cut to 8 of 48 layers (1.91 B
    parameters drawn from --seed; bf16 parameters, float32 AdamW moments),
    12 steps of ``synthetic_lm_batches`` at B=8 x 1,024 with remat: every
@@ -155,7 +155,27 @@
    dense decode against itself (positions summed in reverse; rows 0-1 in a
    batch of 2); the expert-parallel MoE block (qwen3-moe-30b-a3b) and a
    prefill under ``act_sharding.policy`` against the dense ones.
-12. Each path runs with every launch counter at 0 and fails unless each of
+12. Sharded-cells path (``repro_torch.launch.steps`` on a (1, 1) mesh over
+   an NCCL group of world 1): the train phase's cell (yi-9b x8, full
+   width, B=8 x 1,024) for 3 steps of the sharded ``build_train_cell``
+   beside 3 of the one-device one from the same weights and batches
+   (losses within ``testing.LOSS_ATOL``; the step-1 gradients each
+   step's AdamW took, and the parameters after it, within
+   ``testing.GRAD_RTOL``; s/step of each); the dry-run's estimate of that
+   cell on a fake (1, 1) world (meta tensors, on the CPU) beside the
+   card's ``max_memory_allocated`` for the sharded steps and
+   ``train_flops``, each ratio held to DRYRUN_MEMORY_RATIO /
+   DRYRUN_FLOPS_RATIO; the prefill and decode cells on yi-9b,
+   minicpm3-4b, jamba and qwen3-moe-30b-a3b (one period, full width)
+   against the plain ``prefill`` / ``decode_step`` within
+   ``testing.logit_atol``, decode ms/step of each; the expert-parallel MoE
+   block's gradients against the dense block's within
+   ``testing.GRAD_RTOL``.  Then the examples path: ``examples/
+   torch_quickstart.py``, ``torch_elastic_failover.py`` and
+   ``torch_serve_embedder.py`` on the card, each with its wall time and its
+   own check (``l2_topk``, ``merge_topk`` and ``kmeans_assign`` launches
+   counted toward the kernel line).
+13. Each path runs with every launch counter at 0 and fails unless each of
    its kernels was launched; ``kmeans_assign``'s launches are also counted
    per (N, C, D), ``merge_topk``'s per (nq, M, k) and ``sq_decode``'s per
    (n, d), each adding up to the wrapper's count, and the three kernels are
@@ -175,6 +195,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import gc
 import json
 import statistics
@@ -339,7 +360,7 @@ SERVE_LOAD_BATCH, SERVE_LOAD_PROMPT, SERVE_LOAD_STEPS = 8, 1_024, 64
 SERVE_CPU_STEPS, SERVE_LOCAL_TOKENS = 8, 16
 # Train path (repro_torch.train / launch.steps): yi-9b at its published
 # widths, depth cut to TRAIN_LAYERS of 48, synthetic_lm_batches at
-# TRAIN_BATCH x TRAIN_SEQ, TRAIN_STEPS steps of build_train_cell with remat
+# TRAIN_BATCH x TRAIN_SEQ, TRAIN_STEPS steps of build_local_train_cell with remat
 # and its default AdamW (the reference's: lr 3e-4 after 100 warm-up steps;
 # train.loop's lr 3e-3 over 20, set for the reduced models, took yi-9b's
 # loss from 11.8 to 26 in one step at full width); the micro-batch and
@@ -366,6 +387,34 @@ DIST_DECODE_ARCHS, DIST_DECODE_STEPS = ("yi-9b", "minicpm3-4b"), 16
 # are measured in every run (readings in PERF.md, section 6).
 FLASH_DECODE_ATOL = 0.05
 DIST_MOE_ARCH, DIST_MOE_TOKENS = "qwen3-moe-30b-a3b", 256
+# Sharded-cells path (repro_torch.launch.steps on a (1, 1) mesh over an NCCL
+# group of world 1): the train phase's cell (TRAIN_ARCH x TRAIN_LAYERS, full
+# width, TRAIN_BATCH x TRAIN_SEQ) for SHARDED_TRAIN_STEPS steps beside the
+# one-device cell from the same weights and batches; the dry-run's cost
+# pass for that cell on a fake (1, 1) world beside the card's peak memory
+# and train_flops, each ratio held to its bound below; the prefill and
+# decode cells on SHARDED_SERVE_ARCHS (one period, full width) against the
+# plain prefill / decode_step; expert-parallel training on DIST_MOE_ARCH.
+SHARDED_TRAIN_STEPS = 3
+SHARDED_SERVE_ARCHS = ("yi-9b", "minicpm3-4b", "jamba-v0.1-52b", "qwen3-moe-30b-a3b")
+SHARDED_DECODE_STEPS = 8
+# The dry-run's estimates over the card's readings for the same cell, held
+# to bounds set from the first reading (PERF.md section 6).  Memory: the
+# estimate's live meta storages against max_memory_allocated over the
+# sharded steps less what earlier paths still hold (the allocator rounds
+# every block up to 512 bytes); first read 0.9723 (NVIDIA H100 80GB HBM3,
+# 700 W), the bound lets the allocator's share move by a few percent.
+# FLOPs: FlopCounterMode over the step's matmuls against train_flops' count
+# from the shapes (6 per weight and token, a whole forward recomputed),
+# which is larger than what the eager step runs; both sides are shape
+# arithmetic, so the ratio is fixed by the configuration (0.9474 at yi-9b
+# x8, B=8 x 1,024; 0.9643 at reduced widths on the CPU) and the bound
+# catches a change in either count.
+DRYRUN_MEMORY_RATIO = (0.90, 1.05)
+DRYRUN_FLOPS_RATIO = (0.93, 0.96)
+# Examples (examples/torch_*.py) run in this process on the card, each
+# through its main(["--device", "cuda"]); each must return 0.
+EXAMPLES = ("torch_quickstart", "torch_elastic_failover", "torch_serve_embedder")
 # Dense bf16 peak of one H100 SXM at 700 W (NVIDIA data sheet).
 PEAK_BF16_FLOPS = 989e12
 # Matmul kernels by name in a profile: cuBLAS / cuBLASLt / CUTLASS.
@@ -2720,7 +2769,7 @@ def train_path(torch, dev, phases, counts, testing, seed: int) -> dict:
     from repro_torch.configs import get_arch
     from repro_torch.core.object_store import MemoryObjectStore
     from repro_torch.launch import train as train_launcher
-    from repro_torch.launch.steps import accumulate_grads, build_train_cell
+    from repro_torch.launch.steps import accumulate_grads, build_local_train_cell
     from repro_torch.models import model as M
     from repro_torch.train import loop
     from repro_torch.train.checkpoint import committed_steps
@@ -2743,7 +2792,7 @@ def train_path(torch, dev, phases, counts, testing, seed: int) -> dict:
     state_gib = torch.cuda.memory_allocated() / 2**30
     tc = loop.TrainConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=seed)
     batches = loop.synthetic_lm_batches(cfg, tc, dev)
-    step = build_train_cell(cfg, adamw, remat=True)
+    step = build_local_train_cell(cfg, adamw, remat=True)
     flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     losses, norms, times = [], [], []
@@ -2812,7 +2861,7 @@ def train_path(torch, dev, phases, counts, testing, seed: int) -> dict:
     runs = []
     for mb in (1, 2):
         m = copy.deepcopy(model)
-        m, _opt, metrics = build_train_cell(cfg2, adamw, microbatches=mb)(
+        m, _opt, metrics = build_local_train_cell(cfg2, adamw, microbatches=mb)(
             m, init_opt_state(dict(m.named_parameters())), batch)
         runs.append((m, float(metrics["loss"]), float(metrics["grad_norm"])))
         del _opt
@@ -3152,6 +3201,243 @@ def distributed_path(torch, dev, gen, phases, counts, testing, seed: int) -> dic
         dist.destroy_process_group()
         rendezvous.unlink(missing_ok=True)
     phases["distributed_s"] = time.perf_counter() - t0
+    return out
+
+
+def sharded_cells_path(torch, dev, gen, phases, counts, testing, seed: int) -> dict:
+    """The sharded cells (``repro_torch.launch.steps``) on a (1, 1) mesh
+    over an NCCL group of world 1 (NCCL puts one rank on a card): the train
+    cell beside the one-device one (losses within ``testing.LOSS_ATOL``;
+    the gradients each step's AdamW took in step 1, and the parameters it
+    left, within ``testing.GRAD_RTOL``; s/step of each), the
+    dry-run's estimate of that cell beside the card's peak memory and
+    ``train_flops`` (each ratio within its bound), the prefill and decode
+    cells against the plain ``prefill`` / ``decode_step`` within
+    ``testing.logit_atol`` (decode ms/step of each), and the
+    expert-parallel MoE block's gradients against the dense block's within
+    ``testing.GRAD_RTOL``.  None of the seven kernels is on this path."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import act_sharding
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train import loop
+    from repro_torch.train.optimizer import init_opt_state
+
+    t0 = time.perf_counter()
+    out: dict = {"latency": {}}
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
+    shape = ShapeConfig(f"train_{TRAIN_BATCH}x{TRAIN_SEQ}", TRAIN_SEQ, TRAIN_BATCH, "train")
+
+    # ------------------------------- the dry-run's estimate, meta tensors
+    t = time.perf_counter()
+    with dryrun.fake_world(1):
+        fake_mesh = make_mesh((1, 1), ("data", "model"))
+        est_memory = dryrun.depth_cost(cfg, shape, fake_mesh, {"remat": True}, cost=False)
+        est_cost = dryrun.depth_cost(cfg, shape, fake_mesh, {"remat": True}, cost=True)
+    phases["sharded_dryrun_s"] = time.perf_counter() - t
+
+    counts.reset()
+    rendezvous = ROOT / "build" / "sharded_rendezvous"
+    rendezvous.parent.mkdir(parents=True, exist_ok=True)
+    rendezvous.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(rendezvous), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        # ------------------------------------------------------ train cell
+        t = time.perf_counter()
+        tc = loop.TrainConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=seed)
+        runs = {}
+        for kind in ("one-device", "sharded"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()  # what earlier paths still hold
+            model = M.init_params(cfg, seed=seed, device=dev)
+            batches = loop.synthetic_lm_batches(cfg, tc, dev)
+            batch_list = [next(batches) for _ in range(SHARDED_TRAIN_STEPS)]
+            if kind == "sharded":
+                step, _specs, _structs, _donate = steps.build_train_cell(cfg, shape, mesh, return_grads=True)
+                model = steps.shard_model(cfg, mesh, fsdp=True, full=model, copy=False)
+            else:
+                step = steps.build_local_train_cell(cfg, return_grads=True)
+            opt = init_opt_state(dict(model.named_parameters()))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, times = [], []
+            for i, batch in enumerate(batch_list):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                model, opt, metrics = step(model, opt, batch)
+                losses.append(float(metrics["loss"]))
+                times.append(time.perf_counter() - t1)
+                if i == 0:  # the gradients the step's update took, and the parameters it left
+                    grads = {k: g.cpu() for k, g in metrics["grads"].items()}
+                    after = {k: p.detach().cpu() for k, p in model.named_parameters()}
+                del metrics
+            runs[kind] = {"losses": losses, "s_per_step": times, "grads": grads, "params": after,
+                          "peak_bytes": torch.cuda.max_memory_allocated() - base}
+            log(f"sharded cells: train {TRAIN_ARCH} x{TRAIN_LAYERS} {kind} (B={TRAIN_BATCH} x {TRAIN_SEQ}, "
+                f"mesh (1, 1)): losses {losses}, s/step {times}, max_memory_allocated over the steps, less "
+                f"what earlier paths hold, {runs[kind]['peak_bytes']} bytes")
+            del model, opt, batches, batch_list, grads, after
+        one, sh = runs["one-device"], runs["sharded"]
+        loss_err = max(abs(a - b) for a, b in zip(sh["losses"], one["losses"]))
+        grad_err = testing.grad_rel_l2(sh["grads"], one["grads"])
+        param_err = testing.grad_rel_l2(sh["params"], one["params"])
+        if not (loss_err <= testing.LOSS_ATOL and grad_err <= testing.GRAD_RTOL and param_err <= testing.GRAD_RTOL):
+            raise AssertionError(f"sharded train cell against the one-device cell: losses {sh['losses']} vs "
+                                 f"{one['losses']}, step-1 gradients relative L2 {grad_err}, parameters after "
+                                 f"step 1 {param_err}")
+        flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)["with_recompute"]
+        mem_ratio = est_memory["peak_bytes"] / sh["peak_bytes"]
+        flop_ratio = est_cost["flops"] / flops
+        out["train"] = {"loss_max_abs_err": loss_err, "grad_rel_l2": grad_err, "param_rel_l2": param_err,
+                        "s_per_step": {k: r["s_per_step"] for k, r in runs.items()},
+                        "peak_bytes": {k: r["peak_bytes"] for k, r in runs.items()},
+                        "dryrun_peak_bytes": est_memory["peak_bytes"], "dryrun_flops": est_cost["flops"],
+                        "train_flops": flops, "memory_ratio": mem_ratio, "flops_ratio": flop_ratio}
+        log(f"check sharded train cell {TRAIN_ARCH} x{TRAIN_LAYERS}: {SHARDED_TRAIN_STEPS} steps, losses "
+            f"max |err| {loss_err:.3g} against the one-device cell (bound {testing.LOSS_ATOL}), step-1 gradients "
+            f"(those each step's AdamW took) relative L2 {grad_err:.3g} and the parameters after step 1 "
+            f"{param_err:.3g} (bound {testing.GRAD_RTOL}); median s/step sharded "
+            f"{statistics.median(sh['s_per_step']):.4f}, one-device {statistics.median(one['s_per_step']):.4f}")
+        log(f"dry-run tie {TRAIN_ARCH} x{TRAIN_LAYERS} (1, 1): estimated peak {est_memory['peak_bytes']} bytes "
+            f"against max_memory_allocated {sh['peak_bytes']} (ratio {mem_ratio:.4f}, bound "
+            f"{DRYRUN_MEMORY_RATIO}); estimated FLOPs {est_cost['flops']:.6g} against train_flops "
+            f"{flops:.6g} (ratio {flop_ratio:.4f}, bound {DRYRUN_FLOPS_RATIO}); estimate "
+            f"{phases['sharded_dryrun_s']:.2f} s on the CPU")
+        if not (DRYRUN_MEMORY_RATIO[0] <= mem_ratio <= DRYRUN_MEMORY_RATIO[1]
+                and DRYRUN_FLOPS_RATIO[0] <= flop_ratio <= DRYRUN_FLOPS_RATIO[1]):
+            raise AssertionError(f"the dry-run's estimate is off the card's reading: memory ratio {mem_ratio}, "
+                                 f"FLOPs ratio {flop_ratio}")
+        del runs, one, sh
+        phases["sharded_train_s"] = time.perf_counter() - t
+
+        # ------------------------------------------ prefill / decode cells
+        t = time.perf_counter()
+        b, s = SERVE_BATCH, SERVE_PROMPT
+        total = s + SHARDED_DECODE_STEPS
+        for name in SHARDED_SERVE_ARCHS:
+            scfg, model = serve_model(torch, name, dev, seed)
+            bound = testing.logit_atol(scfg)
+            prefill, p_specs, _s, _d = steps.build_prefill_cell(scfg, ShapeConfig("p", s, b, "prefill"), mesh)
+            decode, d_specs, _s, _d = steps.build_decode_cell(scfg, ShapeConfig("d", total, b, "decode"), mesh)
+            local = steps.shard_model(scfg, mesh, fsdp=False, full=model, copy=False)
+            tokens = torch.randint(0, scfg.vocab_size, (b, total), generator=gen, device=dev)
+            with torch.no_grad():
+                want, _c = M.prefill(scfg, model, tokens[:, :s], M.init_cache(scfg, b, s, device=dev), last_only=True)
+                got, _c = prefill(local, {"tokens": tokens[:, :s]}, steps.shard_cache(
+                    scfg, mesh, M.init_cache(scfg, b, s, device=dev), b))
+                prefill_err = (got - want).abs().max().item()
+                dense = M.init_cache(scfg, b, total, device=dev)
+                M.prefill(scfg, model, tokens[:, :s], dense)
+                cell_cache = steps.shard_cache(scfg, mesh, dense, b)
+                errs, ms = [], {"plain": [], "cell": []}
+                for i in range(SHARDED_DECODE_STEPS):
+                    tok = tokens[:, s + i:s + i + 1]
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    want = M.decode_step(scfg, model, dense, tok)[0]
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    got = decode(local, cell_cache, {"tokens": tok})[0]
+                    torch.cuda.synchronize()
+                    ms["plain"].append((t2 - t1) * 1e3)
+                    ms["cell"].append((time.perf_counter() - t2) * 1e3)
+                    errs.append((got - want).abs().max().item())
+            decode_err = max(errs)
+            if not (prefill_err <= bound and decode_err <= bound):
+                raise AssertionError(f"sharded cells {name}: prefill max |err| {prefill_err}, decode {decode_err} "
+                                     f"(bound {bound})")
+            out[f"serve {name}"] = {"prefill_max_abs_err": prefill_err, "decode_max_abs_err": decode_err,
+                                    "decode_ms": ms}
+            out["latency"][f"sharded decode cell {name}"] = ms["cell"]
+            out["latency"][f"plain decode_step {name}"] = ms["plain"]
+            log(f"check sharded prefill / decode cells {name} x{scfg.num_layers} (mesh (1, 1)): prefill logits max "
+                f"|err| {prefill_err:.4g}, {SHARDED_DECODE_STEPS} decode steps {decode_err:.4g} against the plain "
+                f"prefill / decode_step (bound {bound}); decode ms/step median cell "
+                f"{statistics.median(ms['cell'][1:]):.3f}, plain {statistics.median(ms['plain'][1:]):.3f}")
+            del model, local, dense, cell_cache
+            gc.collect()
+            torch.cuda.empty_cache()
+        phases["sharded_serve_s"] = time.perf_counter() - t
+
+        # -------------------------------------- expert-parallel training
+        t = time.perf_counter()
+        mcfg, model = serve_model(torch, DIST_MOE_ARCH, dev, seed)
+        layer = next(lay for lay in model.layers if lay.is_moe)
+        p = layer.moe
+        x = torch.randn((b, DIST_MOE_TOKENS // b, mcfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn(x.shape, generator=gen, device=dev)
+        p.requires_grad_(True)
+        grads = []
+        for scope in (act_sharding.policy(None), contextlib.nullcontext()):
+            xg = x.clone().requires_grad_(True)
+            with scope:
+                y = moe_mod.moe_block(mcfg, p, xg)
+            g = torch.autograd.grad((y.float() * w).sum(), [xg, *p.parameters()])
+            grads.append({str(i): gi for i, gi in enumerate(g)})
+        p.requires_grad_(False)
+        ep_err = testing.grad_rel_l2(grads[0], grads[1])
+        if not ep_err <= testing.GRAD_RTOL:
+            raise AssertionError(f"expert-parallel MoE gradients against the dense block's: relative L2 {ep_err}")
+        out["expert_parallel_grad_rel_l2"] = ep_err
+        log(f"check expert-parallel training {DIST_MOE_ARCH} ({mcfg.moe_num_experts} experts, world 1): the "
+            f"block's gradients (x and every parameter) on {DIST_MOE_TOKENS} tokens against the dense block's, "
+            f"relative L2 {ep_err:.4g} (bound {testing.GRAD_RTOL})")
+        del model, layer, p, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        phases["sharded_moe_s"] = time.perf_counter() - t
+    finally:
+        dist.destroy_process_group()
+        rendezvous.unlink(missing_ok=True)
+    out["launches"] = counts.read()
+    phases["sharded_s"] = time.perf_counter() - t0
+    return out
+
+
+def examples_path(torch, phases, counts) -> dict:
+    """The port's examples (EXAMPLES) on the card, in this process, each
+    through its ``main(["--device", "cuda"])``, which returns 0 only when
+    its own check passed; their kernel launches counted, each with its wall
+    time.  Their check lines go to the log."""
+    import importlib.util
+    import io
+
+    counts.reset()
+    t0 = time.perf_counter()
+    out: dict = {"seconds": {}}
+    for name in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t
+        lines = [ln for ln in buf.getvalue().splitlines() if "check" in ln or "identical" in ln]
+        log(f"example {name}: exit {rc}, {out['seconds'][name]:.2f} s; " + " | ".join(lines))
+        if rc != 0:
+            raise AssertionError(f"example {name} failed its check (exit {rc}):\n{buf.getvalue()[-4000:]}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = counts.read()
+    out["launches"] = launches
+    out["shapes"] = counts.read_shapes(launches, "examples", ())
+    log(f"examples path launches: {launches}")
+    for kname in ("l2_topk", "merge_topk", "kmeans_assign"):
+        if launches[kname] <= 0:
+            raise AssertionError(f"{kname} was not launched on the examples path")
+    phases["examples_s"] = time.perf_counter() - t0
     return out
 
 
@@ -3741,11 +4027,16 @@ def main() -> int:
     # --------------------------------------------------- distributed path
     dpath = distributed_path(torch, dev, gen, phases, counts, testing, args.seed)
     max_err["l2_topk"] = max(max_err["l2_topk"], dpath["max_abs_err"])
+    # ------------------------------------------------ sharded cells path
+    cells = sharded_cells_path(torch, dev, gen, phases, counts, testing, args.seed)
+    # ------------------------------------------------------ examples path
+    examples = examples_path(torch, phases, counts)
     t0 = time.perf_counter()
     # merge_topk, sq_decode and kmeans_assign at every shape the paths
     # launched them at (FLAT builds none and decodes none)
     shapes = {kname: sum((src[kname] for src in (flat_shapes, ivf_shapes, fam_shapes, fac["shapes"],
-                                                 maint["shapes"], emb["shapes"], dpath["shapes"])),
+                                                 maint["shapes"], emb["shapes"], dpath["shapes"],
+                                                 examples["shapes"])),
                          collections.Counter())
               for kname in LaunchCounts.SHAPED}
     floor_ms = empty_kernel_ms(torch)
@@ -3764,14 +4055,15 @@ def main() -> int:
     phases["kernel_timing_s"] += time.perf_counter() - t0
 
     for key, times in {**latency, **ivf_latency, **fam_latency, **fac["latency"],
-                       **maint["latency"], **emb["latency"], **dpath["latency"]}.items():
+                       **maint["latency"], **emb["latency"], **dpath["latency"], **cells["latency"]}.items():
         steady = times[1:]
         log(f"request {key}: first {times[0]:.3f} ms, median {statistics.median(steady):.3f} ms "
             f"over {len(steady)} (min {min(steady):.3f}, max {max(steady):.3f})")
     log("phases: " + json.dumps({k: round(v, 3) for k, v in phases.items()}))
 
     launches = {k: flat_launches[k] + ivf_launches[k] + fam_launches[k] + fac["launches"][k]
-                + maint["launches"][k] + emb["launches"][k] + dpath["launches"][k] for k in KERNEL_NAMES}
+                + maint["launches"][k] + emb["launches"][k] + dpath["launches"][k] + cells["launches"][k]
+                + examples["launches"][k] for k in KERNEL_NAMES}
 
     def index_row(kname, key, replaces, source):
         row = it[key]

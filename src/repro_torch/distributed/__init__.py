@@ -1,12 +1,12 @@
 """Distributed execution on ``torch.distributed``; mirrors
-``repro.distributed``.  Where the reference takes a device mesh and runs a
-``shard_map``, these take a process group: every rank runs the same code
-on its shard, and collectives join the ranks.
+``repro.distributed``.  Where the reference takes a device mesh and lets
+GSPMD place the collectives, these take a ``DeviceMesh`` (or a process
+group) and every rank runs the same code on its local shards, with the
+collectives explicit.
 
-Ported: ``search`` (segment-parallel top-k with a two-phase reduce),
-``decode_attn`` (flash decode over sequence-sharded caches) and
-``act_sharding.policy`` (the scope that switches ``models.moe`` to expert
-parallelism).  ``partition`` (parameter and cache shardings), the rest of
-``act_sharding`` and ``search.dryrun_search`` lower onto TPU meshes and
-wait for ROADMAP Queue 1 item 4, step 7.
+``partition`` (parameter, batch and cache specs, local shards),
+``act_sharding`` (the policy the model code reads, its collectives and
+their tally), ``search`` (segment-parallel top-k with a two-phase reduce,
+and ``dryrun_search``) and ``decode_attn`` (flash decode over
+sequence-sharded caches).
 """

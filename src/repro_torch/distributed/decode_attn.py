@@ -26,6 +26,8 @@ import math
 import torch
 import torch.distributed as dist
 
+from . import act_sharding
+
 
 def _write_owned(cache: torch.Tensor, new: torch.Tensor, pos: int, rank: int, world: int) -> int:
     """Writes ``new`` at ``pos`` if this rank owns it; returns the slice's
@@ -45,6 +47,7 @@ def _combine(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor, group, world: in
     m, l [B, H]: sum_r o_r e^(m_r - M) / sum_r l_r e^(m_r - M)."""
     packed = torch.cat([o, m[..., None], l[..., None]], -1).contiguous()
     gathered = [torch.empty_like(packed) for _ in range(world)]
+    act_sharding.record("model", "all-gather", packed)
     dist.all_gather(gathered, packed, group=group)
     g = torch.stack(gathered)  # [world, B, H, D + 2]
     g_o, g_m, g_l = g[..., :-2], g[..., -2], g[..., -1]

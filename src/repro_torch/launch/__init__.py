@@ -1,4 +1,5 @@
-"""Launchers; mirrors ``repro.launch``.  Ported: ``serve`` and ``train``
-(``--local``) and the training step (``steps.build_train_cell``).  The
-TPU-mesh lowering (``--dry-run``, ``dryrun``, ``mesh``, ``report``) and the
-sharded prefill / decode cells wait for ROADMAP Queue 1 item 4, step 7."""
+"""Launchers; mirrors ``repro.launch``: ``serve`` and ``train`` (``--local``
+and ``--dry-run``), ``steps`` (the train, prefill and decode cells on a
+mesh, and the one-device training step), ``mesh``, ``dryrun`` (every cell's
+per-device cost and memory on a fake 256- or 512-rank world at H100
+constants) and ``report`` (its tables)."""

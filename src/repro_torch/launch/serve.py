@@ -1,5 +1,6 @@
 """Serving launcher; mirrors ``repro.launch.serve``.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b --shape decode_32k --dry-run
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --local --tokens 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b --local --device cpu
 
@@ -10,8 +11,10 @@ patch embeddings for the VLM stub), a cache of the prompt plus
 runs on the card unless ``--device cpu`` is given, and raises when no GPU
 is visible.  Weights and inputs are drawn from explicit
 ``torch.Generator``s, so the tokens differ from the reference's, whose RNG
-is JAX's.  ``--dry-run`` lowers for a TPU mesh in the reference: it is not
-ported.
+is JAX's.  ``--dry-run`` runs ``launch.dryrun.run_cell`` for ``--arch``,
+``--shape`` and ``--multi-pod`` (the prefill / decode cell on the
+production mesh, on the CPU, in a fake world) and prints its memory and
+roofline terms at H100 constants.
 """
 
 from __future__ import annotations
@@ -26,13 +29,21 @@ from .._device import resolve_device
 from ..configs import get_arch
 from ..models import model as M
 
-DRY_RUN_NOT_PORTED = ("--dry-run lowers for a TPU mesh and is not ported: ROADMAP Queue 1 item 4, "
-                      "step 7 (launch)")
 
 
-def main(argv: list[str] | None = None) -> np.ndarray | None:
+def dry_run(arch: str, shape: str, multi_pod: bool) -> dict:
+    """``dryrun.run_cell`` for one cell, with a one-line summary printed."""
+    from .dryrun import run_cell, summary
+
+    res = run_cell(arch, shape, multi_pod=multi_pod)
+    print(f"{arch} x {shape} [{res['mesh']}]: ran on the fake world; {summary(res)}")
+    return res
+
+
+def main(argv: list[str] | None = None) -> np.ndarray | dict | None:
     """Parse ``argv`` (the command line when None) and run.  ``--local``
-    returns the decoded tokens [B, tokens] as numpy."""
+    returns the decoded tokens [B, tokens] as numpy, ``--dry-run`` the
+    dry-run's result."""
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", default="decode_32k")
@@ -44,9 +55,9 @@ def main(argv: list[str] | None = None) -> np.ndarray | None:
     args = ap.parse_args(argv)
 
     if args.dry_run:
-        ap.error(DRY_RUN_NOT_PORTED)
+        return dry_run(args.arch, args.shape, args.multi_pod)
     if not args.local:
-        ap.error("choose --local (--dry-run is not ported)")
+        ap.error("choose --dry-run or --local")
 
     dev = resolve_device(args.device)
     cfg = get_arch(args.arch).reduced()

@@ -1,5 +1,6 @@
 """Training launcher; mirrors ``repro.launch.train``.
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --shape train_4k --dry-run
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --local --steps 50
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --local --device cpu
 
@@ -8,7 +9,9 @@
 steps and at the end into a ``FileObjectStore`` under ``--ckpt-dir``,
 resuming from the newest one there).  It runs on the card unless
 ``--device cpu`` is given, and raises when no GPU is visible.
-``--dry-run`` lowers for a TPU mesh in the reference: it is not ported.
+``--dry-run`` runs ``launch.dryrun.run_cell`` for ``--arch``, ``--shape``
+and ``--multi-pod`` (the train cell on the production mesh, on the CPU,
+in a fake world) and prints its memory and roofline terms.
 """
 
 from __future__ import annotations
@@ -16,15 +19,18 @@ from __future__ import annotations
 import argparse
 import time
 
-from .serve import DRY_RUN_NOT_PORTED
+from .serve import dry_run
 
 
-def main(argv: list[str] | None = None) -> list[float] | None:
+def main(argv: list[str] | None = None) -> list[float] | dict | None:
     """Parse ``argv`` (the command line when None) and run.  ``--local``
-    returns the loss of every step it ran."""
+    returns the loss of every step it ran, ``--dry-run`` the dry-run's
+    result."""
     ap = argparse.ArgumentParser(prog="repro_torch.launch.train")
     ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--dry-run", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--local", action="store_true",
                     help="train a reduced config for real on this device")
     ap.add_argument("--steps", type=int, default=50)
@@ -33,9 +39,9 @@ def main(argv: list[str] | None = None) -> list[float] | None:
     args = ap.parse_args(argv)
 
     if args.dry_run:
-        ap.error(DRY_RUN_NOT_PORTED)
+        return dry_run(args.arch, args.shape, args.multi_pod)
     if not args.local:
-        ap.error("choose --local (--dry-run is not ported)")
+        ap.error("choose --dry-run or --local")
 
     from .._device import resolve_device
     from ..configs import get_arch

@@ -7,12 +7,22 @@ Weights keep the reference's layout (``x @ w``, ``w`` as [d_in, d_out]) and
 dtype (bf16), so a parameter tree carries over unchanged
 (``models/convert.py``).  Products of bf16 operands accumulate in float32
 where the reference asks for it (``preferred_element_type``): the operands
-are widened first, which is exact for bf16.  The reference's sharding hints
-(``constrain``, ``model_axis_size``) have no counterpart on one card.
+are widened first, which is exact for bf16.
+
+Under a mesh policy (``distributed.act_sharding``) the modules hold local
+shards, and the blocks run on them: attention heads and MLP columns split
+over ``model`` where they divide (column-parallel ``w_q`` / ``w_k`` /
+``w_v`` / ``w_uq`` / ``w_ukv`` / ``w_gate`` / ``w_up``, row-parallel
+``w_o`` / ``w_down`` followed by a float32 sum over ``model``), the KV
+heads repeated up to the tensor-parallel width where ``kvh < tp <= h`` (the
+reference's partial KV repeat: each rank computes the one KV head its
+query heads read), every other weight gathered (``act_sharding.weight``).
+Outside a policy the weights are used as they are.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -20,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._device import resolve_device
+from ..distributed import act_sharding as shd
 from .config import ModelConfig
 
 PARAM_DTYPE = torch.bfloat16
@@ -27,6 +38,21 @@ ACT_DTYPE = torch.bfloat16
 
 DEFAULT_KV_BLOCK = 1_024
 DEFAULT_Q_BLOCK = 2_048
+
+_COST_TILES = []
+
+
+@contextlib.contextmanager
+def cost_tiles():
+    """Enlarge flash attention's tiles (at most 8 KV and 4 query blocks per
+    sequence), as the reference does in its cost pass: the operations do
+    not depend on the blocking, and fewer blocks are fewer dispatches."""
+    _COST_TILES.append(True)
+    try:
+        yield
+    finally:
+        _COST_TILES.pop()
+
 
 # ----------------------------------------------------------------- norms --
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -79,6 +105,9 @@ def flash_attention(
     vd = v.shape[-1]
     g = h // kvh
     scale = 1.0 / math.sqrt(hd)
+    if _COST_TILES:
+        kv_block = max(kv_block, -(-sk // 8))
+        q_block = max(q_block, -(-sq // 4))
     kv_block = min(kv_block, sk)
     q_block = min(q_block, sq)
     n_kv = -(-sk // kv_block)
@@ -176,22 +205,47 @@ class Attention(nn.Module):
             self.k_head_norm = _const(cfg.head_dim, 1.0, device)
 
 
+def _split_in(x: torch.Tensor, tp: int) -> torch.Tensor:
+    return shd.copy_to(x) if tp > 1 else x
+
+
+def _split_out(x: torch.Tensor, tp: int) -> torch.Tensor:
+    """The sum over ``model`` of row-parallel partial outputs, in float32."""
+    return shd.reduce_from(x.float()).to(x.dtype) if tp > 1 else x
+
+
 def gqa_qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor, positions: torch.Tensor):
-    """Project to (q [B,S,H,hd], k [B,S,KVH,hd], v [B,S,KVH,hd]) with rope."""
+    """Project to (q [B,S,H,hd], k [B,S,KVH,hd], v [B,S,KVH,hd]) with rope;
+    under a head-parallel policy this rank's H / tp query heads and the KV
+    heads they read."""
     b, s, _ = x.shape
-    q = x @ p.w_q
-    k = x @ p.w_k
-    v = x @ p.w_v
+    hd = cfg.head_dim
+    tp = shd.head_parallel(cfg)
+    keep = "keep" if tp > 1 else "slice"
+    x = _split_in(x, tp)
+    heads = cfg.num_heads // tp
+    names = ("w_k", "w_v") + (("b_k", "b_v") if cfg.qkv_bias else ())
+    if cfg.num_kv_heads % tp:  # partial KV repeat: the one KV head this rank's query heads read
+        j = shd.axis_rank("model") * heads // (cfg.num_heads // cfg.num_kv_heads)
+        kv = {n: shd.weight(p, n, "sum")[..., j * hd:(j + 1) * hd] for n in names}
+        kv_heads = 1
+    else:
+        kv = {n: shd.weight(p, n, keep) for n in names}
+        kv_heads = cfg.num_kv_heads // tp
+    q = x @ shd.weight(p, "w_q", keep)
+    k = x @ kv["w_k"]
+    v = x @ kv["w_v"]
     if cfg.qkv_bias:
-        q = q + p.b_q
-        k = k + p.b_k
-        v = v + p.b_v
-    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        q = q + shd.weight(p, "b_q", keep)
+        k = k + kv["b_k"]
+        v = v + kv["b_v"]
+    q = q.reshape(b, s, heads, hd)
+    k = k.reshape(b, s, kv_heads, hd)
+    v = v.reshape(b, s, kv_heads, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p.q_head_norm, cfg.norm_eps)
-        k = rms_norm(k, p.k_head_norm, cfg.norm_eps)
+        norm_mode = "sum" if tp > 1 else "slice"  # a replicated scale on this rank's heads
+        q = rms_norm(q, shd.weight(p, "q_head_norm", norm_mode), cfg.norm_eps)
+        k = rms_norm(k, shd.weight(p, "k_head_norm", norm_mode), cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -199,22 +253,26 @@ def gqa_qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor, positions: torch.Te
 
 def mla_qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor, positions: torch.Tensor):
     """MLA projections.  Returns (q [B,S,H,nope+rope], k [B,S,H,nope+rope],
-    v [B,S,H,vd], the cache payload c [B,S,kv_lora+rope]).
+    v [B,S,H,vd], the cache payload c [B,S,kv_lora+rope]); under a
+    head-parallel policy this rank's H / tp heads (the low-rank projections
+    and the payload replicated).
 
     The payload is the compressed c_kv followed by the shared rope key
     *after* RoPE: what a serving cache stores and the absorbed decode
     reads.  k and v are the decompressed views."""
     b, s, _ = x.shape
-    h = cfg.num_heads
+    tp = shd.head_parallel(cfg)
+    keep = "keep" if tp > 1 else "slice"
+    h = cfg.num_heads // tp
     nope, rope_d, vd, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
-    cq = rms_norm(x @ p.w_dq, p.q_norm, cfg.norm_eps)
-    q = (cq @ p.w_uq).reshape(b, s, h, nope + rope_d)
+    cq = rms_norm(x @ shd.weight(p, "w_dq"), p.q_norm, cfg.norm_eps)
+    q = (_split_in(cq, tp) @ shd.weight(p, "w_uq", keep)).reshape(b, s, h, nope + rope_d)
     q = torch.cat([q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)], -1)
-    dkv = x @ p.w_dkv  # [B,S,r+rope]
+    dkv = x @ shd.weight(p, "w_dkv")  # [B,S,r+rope]
     c_kv = rms_norm(dkv[..., :r], p.kv_norm, cfg.norm_eps)
     k_rope = apply_rope(dkv[..., r:].reshape(b, s, 1, rope_d), positions, cfg.rope_theta)
-    ukv = (c_kv @ p.w_ukv).reshape(b, s, h, nope + vd)
-    k = torch.cat([ukv[..., :nope], k_rope.expand(b, s, h, rope_d)], -1)
+    ukv = (_split_in(c_kv, tp) @ shd.weight(p, "w_ukv", keep)).reshape(b, s, h, nope + vd)
+    k = torch.cat([ukv[..., :nope], _split_in(k_rope, tp).expand(b, s, h, rope_d)], -1)
     return q, k, ukv[..., nope:], torch.cat([c_kv, k_rope[:, :, 0]], -1)
 
 
@@ -226,11 +284,18 @@ def attention_block(
     b, s = x.shape[:2]
     if cfg.attn_type == "mla":
         q, k, v, _payload = mla_qkv(cfg, p, x, positions)
-        out = flash_attention(q, k, v, causal_offset=0, kv_block=kv_block)
-        return out.reshape(b, s, cfg.num_heads * cfg.v_head_dim) @ p.w_o
-    q, k, v = gqa_qkv(cfg, p, x, positions)
+    else:
+        q, k, v = gqa_qkv(cfg, p, x, positions)
     out = flash_attention(q, k, v, causal_offset=0, kv_block=kv_block)
-    return out.reshape(b, s, cfg.q_dim) @ p.w_o
+    return attention_out(cfg, p, out.reshape(b, s, -1))
+
+
+def attention_out(cfg: ModelConfig, p: Attention, out: torch.Tensor) -> torch.Tensor:
+    """The output projection of the heads' outputs [B, S, heads * vd]:
+    row parallel (then summed over ``model``) under a head-parallel
+    policy."""
+    tp = shd.head_parallel(cfg)
+    return _split_out(out @ shd.weight(p, "w_o", "keep" if tp > 1 else "slice"), tp)
 
 
 # ------------------------------------------------------------------- MLP --
@@ -245,5 +310,21 @@ class MLP(nn.Module):
         self.w_down = _normal((f, d), 1.0 / math.sqrt(f), generator, device)
 
 
+def mlp_split(p: MLP) -> int:
+    """The number of ranks the MLP's hidden columns split over (1: it runs
+    replicated)."""
+    both = shd.is_split(p, "w_gate") and shd.is_split(p, "w_down")
+    return shd.model_axis_size() if both else 1
+
+
+def mlp_partial(p: MLP, x: torch.Tensor, tp: int) -> torch.Tensor:
+    """The SwiGLU MLP on this rank's hidden columns (all of them at tp 1):
+    a partial output that the caller sums over ``model``."""
+    keep = "keep" if tp > 1 else "slice"
+    x = _split_in(x, tp)
+    return (F.silu(x @ shd.weight(p, "w_gate", keep)) * (x @ shd.weight(p, "w_up", keep))) @ shd.weight(p, "w_down", keep)
+
+
 def mlp_block(p: MLP, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+    tp = mlp_split(p)
+    return _split_out(mlp_partial(p, x, tp), tp)

@@ -27,11 +27,24 @@ state, and return the same dict.
 
 ``remat`` (``hidden_states``, ``forward``, ``lm_loss``) recomputes each
 effective period's activations in the backward pass
-(``torch.utils.checkpoint``, as the reference wraps its period body in
+(``act_sharding.checkpoint``, ``torch.utils.checkpoint`` in the
+forward's policy, as the reference wraps its period body in
 ``jax.checkpoint``) when autograd records; serving runs under
 ``torch.no_grad`` and builds no graph.  ``cache_mode`` is the reference's
 XLA memory device (carry vs. ys): taken for call-site parity, it changes
 nothing here.
+
+Under a mesh policy (``distributed.act_sharding``, the cells of
+``launch.steps``) the model holds local shards and runs on them: the
+embedding and the LM head split the vocabulary over ``model`` (each rank
+looks up the ids in its range and the ranks sum; the loss takes its max
+and its sum of exponentials over ``model`` and the label's logit from the
+rank that owns it), the blocks as ``layers`` describes, the loss a mean
+over every batch rank's labelled positions.  A cache may hold a slice of
+the sequence (``cache["seq_shards"]`` ranks of ``model``, each
+``S / seq_shards`` positions): ``prefill`` writes this rank's positions,
+and ``decode_step`` needs a flash-decode hook over ``model``.  ``params_shape``
+is the model on the meta device.
 """
 
 from __future__ import annotations
@@ -41,9 +54,9 @@ from typing import Callable
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
+from ..distributed import act_sharding as shd
 from .config import ModelConfig
 from .layers import (
     ACT_DTYPE,
@@ -53,6 +66,7 @@ from .layers import (
     _normal,
     apply_rope,
     attention_block,
+    attention_out,
     flash_attention,
     gqa_qkv,
     mla_qkv,
@@ -175,25 +189,51 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Transformer:
     return Transformer(cfg, gen, dev)
 
 
+def params_shape(cfg: ModelConfig) -> Transformer:
+    """The model on the meta device: shapes and dtypes, no memory."""
+    return Transformer(cfg, device="meta")
+
+
 def _head(cfg: ModelConfig, params: Transformer) -> torch.Tensor:
+    """The LM head [D, V] (this rank's [D, V / tp] when the vocabulary is
+    split over ``model``)."""
     return params.embed.T if cfg.tie_embeddings else params.lm_head
+
+
+def _vocab_split(cfg: ModelConfig, params: Transformer) -> bool:
+    return shd.is_split(params, "embed" if cfg.tie_embeddings else "lm_head")
 
 
 def _logits(cfg: ModelConfig, params: Transformer, x: torch.Tensor) -> torch.Tensor:
     """float32 logits of bf16 hidden states: bf16 products (exact in
-    float32), float32 sums."""
-    return x.float() @ _head(cfg, params).float()
+    float32), float32 sums; every rank gets the whole vocabulary."""
+    if not _vocab_split(cfg, params):
+        return x.float() @ _head(cfg, params).float()
+    local = shd.copy_to(x).float() @ _head(cfg, params).float()
+    return shd.gather(local, "model", -1, "slice")
+
+
+def _embed_tokens(params: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+    """``embed[tokens]``; with the vocabulary split over ``model`` each rank
+    looks up the ids in its range (zero elsewhere) and the ranks sum."""
+    if not shd.is_split(params, "embed"):
+        return params.embed[tokens]
+    v_l = params.embed.shape[0]
+    local = tokens - shd.axis_rank("model") * v_l
+    own = (local >= 0) & (local < v_l)
+    x = params.embed[local.clamp(0, v_l - 1)] * own[..., None].to(params.embed.dtype)
+    return shd.reduce_from(x)
 
 
 def embed_inputs(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
                  prefix_embeds: torch.Tensor | None = None) -> torch.Tensor:
     """Token embeddings [B, S, D]; the VLM stub puts its projected patch
     embeddings in front (and raises ``ValueError`` without them)."""
-    x = params.embed[tokens].to(ACT_DTYPE)
+    x = _embed_tokens(params, tokens).to(ACT_DTYPE)
     if cfg.frontend == "vlm_stub":
         if prefix_embeds is None:
             raise ValueError(f"{cfg.name} needs prefix patch embeddings")
-        pe = prefix_embeds.to(ACT_DTYPE) @ params.vision_proj
+        pe = prefix_embeds.to(ACT_DTYPE) @ shd.weight(params, "vision_proj")
         x = torch.cat([pe, x], 1)
     return x
 
@@ -220,7 +260,7 @@ def hidden_states(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
     for lo in range(0, len(params.layers), period):
         layers = params.layers[lo:lo + period]
         if recompute:
-            x = checkpoint(_period_forward, cfg, layers, x, positions, use_reentrant=False)
+            x = shd.checkpoint(_period_forward, cfg, layers, x, positions)
         else:
             x = _period_forward(cfg, layers, x, positions)
     return rms_norm(x, params.ln_final, cfg.norm_eps)
@@ -274,20 +314,45 @@ def _cache_max_seq(cfg: ModelConfig, cache: dict) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _cache_write(dst: torch.Tensor, src: torch.Tensor, offset: int) -> None:
+    """Positions [offset, offset + S_local) of ``src`` into the cache slice
+    ``dst`` (as many as ``src`` has)."""
+    n = max(0, min(dst.shape[1], src.shape[1] - offset))
+    if n:
+        dst[:, :n] = src[:, offset:offset + n]
+
+
+def _all_kv_heads(cfg: ModelConfig, k: torch.Tensor) -> torch.Tensor:
+    """Every KV head [B, S, KVH, hd] from this rank's ones under a
+    head-parallel policy (each KV head once, where it was repeated)."""
+    tp = shd.head_parallel(cfg)
+    if tp <= 1:
+        return k
+    k = shd.gather_nograd(k, "model", 2)
+    return k[:, :, ::tp // cfg.num_kv_heads] if cfg.num_kv_heads % tp else k
+
+
 def _attn_prefill(cfg: ModelConfig, p: Attention, h: torch.Tensor, positions: torch.Tensor,
-                  slot_cache: dict) -> torch.Tensor:
-    """Attention over the prompt; writes the prompt's cache rows."""
+                  slot_cache: dict, offset: int = 0) -> torch.Tensor:
+    """Attention over the prompt; writes the prompt's cache rows (from
+    position ``offset``, where the cache holds a slice of the sequence)."""
     b, s, _ = h.shape
     if cfg.attn_type == "mla":
         q, k, v, payload = mla_qkv(cfg, p, h, positions)
-        slot_cache["c"][:, :s] = payload
-        out = flash_attention(q, k, v, causal_offset=0)
-        return out.reshape(b, s, cfg.num_heads * cfg.v_head_dim) @ p.w_o
-    q, k, v = gqa_qkv(cfg, p, h, positions)
-    slot_cache["k"][:, :s] = k
-    slot_cache["v"][:, :s] = v
+        _cache_write(slot_cache["c"], payload, offset)
+    else:
+        q, k, v = gqa_qkv(cfg, p, h, positions)
+        _cache_write(slot_cache["k"], _all_kv_heads(cfg, k), offset)
+        _cache_write(slot_cache["v"], _all_kv_heads(cfg, v), offset)
     out = flash_attention(q, k, v, causal_offset=0)
-    return out.reshape(b, s, cfg.q_dim) @ p.w_o
+    return attention_out(cfg, p, out.reshape(b, s, -1))
+
+
+def _seq_offset(cfg: ModelConfig, cache: dict) -> int:
+    """The first position of this rank's slice of a sequence-sharded cache."""
+    if cache.get("seq_shards", 1) <= 1:
+        return 0
+    return shd.axis_rank("model") * _cache_max_seq(cfg, cache)
 
 
 def prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, cache: dict,
@@ -298,13 +363,15 @@ def prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, cache: 
     starts from zero."""
     x = embed_inputs(cfg, params, tokens, prefix_embeds)
     b, s, _ = x.shape
-    if s > _cache_max_seq(cfg, cache) > 0:
-        raise ValueError(f"prefill of {s} positions into a cache of {_cache_max_seq(cfg, cache)}")
+    capacity = _cache_max_seq(cfg, cache) * cache.get("seq_shards", 1)
+    if s > capacity > 0:
+        raise ValueError(f"prefill of {s} positions into a cache of {capacity}")
     positions = _positions(b, s, x.device)
+    offset = _seq_offset(cfg, cache)
     for layer, lc in zip(params.layers, cache["layers"]):
         h = rms_norm(x, layer.ln_attn, cfg.norm_eps)
         if layer.kind == "attn":
-            x = x + _attn_prefill(cfg, layer.attn, h, positions, lc)
+            x = x + _attn_prefill(cfg, layer.attn, h, positions, lc, offset)
         else:
             out, state = ssm_block_with_state(cfg, layer.ssm, h, {})
             lc["h"], lc["conv"] = state["h"].to(lc["h"].dtype), state["conv"].to(lc["conv"].dtype)
@@ -362,28 +429,41 @@ def dense_mla_decode_attn(q_c, q_rope, payload, c_cache, pos: int, r: int, scale
 
 def _attn_decode(cfg: ModelConfig, p: Attention, h: torch.Tensor, slot_cache: dict, pos: int,
                  positions: torch.Tensor, gqa_attn_impl, mla_attn_impl) -> torch.Tensor:
+    """One position's attention.  Under a head-parallel policy the query
+    (and new KV) heads of every rank are gathered for the hook, which sees
+    all heads, and each rank projects its own heads' output."""
     b = h.shape[0]
+    tp = shd.head_parallel(cfg)
     if cfg.attn_type == "mla":
         nope, rope_d, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
-        vd, hn = cfg.v_head_dim, cfg.num_heads
-        cq = rms_norm(h @ p.w_dq, p.q_norm, cfg.norm_eps)
-        q = (cq @ p.w_uq).reshape(b, 1, hn, nope + rope_d)
+        vd, hn = cfg.v_head_dim, cfg.num_heads // tp
+        keep = "keep" if tp > 1 else "slice"
+        cq = rms_norm(h @ shd.weight(p, "w_dq"), p.q_norm, cfg.norm_eps)
+        q = (cq @ shd.weight(p, "w_uq", keep)).reshape(b, 1, hn, nope + rope_d)
         q_nope, q_rope = q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)
-        dkv = h @ p.w_dkv  # [B,1,r+rope]
+        dkv = h @ shd.weight(p, "w_dkv")  # [B,1,r+rope]
         c_kv = rms_norm(dkv[..., :r], p.kv_norm, cfg.norm_eps)
         k_rope = apply_rope(dkv[..., r:].reshape(b, 1, 1, rope_d), positions,
                             cfg.rope_theta).reshape(b, 1, rope_d)
         # Absorbed query / value projections: score and read in the
         # compressed space.
-        w_ukv = p.w_ukv.reshape(r, hn, nope + vd)
+        w_ukv = shd.weight(p, "w_ukv", keep).reshape(r, hn, nope + vd)
         q_c = torch.einsum("bqhn,rhn->bqhr", q_nope.float(), w_ukv[..., :nope].float()).to(h.dtype)
+        if tp > 1:
+            q_c, q_rope = shd.gather_nograd(q_c, "model", 2), shd.gather_nograd(q_rope, "model", 2)
         ctx, slot_cache["c"] = mla_attn_impl(q_c, q_rope, torch.cat([c_kv, k_rope], -1),
                                              slot_cache["c"], pos, r, nope + rope_d)
+        if tp > 1:
+            ctx = shd.local_block(ctx, "model", 2)
         out = torch.einsum("bqhr,rhv->bqhv", ctx.float(), w_ukv[..., nope:].float()).to(h.dtype)
-        return out.reshape(b, 1, hn * vd) @ p.w_o
+        return attention_out(cfg, p, out.reshape(b, 1, hn * vd))
     q, k, v = gqa_qkv(cfg, p, h, positions)
+    if tp > 1:
+        q, k, v = shd.gather_nograd(q, "model", 2), _all_kv_heads(cfg, k), _all_kv_heads(cfg, v)
     out, slot_cache["k"], slot_cache["v"] = gqa_attn_impl(q, k, v, slot_cache["k"], slot_cache["v"], pos)
-    return out.reshape(b, 1, cfg.q_dim) @ p.w_o
+    if tp > 1:
+        out = shd.local_block(out, "model", 2)
+    return attention_out(cfg, p, out.reshape(b, 1, -1))
 
 
 def decode_step(cfg: ModelConfig, params: Transformer, cache: dict, tokens: torch.Tensor,
@@ -398,7 +478,7 @@ def decode_step(cfg: ModelConfig, params: Transformer, cache: dict, tokens: torc
     capacity = _cache_max_seq(cfg, cache) * getattr(impl, "seq_shards", 1)
     if pos >= capacity > 0:
         raise ValueError(f"decode at position {pos} past a cache of {capacity}")
-    x = params.embed[tokens].to(ACT_DTYPE)
+    x = _embed_tokens(params, tokens).to(ACT_DTYPE)
     positions = torch.full((x.shape[0], 1), pos, device=x.device)
     for layer, lc in zip(params.layers, cache["layers"]):
         h = rms_norm(x, layer.ln_attn, cfg.norm_eps)
@@ -419,12 +499,26 @@ def decode_step(cfg: ModelConfig, params: Transformer, cache: dict, tokens: torc
 # ---------------------------------------------------------------------------
 
 
-def _chunk_nll(head: torch.Tensor, x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def _chunk_nll(head: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
+               vocab_lo: int | None = None) -> torch.Tensor:
     """Summed negative log-likelihood of one chunk: float32 logits of the
-    bf16 hidden states, labels below 0 left out."""
-    logp = torch.log_softmax(x.float() @ head.float(), dim=-1)
+    bf16 hidden states, labels below 0 left out.  With ``vocab_lo`` the
+    head is this rank's vocabulary slice from that id on: the log-sum-exp
+    takes its max and its sum over ``model``, the label's logit comes from
+    the rank that owns it."""
+    z = x.float() @ head.float()
     valid = labels >= 0
-    nll = -logp.gather(-1, torch.where(valid, labels, 0)[..., None].long())[..., 0]
+    if vocab_lo is None:
+        logp = torch.log_softmax(z, dim=-1)
+        nll = -logp.gather(-1, torch.where(valid, labels, 0)[..., None].long())[..., 0]
+        return (nll * valid).sum()
+    v_l = z.shape[-1]
+    m = shd.all_reduce(z.detach().amax(-1), "model", op=torch.distributed.ReduceOp.MAX)
+    sum_exp = shd.reduce_from(torch.exp(z - m[..., None]).sum(-1))
+    local = labels - vocab_lo
+    own = valid & (local >= 0) & (local < v_l)
+    label_logit = z.gather(-1, local.clamp(0, v_l - 1)[..., None].long())[..., 0] * own
+    nll = m + torch.log(sum_exp) - shd.reduce_from(label_logit)
     return (nll * valid).sum()
 
 
@@ -437,18 +531,26 @@ def lm_loss(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, labels:
     The head matmul and log-softmax run one chunk of ``seq_chunk``
     positions at a time, each recomputed in the backward pass, so the
     [B, S, V] logits are never materialized: peak memory is one chunk's
-    [B, seq_chunk, V]."""
+    [B, seq_chunk, V].  Under a policy whose batch is split, the mean is
+    over every batch rank's labelled positions (the same on each rank)."""
     x = hidden_states(cfg, params, tokens, prefix_embeds, remat=remat)
     if cfg.frontend == "vlm_stub" and prefix_embeds is not None:
         x = x[:, prefix_embeds.shape[1]:]
     head = _head(cfg, params)
+    vocab_lo = None
+    if _vocab_split(cfg, params):
+        x = shd.copy_to(x)
+        vocab_lo = shd.axis_rank("model") * head.shape[1]
     chunk = min(seq_chunk, x.shape[1])
     recompute = torch.is_grad_enabled()
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lo in range(0, x.shape[1], chunk):
         xc, lc = x[:, lo:lo + chunk], labels[:, lo:lo + chunk]
         if recompute:
-            total = total + checkpoint(_chunk_nll, head, xc, lc, use_reentrant=False)
+            total = total + shd.checkpoint(_chunk_nll, head, xc, lc, vocab_lo)
         else:
-            total = total + _chunk_nll(head, xc, lc)
-    return total / (labels >= 0).sum().clamp_min(1)
+            total = total + _chunk_nll(head, xc, lc, vocab_lo)
+    count = (labels >= 0).sum()
+    for axis in shd.batch_axes():
+        shd.all_reduce(count, axis)
+    return shd.sum_over_batch(total / count.clamp_min(1))

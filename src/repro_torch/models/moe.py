@@ -10,18 +10,20 @@ contributes zero.  Expert MLPs are batched matmuls over the dense
 by its gate (renormalized over the top k only with ``moe_norm_topk``).
 DeepSeek's shared experts are a dense MLP added unconditionally.
 
-Inside ``distributed.act_sharding.policy(group)`` the block is expert
-parallel, as the reference's ``shard_map`` path (``_moe_local_compute`` /
+Inside an ``act_sharding.policy`` the block is expert parallel, as the
+reference's ``shard_map`` path (``_moe_local_compute`` /
 ``_moe_block_shard_map``): every rank routes the whole batch (the
-activations are replicated), computes the slots of its ``E / world``
-experts into a [B, E / world, C, D] buffer, and the ranks' float32 partial
-outputs are summed by an ``all_reduce``; the shared experts are added
-after.  The ``all_reduce`` records no gradient: the expert-parallel block
-serves, raises when autograd would record it, and training runs the dense
-one.  Capacity positions are ranks
-over all experts, so the slots kept are the dense path's.  The reference
-takes that path only on a ``model`` axis of more than one device; here a
-policy takes it at any world size (one card runs it at world 1).
+activations are replicated over ``model``), computes the slots of its
+``E / tp`` experts into a [B, E / tp, C, D] buffer, and the ranks' float32
+partial outputs are summed over ``model``.  Under a mesh policy the
+module's expert weights are already this rank's shard; under a
+process-group policy they are whole and the block takes its slice.  The
+block trains: ``act_sharding.copy_to`` / ``reduce_from`` around it give
+the replicated router, attention and embedding their whole gradient on
+every rank, summed once.  Capacity positions are ranks over all experts,
+so the slots kept are the dense path's.  The reference takes that path
+only on a ``model`` axis of more than one device; here a policy takes it
+at any world size (one card runs it at world 1).
 """
 
 from __future__ import annotations
@@ -29,13 +31,12 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..distributed import act_sharding
 from .config import ModelConfig
-from .layers import MLP, _normal, model_device
+from .layers import MLP, _normal, mlp_block, mlp_partial, mlp_split, model_device
 
 
 def moe_capacity(cfg: ModelConfig, seq_len: int) -> int:
@@ -69,7 +70,7 @@ def route(cfg: ModelConfig, p: MoE, x: torch.Tensor):
     does: a stable descending sort."""
     b, s, _ = x.shape
     e, k = cfg.moe_num_experts, cfg.moe_top_k
-    probs = torch.softmax(x.float() @ p.router, dim=-1)  # [B,S,E]
+    probs = torch.softmax(x.float() @ act_sharding.weight(p, "router"), dim=-1)  # [B,S,E]
     gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, idx = gate[..., :k], idx[..., :k]
     if cfg.moe_norm_topk:
@@ -80,13 +81,16 @@ def route(cfg: ModelConfig, p: MoE, x: torch.Tensor):
     return gate, e_flat, pos, pos < moe_capacity(cfg, s)
 
 
-def _expert_slots(cfg: ModelConfig, p: MoE, x: torch.Tensor, e0: int, e_l: int) -> torch.Tensor:
+def _expert_slots(cfg: ModelConfig, x: torch.Tensor, routing, e0: int, w_gate: torch.Tensor,
+                  w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
     """Each slot's gated expert output [B, S, k, D] for the experts
-    [e0, e0 + e_l); zero for the other experts' slots and dropped ones."""
+    [e0, e0 + E_l) whose stacked weights are given; zero for the other
+    experts' slots and dropped ones."""
     b, s, d = x.shape
     k = cfg.moe_top_k
     c = moe_capacity(cfg, s)
-    gate, e_flat, pos, in_cap = route(cfg, p, x)
+    e_l = w_gate.shape[0]
+    gate, e_flat, pos, in_cap = routing
     local = in_cap & (e_flat >= e0) & (e_flat < e0 + e_l)
     # Scatter each kept slot's token into its (row, expert, position); the
     # dropped ones all land on one spare row past the buffer, discarded.
@@ -97,49 +101,51 @@ def _expert_slots(cfg: ModelConfig, p: MoE, x: torch.Tensor, e0: int, e_l: int) 
     buffer = x.new_zeros((b * e_l * c + 1, d))
     buffer[target.reshape(-1)] = src.reshape(-1, d)
     buf = buffer[:-1].reshape(b, e_l, c, d).transpose(0, 1).reshape(e_l, b * c, d)
-    experts = slice(e0, e0 + e_l)
-    h = F.silu(buf @ p.w_gate[experts]) * (buf @ p.w_up[experts])
-    out_buf = (h @ p.w_down[experts]).reshape(e_l, b, c, d).transpose(0, 1).reshape(b * e_l * c, d)
+    h = F.silu(buf @ w_gate) * (buf @ w_up)
+    out_buf = (h @ w_down).reshape(e_l, b, c, d).transpose(0, 1).reshape(b * e_l * c, d)
     gathered = out_buf[torch.where(local, target, 0)]  # [B, S*k, D]
     gathered = gathered * (gate.reshape(b, s * k, 1) * local[..., None]).to(x.dtype)
     return gathered.reshape(b, s, k, d)
 
 
-def _shared(p: MoE, x: torch.Tensor) -> torch.Tensor:
-    sp = p.shared
-    return (F.silu(x @ sp.w_gate) * (x @ sp.w_up)) @ sp.w_down
+_EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")
 
 
 def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor) -> torch.Tensor:
     """x: [B, S, D] -> [B, S, D]: ``_moe_block_dense``, or expert parallel
-    inside an ``act_sharding.policy`` (``_moe_block_expert_parallel``)."""
+    inside an ``act_sharding.policy`` (``_moe_block_shard_map``)."""
+    routing = route(cfg, p, x)
     pol = act_sharding.current_policy()
-    if pol is not None and pol["moe_impl"] == "expert_parallel":
-        return _moe_block_expert_parallel(cfg, p, x, pol["group"])
-    out = _expert_slots(cfg, p, x, 0, cfg.moe_num_experts).sum(2)
-    return out if p.shared is None else out + _shared(p, x)
+    if pol is not None and act_sharding.expert_parallel():
+        if not pol["sharded"]:  # whole weights: this rank's E / world of them
+            world, rank = act_sharding.axis_size("model"), act_sharding.axis_rank("model")
+            if cfg.moe_num_experts % world:
+                raise ValueError(f"{cfg.moe_num_experts} experts do not split over {world} ranks")
+            e_l = cfg.moe_num_experts // world
+            return _expert_parallel(cfg, p, x, routing, rank * e_l,
+                                    [getattr(p, n)[rank * e_l:(rank + 1) * e_l] for n in _EXPERT_WEIGHTS])
+        if act_sharding.is_split(p, "w_gate"):
+            ws = [act_sharding.weight(p, n, "keep") for n in _EXPERT_WEIGHTS]
+            return _expert_parallel(cfg, p, x, routing, act_sharding.axis_rank("model") * ws[0].shape[0], ws)
+    ws = [act_sharding.weight(p, n) for n in _EXPERT_WEIGHTS]
+    out = _expert_slots(cfg, x, routing, 0, *ws).sum(2)
+    return out if p.shared is None else out + mlp_block(p.shared, x)
 
 
-def _moe_block_expert_parallel(cfg: ModelConfig, p: MoE, x: torch.Tensor, group) -> torch.Tensor:
-    """This rank's E / world experts, then the float32 sum over the ranks.
-
-    Inference only: the in-place ``all_reduce`` is not recorded by
-    autograd, so the replicated router, attention and embedding would get
-    this rank's experts' share of their gradients.  Training under a
-    policy waits for ROADMAP Queue 1 item 4, step 7 (the sharded train
-    cell), and raises here.
-    """
-    if torch.is_grad_enabled() and (x.requires_grad or p.router.requires_grad):
-        raise NotImplementedError(
-            "the expert-parallel MoE block does not propagate gradients across ranks; "
-            "training under act_sharding.policy waits for ROADMAP Queue 1 item 4, step 7 "
-            "(train with the dense block, outside the policy)")
-    world, rank = dist.get_world_size(group), dist.get_rank(group)
-    e = cfg.moe_num_experts
-    if e % world:
-        raise ValueError(f"{e} experts do not split over {world} ranks")
-    e_l = e // world
-    partial = _expert_slots(cfg, p, x, rank * e_l, e_l).float().sum(2)
-    dist.all_reduce(partial, group=group)
-    out = partial.to(x.dtype)
-    return out if p.shared is None else out + _shared(p, x)
+def _expert_parallel(cfg: ModelConfig, p: MoE, x: torch.Tensor, routing, e0: int, ws) -> torch.Tensor:
+    """This rank's experts, then the float32 sum over ``model``.  The
+    activations and the routing are replicated over ``model``; each rank's
+    gradient of them covers its own experts' slots, so they enter the
+    region through ``copy_to`` (the gradient summed over the ranks) and
+    the sum leaves it through ``reduce_from`` (the gradient passed on
+    whole).  A shared MLP split over ``model`` joins the same sum."""
+    gate, *rest = routing
+    partial = _expert_slots(cfg, act_sharding.copy_to(x), (act_sharding.copy_to(gate), *rest),
+                            e0, *ws).float().sum(2)
+    shared_tp = mlp_split(p.shared) if p.shared is not None else 1
+    if shared_tp > 1:
+        partial = partial + mlp_partial(p.shared, x, shared_tp).float()
+    out = act_sharding.reduce_from(partial).to(x.dtype)
+    if p.shared is not None and shared_tp == 1:
+        out = out + mlp_block(p.shared, x)
+    return out

@@ -8,8 +8,10 @@ chunks.  Decode is the O(1) recurrence ``h = a·h + dt·B⊗x``,
 
 The scan and the decode run in float32; ``a_log``, ``d_skip`` and
 ``dt_bias`` are float32 parameters, as in the reference.  The reference's
-``scan_util`` (a ``lax.scan`` / unroll switch) and the per-chunk remat
-have no counterpart: the chunk loop is a Python loop.
+``scan_util`` (a ``lax.scan`` / unroll switch) has no counterpart: the
+chunk loop is a Python loop, each chunk recomputed in the backward pass.
+Under a mesh policy the block runs replicated over ``model``, its
+projections gathered (``act_sharding.weight``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed import act_sharding as shd
 from .config import ModelConfig
 from .layers import PARAM_DTYPE, _const, _normal, model_device, rms_norm
 
@@ -59,12 +62,33 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
     return F.silu(out + b.float()).to(xbc.dtype)
 
 
+def _ssd_chunk(xf, dtj, bj, cj, cumj, tri, h_state):
+    """One chunk of the SSD scan: (y [B,Q,H,hd], the state after it)."""
+    # L[b,h,t,u] = exp(cum_t - cum_u) for t >= u.  Clamp before exp: the
+    # masked (t < u) region has diff > 0, whose exp can overflow, and
+    # inf * 0 = NaN.
+    ch = cumj.transpose(1, 2)  # [B,H,Q]
+    diff = ch[:, :, :, None] - ch[:, :, None, :]
+    l_mat = torch.exp(torch.clamp_max(diff, 0.0)) * tri
+    cb = torch.einsum("btn,bun->btu", cj, bj)  # [B,Q,Q]
+    w_tu = cb[:, None] * l_mat * dtj.transpose(1, 2)[:, :, None, :]  # fold dt_u
+    y_diag = torch.einsum("bhtu,buhd->bthd", w_tu, xf)
+    cd = cj[:, :, None, :] * torch.exp(cumj)[..., None]  # [B,Q,H,N]
+    y_off = torch.einsum("bthn,bhdn->bthd", cd, h_state)
+    total = cumj[:, -1]  # [B,H]
+    xw = xf * (torch.exp(total[:, None] - cumj) * dtj)[..., None]
+    h_state = torch.exp(total)[:, :, None, None] * h_state + torch.einsum("bun,buhd->bhdn", bj, xw)
+    return y_diag + y_off, h_state
+
+
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_in: torch.Tensor,
                 c_in: torch.Tensor, chunk: int, h_init: torch.Tensor | None = None):
     """Chunked SSD scan.  x [B,S,H,hd], dt [B,S,H] (after softplus), a [H]
     (negative), b_in / c_in [B,S,N].  Returns (y [B,S,H,hd] in x's dtype,
     final state [B,H,hd,N] float32).  The sequence is padded to whole
-    chunks (padded steps have dt = 0, so they leave the state alone)."""
+    chunks (padded steps have dt = 0, so they leave the state alone).  When
+    autograd records, each chunk keeps only its inputs and is recomputed
+    in the backward pass, as the reference checkpoints its chunk step."""
     bsz, s, h, hd = x.shape
     n = b_in.shape[-1]
     chunk = min(chunk, s)
@@ -83,24 +107,15 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_in: torch.
     tri = torch.ones((chunk, chunk), dtype=torch.float32, device=x.device).tril()
     h_state = (h_init.float() if h_init is not None
                else torch.zeros((bsz, h, hd, n), dtype=torch.float32, device=x.device))
+    recompute = torch.is_grad_enabled()
     ys = []
     for j in range(nc):
-        xf, dtj, bj, cj, cumj = xc[:, j].float(), dtc[:, j], bc[:, j], cc[:, j], cum[:, j]
-        # L[b,h,t,u] = exp(cum_t - cum_u) for t >= u.  Clamp before exp: the
-        # masked (t < u) region has diff > 0, whose exp can overflow, and
-        # inf * 0 = NaN.
-        ch = cumj.transpose(1, 2)  # [B,H,Q]
-        diff = ch[:, :, :, None] - ch[:, :, None, :]
-        l_mat = torch.exp(torch.clamp_max(diff, 0.0)) * tri
-        cb = torch.einsum("btn,bun->btu", cj, bj)  # [B,Q,Q]
-        w_tu = cb[:, None] * l_mat * dtj.transpose(1, 2)[:, :, None, :]  # fold dt_u
-        y_diag = torch.einsum("bhtu,buhd->bthd", w_tu, xf)
-        cd = cj[:, :, None, :] * torch.exp(cumj)[..., None]  # [B,Q,H,N]
-        y_off = torch.einsum("bthn,bhdn->bthd", cd, h_state)
-        total = cumj[:, -1]  # [B,H]
-        xw = xf * (torch.exp(total[:, None] - cumj) * dtj)[..., None]
-        h_state = torch.exp(total)[:, :, None, None] * h_state + torch.einsum("bun,buhd->bhdn", bj, xw)
-        ys.append(y_diag + y_off)
+        args = (xc[:, j].float(), dtc[:, j], bc[:, j], cc[:, j], cum[:, j], tri, h_state)
+        if recompute:  # the reference's jax.checkpoint of the chunk step
+            y, h_state = shd.checkpoint(_ssd_chunk, *args)
+        else:
+            y, h_state = _ssd_chunk(*args)
+        ys.append(y)
     y = torch.stack(ys, 1).reshape(bsz, s + pad, h, hd)[:, :s]
     return y.to(x.dtype), h_state
 
@@ -110,7 +125,7 @@ def _ssm_core(cfg: ModelConfig, p: SSM, x: torch.Tensor, h_init=None):
     Returns (out, final state, the pre-conv xbc)."""
     bsz, s, _ = x.shape
     di, n, h, hd = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    z, xbc, dt = _split_proj(cfg, x @ p.w_in)
+    z, xbc, dt = _split_proj(cfg, x @ shd.weight(p, "w_in"))
     xbc_conv = _causal_conv(xbc, p.conv_w, p.conv_b)
     xs = xbc_conv[..., :di].reshape(bsz, s, h, hd)
     dt = F.softplus(dt.float() + p.dt_bias)  # [B,S,H]
@@ -118,7 +133,7 @@ def _ssm_core(cfg: ModelConfig, p: SSM, x: torch.Tensor, h_init=None):
                              xbc_conv[..., di + n:], cfg.ssm_chunk, h_init)
     y = y + xs * p.d_skip[None, None, :, None].to(x.dtype)
     y = rms_norm(y.reshape(bsz, s, di) * F.silu(z), p.norm, cfg.norm_eps)
-    return y @ p.w_out, h_final, xbc
+    return y @ shd.weight(p, "w_out"), h_final, xbc
 
 
 def ssm_block(cfg: ModelConfig, p: SSM, x: torch.Tensor) -> torch.Tensor:
@@ -151,7 +166,7 @@ def ssm_decode_step(cfg: ModelConfig, p: SSM, x: torch.Tensor, state: dict):
     window is the previous conv - 1 inputs followed by the current one."""
     bsz = x.shape[0]
     di, n, h, hd = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    z, xbc, dt = _split_proj(cfg, x[:, 0] @ p.w_in)
+    z, xbc, dt = _split_proj(cfg, x[:, 0] @ shd.weight(p, "w_in"))
     window = torch.cat([state["conv"], xbc[:, None]], 1)  # [B,conv,C]
     conv_out = torch.einsum("bkc,kc->bc", window.float(), p.conv_w.float())
     xbc_act = F.silu(conv_out + p.conv_b.float()).to(x.dtype)
@@ -162,4 +177,4 @@ def ssm_decode_step(cfg: ModelConfig, p: SSM, x: torch.Tensor, state: dict):
     h_new = decay[:, :, None, None] * state["h"] + torch.einsum("bh,bn,bhd->bhdn", dt_sp, b_in, xs)
     y = torch.einsum("bn,bhdn->bhd", c_in, h_new) + xs * p.d_skip[None, :, None]
     y = rms_norm(y.reshape(bsz, di).to(x.dtype) * F.silu(z), p.norm, cfg.norm_eps)
-    return (y @ p.w_out)[:, None], {"h": h_new, "conv": window[:, 1:]}
+    return (y @ shd.weight(p, "w_out"))[:, None], {"h": h_new, "conv": window[:, 1:]}

@@ -711,14 +711,14 @@ def grad_rel_l2(got: dict, want: dict) -> float:
 
 
 def compare_train_step(cfg, cpu_model, model, batch: dict, adamw=None) -> dict:
-    """One ``launch.steps.build_train_cell`` step through two copies of one
+    """One ``launch.steps.build_local_train_cell`` step through two copies of one
     model, ``cpu_model`` on the CPU and ``model`` on another device, on the
     same batch.  Raises unless the losses agree within ``loss_atol`` and
     the gradient norms within ``GRAD_RTOL``.  Returns both differences."""
-    from .launch.steps import build_train_cell
+    from .launch.steps import build_local_train_cell
     from .train.optimizer import init_opt_state
 
-    step = build_train_cell(cfg, adamw)
+    step = build_local_train_cell(cfg, adamw)
     dev = model.device
     out = {}
     for key, m in (("cpu", cpu_model), ("device", model)):

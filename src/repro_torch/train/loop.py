@@ -17,7 +17,7 @@ import torch
 
 from .._device import resolve_device
 from ..core.object_store import ObjectStore
-from ..launch.steps import build_train_cell
+from ..launch.steps import build_local_train_cell
 from ..models import model as M
 from ..models.config import ModelConfig
 from .checkpoint import prune_checkpoints, restore_latest, save_checkpoint
@@ -71,7 +71,7 @@ def train(cfg: ModelConfig, store: ObjectStore, tc: TrainConfig, adamw: AdamWCon
             for name, p in params.items():
                 p.copy_(saved[name])
         print(f"[train] resumed '{tc.run_name}' from step {start_step}")
-    step_fn = build_train_cell(cfg, adamw, remat=True, seq_chunk=min(64, tc.seq_len))
+    step_fn = build_local_train_cell(cfg, adamw, remat=True, seq_chunk=min(64, tc.seq_len))
 
     batches = batch_iter or synthetic_lm_batches(cfg, tc, dev)
     # data-pipeline restore: advance the stream to the resume point so a

@@ -43,6 +43,11 @@ def init_opt_state(params: Tensors) -> dict:
             "v": {k: zeros(p) for k, p in params.items()}}
 
 
+def opt_state_shape(params: Tensors) -> dict:
+    """``init_opt_state`` on the meta device: shapes and dtypes, no memory."""
+    return init_opt_state({k: p.to("meta") for k, p in params.items()})
+
+
 def global_norm(tree: Tensors) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in float32."""
     total = sum((g.float() ** 2).sum() for g in tree.values())

@@ -8,10 +8,10 @@ runs every scenario on seeded inputs, and saves what rank ``RANK`` got to
 them): the distributed search over the whole base, GQA and MLA flash
 decode beside the dense decode on the same inputs, both through
 ``decode_step`` for 16 steps on reduced yi-9b and minicpm3-4b, and the
-expert-parallel MoE block beside the dense one, and its refusal to run
-under autograd.
+expert-parallel MoE block beside the dense one, forward and backward.
 """
 
+import contextlib
 import sys
 from datetime import timedelta
 
@@ -106,20 +106,32 @@ def expert_parallel(out: dict) -> None:
                 dense_in_scope = moe_block(cfg, p, x)
         out[f"moe_{name}"] = np.stack([sharded.float().numpy(), dense.float().numpy(),
                                        dense_in_scope.float().numpy()])
-        # Under autograd the block refuses on every rank before its
-        # all_reduce (no rank is left waiting), and the group still works.
-        p.router.requires_grad_(True)
-        try:
-            with act_sharding.policy(None):
-                moe_block(cfg, p, x)
-            refused = ""
-        except NotImplementedError as e:
-            refused = str(e)
-        p.router.requires_grad_(False)
-        out[f"moe_{name}_grad_refused"] = np.array(refused)
-        with torch.no_grad(), act_sharding.policy(None):
-            after = moe_block(cfg, p, x)
-        out[f"moe_{name}_after_refusal"] = np.stack([after.float().numpy(), sharded.float().numpy()])
+        out[f"moe_{name}_grads"] = expert_parallel_grads(cfg, p, x)
+
+
+def expert_parallel_grads(cfg, p, x) -> np.ndarray:
+    """[expert parallel, dense] gradients of one scalar of the block's
+    output with respect to x and every parameter, flattened; the expert
+    weights' gradients summed over the ranks (each rank's covers its own
+    experts), the rest as each rank has them."""
+    w = torch.randn(x.shape, generator=torch.Generator().manual_seed(3))
+    params = dict(p.named_parameters())
+    p.requires_grad_(True)
+    rows = []
+    for ep in (True, False):
+        xg = x.clone().requires_grad_(True)
+        with act_sharding.policy(None) if ep else contextlib.nullcontext():
+            y = moe_block(cfg, p, xg)
+        grads = torch.autograd.grad((y.float() * w).sum(), [xg, *params.values()])
+        flat = []
+        for name, g in zip(["x", *params], grads):
+            g = g.float().contiguous()
+            if ep and name in ("w_gate", "w_up", "w_down"):
+                dist.all_reduce(g)
+            flat.append(g.reshape(-1))
+        rows.append(torch.cat(flat).numpy())
+    p.requires_grad_(False)
+    return np.stack(rows)
 
 
 def main() -> None:

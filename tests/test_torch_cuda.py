@@ -881,7 +881,7 @@ def test_decode_on_card_matches_the_cpu(dev, arch):
 
 @pytest.mark.parametrize("arch", ["yi-9b", "minicpm3-4b", "qwen3-moe-30b-a3b", "mamba2-370m"])
 def test_train_step_on_card_matches_the_cpu(dev, arch):
-    """One ``build_train_cell`` step of a reduced model on the card as on
+    """One ``build_local_train_cell`` step of a reduced model on the card as on
     the CPU (one seeded model moved over, one synthetic batch): the loss
     within ``testing.loss_atol``, the gradient norm within
     ``testing.GRAD_RTOL`` (``testing.compare_train_step``), and the

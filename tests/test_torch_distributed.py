@@ -16,9 +16,10 @@ a ``FileStore`` under the test's ``tmp_path`` (no port to collide under
   minicpm3-4b (bf16): logits within 2e-2 of the dense decode's;
 - the expert-parallel MoE block against the dense one
   (``tests/test_distributed.py:150``; qwen3-moe-30b-a3b and, with shared
-  experts, deepseek-moe-16b): within 2e-2 (the reference's bound); with
-  a parameter that requires grad it raises on every rank, naming the step
-  that will train it, and the group serves on after.
+  experts, deepseek-moe-16b): within 2e-2 (the reference's bound); and it
+  trains: its gradients within ``testing.GRAD_RTOL`` of the dense block's
+  (a backward that summed the replicated gradients over the ranks would
+  give world times them).
 """
 
 import os
@@ -32,7 +33,7 @@ torch = pytest.importorskip("torch")
 
 import repro.core  # noqa: E402,F401  (the reference's import order)
 from repro.distributed.search import distributed_search_host as ref_search  # noqa: E402
-from repro_torch.testing import SCORE_TOL  # noqa: E402
+from repro_torch.testing import GRAD_RTOL, SCORE_TOL  # noqa: E402
 
 HERE = os.path.dirname(__file__)
 SRC = os.path.join(HERE, "..", "src")
@@ -117,10 +118,14 @@ def test_expert_parallel_moe_matches_dense(ranks, name):
 
 
 @pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "deepseek-moe-16b"])
-def test_expert_parallel_moe_refuses_autograd(ranks, name):
-    _world, outs = ranks
+def test_expert_parallel_moe_trains(ranks, name):
+    """The expert-parallel block's gradients (x, router, shared experts as
+    each rank has them; the experts' summed over the ranks) equal the dense
+    block's within ``testing.GRAD_RTOL``: a backward that summed the
+    replicated gradients over the ranks would give world times them."""
+    world, outs = ranks
     for out in outs:
-        refused = str(out[f"moe_{name}_grad_refused"])
-        assert "step 7" in refused and "gradients" in refused, refused
-        after, before = out[f"moe_{name}_after_refusal"]
-        np.testing.assert_array_equal(after, before)
+        got, want = out[f"moe_{name}_grads"]
+        assert np.isfinite(got).all()
+        rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+        assert rel <= GRAD_RTOL, (world, rel)

@@ -206,18 +206,27 @@ def test_registry_cells_and_shapes_match_reference():
         get_arch("no-such-arch")
 
 
-def test_unported_entry_points_raise_naming_their_item():
-    """Every family, cache, decode path and ``lm_loss`` is ported
-    (``tests/test_torch_model_families.py``, ``test_torch_decode.py``,
-    ``test_torch_train.py``); what still waits is the launchers' TPU-mesh
-    lowering, ``--dry-run``, which names ROADMAP Queue 1 item 4, step 7."""
-    from repro_torch.launch import serve, train
+def test_params_shape_and_opt_state_shape_on_meta():
+    """The meta-device analogues of the reference's ``params_shape`` /
+    ``opt_state_shape``: qwen3-32b at its published widths (32.76 B
+    parameters) with no memory; ``init_params`` refuses the meta device."""
+    from repro_torch.train.optimizer import opt_state_shape
 
-    assert not hasattr(PM, "NOT_PORTED")
-    for launcher in (serve, train):
-        with pytest.raises(SystemExit):
-            launcher.main(["--arch", "yi-9b", "--dry-run"])
-    assert "step 7" in serve.DRY_RUN_NOT_PORTED
+    cfg = ARCHS["qwen3-32b"]
+    shape = PM.params_shape(cfg)
+    params = dict(shape.named_parameters())
+    assert all(p.device.type == "meta" for p in params.values())
+    count = sum(p.numel() for p in params.values())
+    assert round(count / 1e9, 2) == 32.76
+    # the analytic count leaves out the qk-norm scales and the final norm
+    assert count - cfg.num_params() == cfg.num_layers * 2 * cfg.head_dim + cfg.d_model
+    opt = opt_state_shape(params)
+    assert opt["step"] == 0
+    for k, p in params.items():
+        assert opt["m"][k].shape == p.shape and opt["m"][k].dtype == torch.float32
+        assert opt["v"][k].device.type == "meta"
+    with pytest.raises(ValueError, match="unsupported device"):
+        PM.init_params(cfg, device="meta")
 
 
 class _CacheTensors:

@@ -6,7 +6,7 @@ are held to the port's own ``prefill`` over the whole decoded sequence (a
 greedy token is the argmax of that prefill's logits at its position,
 except where the top two lie within the decode-vs-prefill bound 0.15 of
 ``test_prefill_decode_parity``).  Without ``--device`` it runs on the card
-and raises when no GPU is visible; ``--dry-run`` names its ROADMAP item.
+and raises when no GPU is visible; ``--dry-run`` runs the cell's dry-run.
 """
 
 import subprocess
@@ -82,10 +82,12 @@ def test_serve_defaults_to_the_card(monkeypatch):
         serve.main(["--arch", "yi-9b", "--local", "--tokens", "2"])
 
 
-def test_serve_dry_run_names_its_roadmap_item(capsys):
-    with pytest.raises(SystemExit) as exc:
-        serve.main(["--arch", "qwen3-32b", "--shape", "decode_32k", "--dry-run"])
-    assert exc.value.code == 2
-    assert "ROADMAP Queue 1 item 4, step 7 (launch)" in capsys.readouterr().err
+def test_serve_dry_run_runs_the_cell(capsys):
+    """``--dry-run`` runs ``launch.dryrun.run_cell`` for the arch, shape and
+    mesh it is given (on the fake 256-rank world, on the CPU)."""
+    res = serve.main(["--arch", "qwen3-32b", "--shape", "decode_32k", "--dry-run"])
+    assert (res["arch"], res["shape"], res["mesh"], res["kind"]) == ("qwen3-32b", "decode_32k", "16x16", "decode")
+    assert res["ok"] and res["cost"]["flops_per_device"] > 0 and res["roofline"]["bound"]
+    assert "qwen3-32b x decode_32k [16x16]" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         serve.main(["--arch", "yi-9b"])

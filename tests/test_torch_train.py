@@ -42,7 +42,7 @@ from repro_torch import testing  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.core.object_store import MemoryObjectStore  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
-from repro_torch.launch.steps import accumulate_grads, build_train_cell  # noqa: E402
+from repro_torch.launch.steps import accumulate_grads, build_local_train_cell  # noqa: E402
 from repro_torch.models import model as PM  # noqa: E402
 from repro_torch.models.convert import params_from_jax, params_to_jax  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
@@ -350,7 +350,7 @@ def test_microbatch_accumulation_matches_full_batch():
     outs = []
     for mb in (1, 2):
         m = copy.deepcopy(model)
-        m, _o, metrics = build_train_cell(cfg, microbatches=mb)(m, init_opt_state(dict(m.named_parameters())),
+        m, _o, metrics = build_local_train_cell(cfg, microbatches=mb)(m, init_opt_state(dict(m.named_parameters())),
                                                                  batch)
         outs.append((m, float(metrics["loss"]), float(metrics["grad_norm"])))
     np.testing.assert_allclose(outs[0][1], outs[1][1], rtol=1e-3)
@@ -358,7 +358,7 @@ def test_microbatch_accumulation_matches_full_batch():
     for a, b in zip(outs[0][0].parameters(), outs[1][0].parameters()):
         np.testing.assert_allclose(a.detach().float().numpy(), b.detach().float().numpy(), rtol=2e-2, atol=2e-3)
     with pytest.raises(ValueError, match="microbatches"):
-        build_train_cell(cfg, microbatches=3)(model, init_opt_state(dict(model.named_parameters())), batch)
+        build_local_train_cell(cfg, microbatches=3)(model, init_opt_state(dict(model.named_parameters())), batch)
 
 
 def test_launch_train_local(tmp_path, capsys):
@@ -370,13 +370,12 @@ def test_launch_train_local(tmp_path, capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_launcher.main(argv)
-    with pytest.raises(SystemExit):
-        train_launcher.main(["--arch", "yi-9b", "--dry-run"])
-    assert "step 7" in capsys.readouterr().err
-    for flag in (["--shape", "train_4k"], ["--multi-pod"]):  # mesh knobs: not accepted, not ignored
-        with pytest.raises(SystemExit):
-            train_launcher.main(argv + ["--device", "cpu"] + flag)
-        assert "unrecognized arguments" in capsys.readouterr().err
+    # --dry-run runs the cell that --shape and --multi-pod name
+    for flags, mesh in (([], "16x16"), (["--multi-pod"], "2x16x16")):
+        res = train_launcher.main(["--arch", "paligemma-3b", "--shape", "decode_32k", "--dry-run"] + flags)
+        assert (res["arch"], res["shape"], res["mesh"], res["kind"]) == ("paligemma-3b", "decode_32k", mesh, "decode")
+        assert res["ok"] and res["memory"]["peak_bytes_per_device"] > 0
+        assert f"paligemma-3b x decode_32k [{mesh}]" in capsys.readouterr().out
 
 
 def test_checkpoint_objects_are_npy_with_the_manifest_last():
