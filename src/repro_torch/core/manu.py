@@ -1500,7 +1500,12 @@ class ManuSystem:
         def pump_loop():
             while not self._stop.is_set():
                 with self._step_lock:
+                    t0 = time.perf_counter()
                     progressed = self.pump(index_nodes=False)
+                    # The round under the lock: what a query node's
+                    # ``serve_wait`` waits behind (``query_node_step_us``
+                    # splits that node's part of it).
+                    self.telemetry.observe("pump_round_us", (time.perf_counter() - t0) * 1e6)
                 self._quiet_rounds = 0 if progressed else self._quiet_rounds + 1
                 self._pump_rounds += 1
                 time.sleep(self.config.pump_sleep_s)

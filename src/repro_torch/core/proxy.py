@@ -23,6 +23,7 @@ re-dispatches the failed units to surviving replicas mid-request.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from collections import OrderedDict
@@ -285,6 +286,9 @@ class Proxy:
                 k=k if k is not None else 10,
                 filter=filter_expr,
             )
+        # The root span covers the whole call: validation, planning, the
+        # dispatches, the global merge and the hydration.
+        trace_ctx = TraceContext("search") if request.trace else None
         pk_field = info.schema.primary()
         if pk_field is not None and pk_field.dtype is FieldType.STRING:
             # Rows hold int64 surrogates of string keys (``IdAllocator.
@@ -314,7 +318,6 @@ class Proxy:
             guarantee = self.resolve_guarantee(request)
         metric = info.metric
         n_fields = len(request.anns)
-        trace_ctx = TraceContext("search") if request.trace else None
         t0 = time.perf_counter()
 
         def dispatch(
@@ -405,16 +408,21 @@ class Proxy:
                 if wait_fn is not None:
                     scope = wait_scopes.get(node_id, None)
                     if scope is None:
-                        wait_fn(node, guarantee)
+                        wait_args = (node, guarantee)
                     elif scope:
                         if wait_scoped is None:
                             wait_scoped = _accepts_channel_scope(wait_fn)
-                        if wait_scoped:
-                            wait_fn(node, guarantee, scope)
-                        else:  # legacy wait_fn: conservative full wait
-                            wait_fn(node, guarantee)
-                    # empty scope: every channel this node serves is already
-                    # covered by a routed pick — zero-wait path, no call
+                        # a legacy wait_fn takes no scope: conservative full wait
+                        wait_args = (node, guarantee, scope) if wait_scoped else (node, guarantee)
+                    else:
+                        # empty scope: every channel this node serves is
+                        # already covered by a routed pick — zero-wait path
+                        wait_args = None
+                    if wait_args is not None and trace_ctx is None:
+                        wait_fn(*wait_args)
+                    elif wait_args is not None:
+                        with trace_ctx.timed(trace_ctx.span("consistency_wait", node_id=node_id)):
+                            wait_fn(*wait_args)
                 try:
                     # A hedge is not hedged again: its unit would bounce
                     # between the replicas for as long as each dispatch
@@ -499,53 +507,52 @@ class Proxy:
         device = next(
             (p[0][0].device for p in partials if p), request.anns[0].queries.device
         )
-        merge_span = None
-        if trace_ctx is not None:
-            merge_span = trace_ctx.span("merge_topk", node_id=self.proxy_id)
-            merge_t0 = trace_ctx.perf_counter()
-        merged: list[tuple[torch.Tensor, torch.Tensor]] = []
-        for f in range(n_fields):
-            if not partials[f]:
-                merged.append(
-                    (
-                        torch.full((nq, kk), fill, dtype=torch.float32, device=device),
-                        torch.full((nq, kk), -1, dtype=torch.int64, device=device),
+        merge_timer = (
+            trace_ctx.timed(trace_ctx.span("merge_topk", node_id=self.proxy_id), device)
+            if trace_ctx is not None else contextlib.nullcontext()
+        )
+        with merge_timer:
+            merged: list[tuple[torch.Tensor, torch.Tensor]] = []
+            for f in range(n_fields):
+                if not partials[f]:
+                    merged.append(
+                        (
+                            torch.full((nq, kk), fill, dtype=torch.float32, device=device),
+                            torch.full((nq, kk), -1, dtype=torch.int64, device=device),
+                        )
                     )
+                    continue
+                out_f = ops.merge_topk(
+                    torch.cat([p[0] for p in partials[f]], 1),
+                    torch.cat([p[1] for p in partials[f]], 1),
+                    kk,
+                    metric=metric_str,
                 )
-                continue
-            out_f = ops.merge_topk(
-                torch.cat([p[0] for p in partials[f]], 1),
-                torch.cat([p[1] for p in partials[f]], 1),
-                kk,
-                metric=metric_str,
-            )
-            # Range search: one post-scan radius cut on the GLOBAL per-field
-            # list, so results are placement-independent ("the in-range
-            # subset of the global top-k"); per-field params override the
-            # request-level bounds.
-            radius = request.anns[f].radius(request.radius)
-            range_filter = request.anns[f].range_filter(request.range_filter)
-            if radius is not None or range_filter is not None:
-                out_f = ops.range_cut(
-                    out_f[0], out_f[1], metric_str, radius, range_filter
+                # Range search: one post-scan radius cut on the GLOBAL per-field
+                # list, so results are placement-independent ("the in-range
+                # subset of the global top-k"); per-field params override the
+                # request-level bounds.
+                radius = request.anns[f].radius(request.radius)
+                range_filter = request.anns[f].range_filter(request.range_filter)
+                if radius is not None or range_filter is not None:
+                    out_f = ops.range_cut(
+                        out_f[0], out_f[1], metric_str, radius, range_filter
+                    )
+                merged.append(out_f)
+            if request.is_hybrid:
+                # Hybrid fusion over the per-field GLOBAL lists (RRF ranks are
+                # only meaningful after the global reduce, hence proxy-side).
+                out_s, out_p = ops.hybrid_fuse(
+                    [m[0] for m in merged],
+                    [m[1] for m in merged],
+                    kk,
+                    metrics=[metric.value] * n_fields,
+                    weights=[a.weight for a in request.anns],
+                    kind=request.ranker.kind,
+                    rrf_k=request.ranker.rrf_k,
                 )
-            merged.append(out_f)
-        if request.is_hybrid:
-            # Hybrid fusion over the per-field GLOBAL lists (RRF ranks are
-            # only meaningful after the global reduce, hence proxy-side).
-            out_s, out_p = ops.hybrid_fuse(
-                [m[0] for m in merged],
-                [m[1] for m in merged],
-                kk,
-                metrics=[metric.value] * n_fields,
-                weights=[a.weight for a in request.anns],
-                kind=request.ranker.kind,
-                rrf_k=request.ranker.rrf_k,
-            )
-        else:
-            out_s, out_p = merged[0]
-        if merge_span is not None:
-            merge_span.duration_us = (trace_ctx.perf_counter() - merge_t0) * 1e6
+            else:
+                out_s, out_p = merged[0]
         fields = None
         if request.output_fields:
             hydrate_span = None
@@ -564,7 +571,7 @@ class Proxy:
                 )
         self.metrics.inc("proxy_searches_total")
         self.metrics.observe("proxy_search_latency_us", waited_ms * 1e3)
-        trace = trace_ctx.finish(waited_ms * 1e3) if trace_ctx is not None else None
+        trace = trace_ctx.finish() if trace_ctx is not None else None
         return SearchResult(
             out_s, out_p, guarantee.query_ts, waited_ms, fields, trace
         )

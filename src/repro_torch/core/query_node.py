@@ -17,6 +17,7 @@ brute tail.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from dataclasses import dataclass, field
@@ -236,13 +237,20 @@ class QueryNode:
 
     def _step(self) -> bool:
         progress = False
+        t0 = time.perf_counter()
         if self.coord_sub is not None:
             progress |= self._drain(self.coord_sub, self._handle_coord)
         # Listed after the coord drain: a subscribe_channel message there
         # is consumed in this same step.
         for sub in list(self.subscriptions.values()):
             progress |= self._drain(sub, self._consume)
+        t1 = time.perf_counter()
         progress |= self._build_slice_indexes()
+        t2 = time.perf_counter()
+        # What a search waiting on the serve lock (its ``serve_wait`` span)
+        # waits for: each phase of the step that holds the lock.
+        self.metrics.observe("query_node_step_us", (t1 - t0) * 1e6, labels={"phase": "drain"})
+        self.metrics.observe("query_node_step_us", (t2 - t1) * 1e6, labels={"phase": "slice_index"})
         return progress
 
     def _drain(self, sub: Subscription, apply) -> bool:
@@ -742,20 +750,25 @@ class QueryNode:
         pool_s: list[torch.Tensor] = []
         pool_p: list[torch.Tensor] = []
 
-        def record_class(cls: str, units, t0: float) -> None:
-            # The row count reads back from the device, so the elapsed time
-            # covers the scan itself, not just its launch.
-            rows = int(torch.stack([u.mask.sum() for u in units]).sum())
-            elapsed_us = (time.perf_counter() - t0) * 1e6
-            self.metrics.observe("query_node_scan_us", elapsed_us, labels={"class": cls})
-            self.metrics.inc("query_node_rows_scanned_total", rows, labels={"class": cls})
-            if trace is not None:
+        @contextlib.contextmanager
+        def scanning(cls: str, units):
+            """Around one class's launches: its ``scan_<cls>`` span (host and
+            device time) when traced, then the rows its masks admit, counted
+            on the device: nothing here waits for the card."""
+            span = None
+            if trace is None:
+                yield
+            else:
                 ctx, parent = trace
                 span = ctx.span(
                     f"scan_{cls}", parent=parent, node_id=self.node_id,
                     segment_ids=sorted({u.segment_id for u in units}),
                 )
-                span.duration_us = elapsed_us
+                with ctx.timed(span, self.device):
+                    yield
+            rows = torch.stack([u.mask.sum() for u in units]).sum()
+            self.metrics.inc_device("query_node_rows_scanned_total", rows, labels={"class": cls})
+            if span is not None:
                 span.rows_scanned = rows
 
         def run_indexed(cls: str, units: list[ScanUnit], k_class: int, post: bool) -> None:
@@ -764,31 +777,29 @@ class QueryNode:
                 groups.setdefault(unit.index.batch_spec(), []).append(unit)
             for group in groups.values():
                 group_cls = "growing_slice" if id(group[0]) in slice_ids else cls
-                t0 = time.perf_counter()
-                s, i, splits = type(group[0].index).search_batched(
-                    [u.index for u in group], queries, k_class, valids=[u.mask for u in group]
+                with scanning(group_cls, group):
+                    s, i, splits = type(group[0].index).search_batched(
+                        [u.index for u in group], queries, k_class, valids=[u.mask for u in group]
+                    )
+                    for j, unit in enumerate(group):
+                        cs, ci = s[:, splits[j] : splits[j + 1]], i[:, splits[j] : splits[j + 1]]
+                        if post:
+                            cs, ci = ops.post_filter_cut(cs, ci, unit.post_mask, metric=metric_str)
+                        pool_s.append(cs)
+                        pool_p.append(_map_pks(ci, unit.pks))
+
+        def run_brute(cls: str, units: list[ScanUnit], k_class: int, post: bool) -> None:
+            with scanning(cls, units):
+                s, i = ops.topk_scan_segmented(
+                    q_brute, [u.vectors for u in units], k_class, metric=metric_str,
+                    valids=[u.mask for u in units],
                 )
-                for j, unit in enumerate(group):
-                    cs, ci = s[:, splits[j] : splits[j + 1]], i[:, splits[j] : splits[j + 1]]
+                for j, unit in enumerate(units):
+                    cs, ci = s[:, j * k_class : (j + 1) * k_class], i[:, j * k_class : (j + 1) * k_class]
                     if post:
                         cs, ci = ops.post_filter_cut(cs, ci, unit.post_mask, metric=metric_str)
                     pool_s.append(cs)
                     pool_p.append(_map_pks(ci, unit.pks))
-                record_class(group_cls, group, t0)
-
-        def run_brute(cls: str, units: list[ScanUnit], k_class: int, post: bool) -> None:
-            t0 = time.perf_counter()
-            s, i = ops.topk_scan_segmented(
-                q_brute, [u.vectors for u in units], k_class, metric=metric_str,
-                valids=[u.mask for u in units],
-            )
-            for j, unit in enumerate(units):
-                cs, ci = s[:, j * k_class : (j + 1) * k_class], i[:, j * k_class : (j + 1) * k_class]
-                if post:
-                    cs, ci = ops.post_filter_cut(cs, ci, unit.post_mask, metric=metric_str)
-                pool_s.append(cs)
-                pool_p.append(_map_pks(ci, unit.pks))
-            record_class(cls, units, t0)
 
         # Sealed indexes and growing-slice temp indexes share the spec
         # grouping: every unit of one index spec runs as one dispatch.
@@ -814,12 +825,11 @@ class QueryNode:
                 k + max(u.k_extra for u in plan.post_brute), post=True,
             )
         if plan.brute_filtered:
-            t0 = time.perf_counter()
-            for unit in plan.brute_filtered:
-                s, i = ops.topk_scan(q_brute, unit.vectors, k, metric=metric_str)
-                pool_s.append(s)
-                pool_p.append(_map_pks(i, unit.pks))
-            record_class("brute_filtered", plan.brute_filtered, t0)
+            with scanning("brute_filtered", plan.brute_filtered):
+                for unit in plan.brute_filtered:
+                    s, i = ops.topk_scan(q_brute, unit.vectors, k, metric=metric_str)
+                    pool_s.append(s)
+                    pool_p.append(_map_pks(i, unit.pks))
         return pool_s, pool_p
 
     def search_request(
@@ -830,8 +840,18 @@ class QueryNode:
         int64; -1 = empty)."""
         if not self.alive:
             raise RuntimeError(f"query node {self.node_id} is down")
-        with self._serve_lock:
+        if request.trace is None:
+            with self._serve_lock:
+                return self._serve(request)
+        # Traced: the wait for the lock (a pump step of this node, or
+        # another dispatch) is the dispatch's first span.
+        ctx, parent = request.trace
+        with ctx.timed(ctx.span("serve_wait", parent=parent, node_id=self.node_id)):
+            self._serve_lock.acquire()
+        try:
             return self._serve(request)
+        finally:
+            self._serve_lock.release()
 
     def _serve(self, request: NodeSearchRequest):
         self.search_count += 1
@@ -858,13 +878,18 @@ class QueryNode:
         metric_str = "l2" if metric is Metric.L2 else "ip"
         ts = request.guarantee.query_ts
         fill = float("inf") if metric is Metric.L2 else float("-inf")
-        doomed = self._request_doomed_pks(request.collection, ts)
+        trace = request.trace
+        if trace is None:
+            doomed = self._request_doomed_pks(request.collection, ts)
+        else:
+            ctx, parent = trace
+            with ctx.timed(ctx.span("doomed_pks", parent=parent, node_id=self.node_id)):
+                doomed = self._request_doomed_pks(request.collection, ts)
         shards = (
             None
             if request.channels is None
             else tuple(sorted({shard_of_channel(c) for c in request.channels}))
         )
-        trace = request.trace
         results: list[tuple[torch.Tensor, torch.Tensor]] = []
         for a in request.anns:
             queries = a.queries.to(self.device).contiguous()
@@ -902,7 +927,7 @@ class QueryNode:
             elif trace is not None:
                 ctx, parent = trace
                 mspan = ctx.span("node_merge_topk", parent=parent, node_id=self.node_id)
-                with ctx.timed(mspan):
+                with ctx.timed(mspan, self.device):
                     out = ops.merge_topk(
                         torch.cat(pool_s, 1), torch.cat(pool_p, 1), request.k, metric=metric_str
                     )

@@ -1,5 +1,7 @@
-"""Zero-dependency observability plane: metrics, traces, events (a copy of
-``repro.core.telemetry``; pure Python and numpy, no device state).
+"""Observability plane: metrics, traces, events (after
+``repro.core.telemetry``, which needs numpy alone; the port adds device
+counters and device-timed spans, read back from the card only when they
+are read).
 
 Three cooperating primitives, all process-local and allocation-light:
 
@@ -7,17 +9,22 @@ Three cooperating primitives, all process-local and allocation-light:
     Counters, gauges, and fixed log-bucket histograms.  Histograms are
     backed by a single numpy count array per series; recording a value
     is two array ops (bucket index + in-place add), and percentile
-    read-out interpolates within the winning bucket.  ``snapshot()``
-    produces plain-Python rows (see ``core.request.MetricsSnapshot``)
-    and ``export()`` renders Prometheus text format.
+    read-out interpolates within the winning bucket.  A counter may also
+    be fed a device tensor (``inc_device``): it stays on the device until
+    the registry is read.  ``snapshot()`` produces plain-Python rows (see
+    ``core.request.MetricsSnapshot``) and ``export()`` renders Prometheus
+    text format.
 
 ``TraceContext`` / ``Span`` / ``RequestTrace``
     Per-request span trees.  A context is allocated at the proxy only
     when ``SearchRequest(trace=True)`` — every hot-path call site guards
     with ``if trace is not None`` so the disabled cost is one branch.
-    Durations use an injectable ``perf_counter``; tracing carries node
-    ids, segment ids, and rows scanned so chaos tests can assert the
-    tree bit-for-bit matches what was executed.
+    Durations use an injectable ``perf_counter``; each span's start is on
+    the Unix-epoch clock that ``torch.profiler`` stamps its host events
+    with, so spans line up with a device trace.  A span timed with a CUDA
+    device also carries the device time between its two ends.  Tracing
+    carries node ids, segment ids, and rows scanned so chaos tests can
+    assert the tree bit-for-bit matches what was executed.
 
 ``EventLog``
     Bounded ring of typed control-plane events (node death, CAS
@@ -29,10 +36,12 @@ Three cooperating primitives, all process-local and allocation-light:
 from __future__ import annotations
 
 import math
+import threading
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 __all__ = [
     "MetricsRegistry",
@@ -135,6 +144,9 @@ class MetricsRegistry:
         self._counters: dict[str, float] = {}
         self._gauges: dict[str, float] = {}
         self._histograms: dict[str, Histogram] = {}
+        # Device counts not read back yet (``inc_device``), by series key.
+        self._pending: dict[str, torch.Tensor] = {}
+        self._pending_lock = threading.Lock()
 
     # -- series key ----------------------------------------------------
     @staticmethod
@@ -148,6 +160,21 @@ class MetricsRegistry:
     def inc(self, name: str, value: float = 1.0, labels: dict | None = None) -> None:
         key = self._key(name, labels)
         self._counters[key] = self._counters.get(key, 0.0) + value
+
+    def inc_device(self, name: str, value: torch.Tensor, labels: dict | None = None) -> None:
+        """Add a count that is still on the device (a 0-d tensor) without
+        reading it back: it joins the counter when the registry is read."""
+        key = self._key(name, labels)
+        with self._pending_lock:
+            prev = self._pending.get(key)
+            self._pending[key] = value if prev is None else prev + value
+
+    def _fold(self) -> None:
+        """Read the pending device counts back into their counters."""
+        with self._pending_lock:
+            pending, self._pending = self._pending, {}
+        for key, value in pending.items():
+            self._counters[key] = self._counters.get(key, 0.0) + float(value)
 
     def set_gauge(self, name: str, value: float, labels: dict | None = None) -> None:
         self._gauges[self._key(name, labels)] = float(value)
@@ -168,6 +195,7 @@ class MetricsRegistry:
 
     # -- read-out ------------------------------------------------------
     def counter_value(self, name: str, labels: dict | None = None) -> float:
+        self._fold()
         return self._counters.get(self._key(name, labels), 0.0)
 
     def gauge_value(self, name: str, labels: dict | None = None) -> float:
@@ -179,6 +207,7 @@ class MetricsRegistry:
         Histogram rows are tuples ``(name, count, mean, p50, p95, p99)``.
         The typed wrapper lives in ``core.request.MetricsSnapshot``.
         """
+        self._fold()
         counters = dict(sorted(self._counters.items()))
         gauges = dict(sorted(self._gauges.items()))
         hists = []
@@ -198,6 +227,7 @@ class MetricsRegistry:
 
     def export(self) -> str:
         """Render all series in Prometheus text exposition format."""
+        self._fold()
         lines: list[str] = []
         seen_meta: set[str] = set()
 
@@ -239,25 +269,68 @@ class MetricsRegistry:
 # --------------------------------------------------------------------------
 
 
-@dataclass
 class Span:
-    """One timed step of a request: a node-side scan, a hedge, a reduce."""
+    """One timed step of a request: a node-side scan, a hedge, a reduce.
 
-    name: str
-    node_id: str | None = None
-    segment_ids: tuple[int, ...] = ()
-    duration_us: float = 0.0
-    rows_scanned: int = 0
-    detail: str = ""
-    children: list["Span"] = field(default_factory=list)
+    ``start_ns`` is on the Unix-epoch clock of ``torch.profiler``'s host
+    events; ``duration_us`` is host time.  ``device_us`` is the time the
+    CUDA stream took from the span's start to its end (None where the span
+    was not timed on a card), and ``rows_scanned`` may be set to a count
+    still on the device: both are read back the first time they are read,
+    never on the request's path."""
+
+    __slots__ = ("name", "node_id", "segment_ids", "duration_us", "detail",
+                 "children", "start_ns", "_rows", "_device")
+
+    def __init__(
+        self,
+        name: str,
+        node_id: str | None = None,
+        segment_ids: tuple[int, ...] = (),
+        duration_us: float = 0.0,
+        rows_scanned: int = 0,
+        detail: str = "",
+        children: "list[Span] | None" = None,
+        start_ns: int = 0,
+    ) -> None:
+        self.name = name
+        self.node_id = node_id
+        self.segment_ids = segment_ids
+        self.duration_us = duration_us
+        self._rows = rows_scanned
+        self.detail = detail
+        self.children = [] if children is None else children
+        self.start_ns = start_ns
+        # (start, end) CUDA events until first read, then microseconds.
+        self._device: "tuple[torch.cuda.Event, torch.cuda.Event] | float | None" = None
+
+    @property
+    def rows_scanned(self) -> int:
+        if not isinstance(self._rows, int):
+            self._rows = int(self._rows)
+        return self._rows
+
+    @rows_scanned.setter
+    def rows_scanned(self, value) -> None:
+        self._rows = value
+
+    @property
+    def device_us(self) -> float | None:
+        if isinstance(self._device, tuple):
+            start, end = self._device
+            end.synchronize()
+            self._device = start.elapsed_time(end) * 1e3
+        return self._device
 
     def to_dict(self) -> dict:
         return {
             "name": self.name,
             "node_id": self.node_id,
             "segment_ids": [int(s) for s in self.segment_ids],
+            "start_ns": int(self.start_ns),
             "duration_us": float(self.duration_us),
-            "rows_scanned": int(self.rows_scanned),
+            "device_us": self.device_us,
+            "rows_scanned": self.rows_scanned,
             "detail": self.detail,
             "children": [c.to_dict() for c in self.children],
         }
@@ -293,7 +366,7 @@ class RequestTrace:
 
         def fmt(span: Span, depth: int) -> None:
             pad = "  " * depth
-            bits = [f"{pad}{span.name}"]
+            bits = [f"{pad}{span.name}", f"+{(span.start_ns - t0) / 1e3:.0f}us"]
             if span.node_id:
                 bits.append(f"node={span.node_id}")
             if span.segment_ids:
@@ -301,12 +374,15 @@ class RequestTrace:
             if span.rows_scanned:
                 bits.append(f"rows={span.rows_scanned}")
             bits.append(f"{span.duration_us:.0f}us")
+            if span.device_us is not None:
+                bits.append(f"device={span.device_us:.0f}us")
             if span.detail:
                 bits.append(span.detail)
             lines.append(" ".join(bits))
             for c in span.children:
                 fmt(c, depth + 1)
 
+        t0 = self.root.start_ns
         fmt(self.root, 0)
         return "\n".join(lines)
 
@@ -316,19 +392,27 @@ class TraceContext:
 
     Hot paths hold ``trace: TraceContext | None`` and guard every use
     with ``if trace is not None`` — no object is allocated when tracing
-    is off.  ``perf_counter`` is injectable for deterministic tests.
+    is off.  ``perf_counter`` is injectable for deterministic tests.  The
+    root span starts when the context is made; spans' starts are the
+    ``perf_counter`` mapped onto ``time.time_ns()``'s clock at that moment,
+    so one request's spans nest exactly.
     """
 
     _next_id = 0
 
-    __slots__ = ("request_id", "kind", "root", "perf_counter")
+    __slots__ = ("request_id", "kind", "root", "perf_counter", "_epoch_ns", "_t0")
 
     def __init__(self, kind: str, perf_counter=time.perf_counter) -> None:
         TraceContext._next_id += 1
         self.request_id = TraceContext._next_id
         self.kind = kind
-        self.root = Span(name=kind)
         self.perf_counter = perf_counter
+        self._t0 = perf_counter()
+        self._epoch_ns = time.time_ns() - round(self._t0 * 1e9)
+        self.root = Span(name=kind, start_ns=self._ns(self._t0))
+
+    def _ns(self, t: float) -> int:
+        return self._epoch_ns + round(t * 1e9)
 
     def span(
         self,
@@ -343,32 +427,51 @@ class TraceContext:
             node_id=node_id,
             segment_ids=tuple(int(x) for x in segment_ids),
             detail=detail,
+            start_ns=self._ns(self.perf_counter()),
         )
         (parent if parent is not None else self.root).children.append(s)
         return s
 
-    def timed(self, span: Span):
-        """Context manager stamping ``duration_us`` on exit."""
-        return _SpanTimer(span, self.perf_counter)
+    def timed(self, span: Span, device: torch.device | None = None):
+        """Context manager stamping ``start_ns`` on entry and
+        ``duration_us`` on exit; with a CUDA ``device``, also CUDA events
+        on its current stream at both ends, for ``device_us``."""
+        cuda = device is not None and device.type == "cuda"
+        return _SpanTimer(self, span, device if cuda else None)
 
-    def finish(self, duration_us: float) -> RequestTrace:
+    def finish(self, duration_us: float | None = None) -> RequestTrace:
+        """The finished tree; the root lasts ``duration_us``, by default
+        from the context's making until now.  Reads nothing back from a
+        device."""
+        if duration_us is None:
+            duration_us = (self.perf_counter() - self._t0) * 1e6
         self.root.duration_us = duration_us
         return RequestTrace(request_id=self.request_id, kind=self.kind, root=self.root)
 
 
 class _SpanTimer:
-    __slots__ = ("span", "perf_counter", "t0")
+    __slots__ = ("ctx", "span", "device", "t0", "events")
 
-    def __init__(self, span: Span, perf_counter) -> None:
+    def __init__(self, ctx: TraceContext, span: Span, device) -> None:
+        self.ctx = ctx
         self.span = span
-        self.perf_counter = perf_counter
+        self.device = device
 
     def __enter__(self) -> Span:
-        self.t0 = self.perf_counter()
+        self.t0 = self.ctx.perf_counter()
+        self.span.start_ns = self.ctx._ns(self.t0)
+        if self.device is not None:
+            stream = torch.cuda.current_stream(self.device)
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.events[0].record(stream)
         return self.span
 
     def __exit__(self, *exc) -> None:
-        self.span.duration_us = (self.perf_counter() - self.t0) * 1e6
+        if self.device is not None:
+            self.events[1].record(torch.cuda.current_stream(self.device))
+            self.span._device = self.events
+        self.span.duration_us = (self.ctx.perf_counter() - self.t0) * 1e6
 
 
 # --------------------------------------------------------------------------

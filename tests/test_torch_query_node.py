@@ -341,5 +341,9 @@ def test_traced_request_spans_match_reference(clusters):
             trace=(ctx, ctx.root),
         ))
         names[name] = [(s.name, s.segment_ids, s.rows_scanned) for s in ctx.root.children]
-    assert names["port"] == names["ref"]
+    # The port's own spans, which the reference has not: the wait for the
+    # node's serve lock and the tombstone set's materialization, first.
+    port_only = ("serve_wait", "doomed_pks")
+    assert [n for n, _, _ in names["port"][:2]] == list(port_only)
+    assert [s for s in names["port"] if s[0] not in port_only] == names["ref"]
     assert [n for n, _, _ in names["port"]][-1] == "node_merge_topk"
