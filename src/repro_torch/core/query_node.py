@@ -35,7 +35,7 @@ from .consistency import GuaranteeTs
 from .log import EntryType, LogBroker, LogEntry, Subscription, shard_of_channel
 from .object_store import ObjectStore
 from .request import PRIMARY_VECTOR_COLUMN, AnnsQuery, NodeSearchRequest
-from .segment import DEFAULT_PARTITION, Segment, add_tombstone, flatten_tombstones
+from .segment import DEFAULT_PARTITION, Segment, TombstoneSet, add_tombstone
 from .telemetry import MetricsRegistry
 
 TEMP_INDEX_SLICE_ROWS = 2_048
@@ -183,9 +183,9 @@ class QueryNode:
         self.growing: dict[tuple[str, int], Segment] = {}
         # coll -> pk -> delete ts (or a sorted ts list); see the reference.
         self.delta_deletes: dict[str, dict[object, object]] = {}
-        # coll -> flattened (pks, dts) device tensors of delta_deletes,
+        # coll -> delta_deletes flattened with its effective sets cached;
         # rebuilt after the next delete.
-        self._delta_flat: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}
+        self._delta_sets: dict[str, TombstoneSet] = {}
         self.dropped_partitions: set[tuple[str, str]] = set()
         # tombstones_folded broadcasts awaiting the retention horizon
         self._pending_prunes: list[dict] = []
@@ -367,7 +367,7 @@ class QueryNode:
         dd = self.delta_deletes.setdefault(collection, {})
         for pk in np.atleast_1d(np.asarray(pks)).tolist():
             add_tombstone(dd, pk, ts)
-        self._delta_flat.pop(collection, None)
+        self._delta_sets.pop(collection, None)
         for (c, _sid), seg in self.growing.items():
             if c == collection:
                 seg.delete(pks, ts)
@@ -497,7 +497,7 @@ class QueryNode:
             )
             if pruned is not None:
                 self.delta_deletes[coll] = pruned
-                self._delta_flat.pop(coll, None)
+                self._delta_sets.pop(coll, None)
                 changed = True
         self._pending_prunes = still_pending
         return changed
@@ -536,20 +536,25 @@ class QueryNode:
     # --------------------------------------------------------------- search
     def _request_doomed_pks(self, collection: str, ts: int):
         """The delta-delete set at ``ts`` as (sorted pks, effective delete
-        ts) device tensors, materialized once per request (or None)."""
+        ts) device tensors (or None), looked up once per request, and
+        whether its cache held it ("hit"), built it ("miss", the one lookup
+        that waits for the card) or found no tombstone at ``ts`` ("none")."""
         dd = self.delta_deletes.get(collection)
         if not dd:
-            return None
-        flat = self._delta_flat.get(collection)
-        if flat is None:
-            flat = self._delta_flat[collection] = flatten_tombstones(dd, self.device)
-        return ops.eff_tombstones(flat[0], flat[1], ts)
+            eff, outcome = None, "none"
+        else:
+            tombstones = self._delta_sets.get(collection)
+            if tombstones is None:
+                tombstones = self._delta_sets[collection] = TombstoneSet(dd, self.device)
+            eff, outcome = tombstones.effective(ts)
+        self.metrics.inc("query_node_tombstone_set_total", labels={"outcome": outcome})
+        return eff, outcome
 
     _DOOMED_UNSET = object()
 
     def _visible(self, collection: str, seg: Segment, ts: int, doomed=_DOOMED_UNSET):
         if doomed is QueryNode._DOOMED_UNSET:
-            doomed = self._request_doomed_pks(collection, ts)
+            doomed, _outcome = self._request_doomed_pks(collection, ts)
         mask = seg.visible_mask(ts)
         if doomed is not None:
             mask &= ~ops.tombstone_mask(seg.pks(), seg.timestamps(), doomed[0], doomed[1])
@@ -576,10 +581,16 @@ class QueryNode:
         k: int = 10,
     ) -> SearchPlan:
         """Gather every candidate unit for a request pinned at ``ts`` and
-        group it by execution class (see the reference for each knob)."""
+        group it by execution class (see the reference for each knob).
+
+        Without a filter nothing here waits for the card: a unit is left out
+        only on what the host knows (no rows, every row written after
+        ``ts``, a tail the slice indexes cover), and a unit whose mask is
+        empty on the card is scanned and adds only empty slots.  Filtered
+        units read their masks back: the filtered planner needs the counts."""
         plan = SearchPlan()
         if doomed is QueryNode._DOOMED_UNSET:
-            doomed = self._request_doomed_pks(collection, ts)
+            doomed, _outcome = self._request_doomed_pks(collection, ts)
         prune = set(partitions) if partitions is not None else None
         scope = set(segments) if segments is not None else None
         unit_cols = metric is Metric.COSINE
@@ -589,6 +600,14 @@ class QueryNode:
             if raw is None:
                 return None
             return seg.unit_column(column) if unit_cols else raw
+
+        def unit_mask(sid: int, seg: Segment) -> "tuple[torch.Tensor, bool]":
+            """A unit's visibility mask at ``ts``, narrowed by its filter
+            mask, and whether a filter applies to it."""
+            mask = self._visible(collection, seg, ts, doomed)
+            if filter_masks and sid in filter_masks:
+                return mask & self._as_mask(filter_masks[sid]), True
+            return mask, filter is not None
 
         served: set[int] = set()
         for (coll, sid), handle in self.sealed.items():
@@ -604,12 +623,10 @@ class QueryNode:
             seg = handle.segment
             if prune is not None and seg.partition not in prune:
                 continue
-            if seg.num_rows == 0:
+            if seg.num_rows == 0 or seg.min_ts() > ts:
                 continue
-            mask = self._visible(collection, seg, ts, doomed)
-            if filter_masks and sid in filter_masks:
-                mask = mask & self._as_mask(filter_masks[sid])
-            if not bool(mask.any()):
+            mask, filtered = unit_mask(sid, seg)
+            if filtered and not bool(mask.any()):
                 continue
             index = handle.index_for(column)
             if filter is not None:
@@ -639,11 +656,9 @@ class QueryNode:
                 continue
             if prune is not None and seg.partition not in prune:
                 continue
-            if seg.num_rows == 0:
+            if seg.num_rows == 0 or seg.min_ts() > ts:
                 continue
-            mask = self._visible(collection, seg, ts, doomed)
-            if filter_masks and sid in filter_masks:
-                mask = mask & self._as_mask(filter_masks[sid])
+            mask, filtered = unit_mask(sid, seg)
             if filter is not None:
                 fmask = self._as_mask(filter.evaluate(_scalar_columns(seg), seg.num_rows))
                 n_vis = int(mask.sum())
@@ -659,6 +674,7 @@ class QueryNode:
                 continue
             pks = seg.pks()
             covered = torch.zeros(seg.num_rows, dtype=torch.bool, device=self.device)
+            n_covered = 0
             if column == PRIMARY_VECTOR_COLUMN:
                 for s_idx, temp in seg.slice_indexes.items():
                     if metric is not None and temp.metric is not metric:
@@ -667,15 +683,17 @@ class QueryNode:
                         continue
                     lo, hi = seg.slice_bounds(s_idx)
                     covered[lo:hi] = True
-                    # A slice with no visible row adds only empty slots, so
-                    # it is planned without reading its mask back.
+                    n_covered += hi - lo
                     plan.growing_slice.append(
                         ScanUnit(sid, pks[lo:hi], mask[lo:hi], index=temp)
                     )
             # tail = rows not covered by any temp index yet
+            if n_covered == seg.num_rows:
+                continue
             tail_mask = mask & ~covered
-            if bool(tail_mask.any()):
-                plan.brute_tail.append(ScanUnit(sid, pks, tail_mask, vectors=vectors))
+            if filtered and not bool(tail_mask.any()):
+                continue
+            plan.brute_tail.append(ScanUnit(sid, pks, tail_mask, vectors=vectors))
         return plan
 
     def _plan_filtered_unit(
@@ -880,11 +898,12 @@ class QueryNode:
         fill = float("inf") if metric is Metric.L2 else float("-inf")
         trace = request.trace
         if trace is None:
-            doomed = self._request_doomed_pks(request.collection, ts)
+            doomed, _outcome = self._request_doomed_pks(request.collection, ts)
         else:
             ctx, parent = trace
-            with ctx.timed(ctx.span("doomed_pks", parent=parent, node_id=self.node_id)):
-                doomed = self._request_doomed_pks(request.collection, ts)
+            dspan = ctx.span("doomed_pks", parent=parent, node_id=self.node_id)
+            with ctx.timed(dspan):
+                doomed, dspan.detail = self._request_doomed_pks(request.collection, ts)
         shards = (
             None
             if request.channels is None
@@ -963,7 +982,7 @@ class QueryNode:
         want = torch.from_numpy(want[want >= 0].astype(np.int64)).to(self.device)
         out: dict[str, list] = {c: [] for c in columns}
         if want.numel():
-            doomed = self._request_doomed_pks(collection, ts)
+            doomed, _outcome = self._request_doomed_pks(collection, ts)
             sources = [
                 h.segment for (c, _sid), h in self.sealed.items()
                 if c == collection and h.covers_ts(ts)

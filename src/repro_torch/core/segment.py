@@ -66,6 +66,44 @@ def flatten_tombstones(dd: dict, device) -> "tuple[torch.Tensor, torch.Tensor]":
     )
 
 
+class TombstoneSet:
+    """A tombstone map flattened once, and its effective set at the last
+    query timestamp, cached.
+
+    ``pks`` / ``dts`` are the flattened pairs on the device (what
+    ``ops.eff_tombstones`` takes).  A host copy of the delete timestamps,
+    sorted, tells how many tombstones apply at a query ts (``dts <= ts``)
+    without the card, and that count fixes the effective set exactly: two
+    timestamps that admit the same count admit the same pairs.  So a lookup
+    reads nothing back unless its count differs from the last lookup's, and
+    then reduces the pairs with ``ops.eff_tombstones`` once.  The map must
+    not change under the set: its owner drops the set when it does."""
+
+    def __init__(self, dd: dict, device):
+        pks, dts = flatten_tombstones(dd, "cpu")
+        self._sorted_dts = np.sort(dts.numpy())
+        self.pks, self.dts = pks.to(device), dts.to(device)
+        # (count, effective set) of the last lookup that found tombstones;
+        # replaced whole, so concurrent lookups need no lock.
+        self._last: tuple[int, tuple[torch.Tensor, torch.Tensor]] | None = None
+
+    def effective(self, ts: int):
+        """``(sorted unique pks, effective delete ts)`` at ``ts`` as device
+        tensors, or None when no tombstone applies, with the lookup's
+        outcome: "none", "hit" or "miss"."""
+        count = int(np.searchsorted(self._sorted_dts, ts, side="right"))
+        if count == 0:
+            return None, "none"
+        last = self._last
+        if last is not None and last[0] == count:
+            return last[1], "hit"
+        from ..kernels import ops
+
+        eff = ops.eff_tombstones(self.pks, self.dts, ts)
+        self._last = (count, eff)
+        return eff, "miss"
+
+
 def _int_pks(pks) -> np.ndarray:
     arr = np.asarray(pks)
     if arr.size and arr.dtype.kind not in "iu":
@@ -117,6 +155,8 @@ class Segment:
         self._timestamps: list[torch.Tensor] = []
         self._extras: dict[str, list[np.ndarray]] = {f: [] for f in self.extra_fields}
         self._num_rows = 0
+        # Smallest and largest row ts, kept on the host as rows arrive.
+        self._ts_range: tuple[int, int] = (0, 0)
         # Materialized columns and cached unit / device-extra columns;
         # invalidated on append.
         self._mat: dict[str, Any] | None = None
@@ -124,7 +164,7 @@ class Segment:
         self._dev_extra: dict[str, torch.Tensor] = {}
         # Tombstones: pk -> delete ts (or a sorted list of them).
         self._deleted: dict[Any, Any] = {}
-        self._del_flat: tuple[torch.Tensor, torch.Tensor] | None = None
+        self._del_set: TombstoneSet | None = None
         self._lock = threading.RLock()
         self.checkpoint_pos: int = 0
         # Temporary indexes over full slices of a growing segment (built by
@@ -157,6 +197,11 @@ class Segment:
                 if src is None:
                     raise ValueError(f"missing extra field '{name}'")
                 self._extras[name].append(np.asarray(src))
+            if n:
+                lo, hi = int(ts.min()), int(ts.max())
+                if self._num_rows:
+                    lo, hi = min(lo, self._ts_range[0]), max(hi, self._ts_range[1])
+                self._ts_range = (lo, hi)
             self._num_rows += n
             self._mat = None
             self._unit.clear()
@@ -176,7 +221,7 @@ class Segment:
             hit = want[ops.isin_sorted(want, have)].tolist()
             hits = sum(1 for pk in hit if add_tombstone(self._deleted, pk, ts))
             if hits:
-                self._del_flat = None
+                self._del_set = None
             return hits
 
     def seal(self) -> None:
@@ -248,13 +293,13 @@ class Segment:
                 self._unit[name] = cached
             return cached
 
-    def _tombstones_flat(self):
+    def _tombstone_set(self) -> TombstoneSet | None:
         with self._lock:
             if not self._deleted:
                 return None
-            if self._del_flat is None:
-                self._del_flat = flatten_tombstones(self._deleted, self.device)
-            return self._del_flat
+            if self._del_set is None:
+                self._del_set = TombstoneSet(self._deleted, self.device)
+            return self._del_set
 
     def visible_mask(self, ts: int) -> torch.Tensor:
         """MVCC visibility at query timestamp ``ts`` as a device bool mask:
@@ -264,9 +309,9 @@ class Segment:
 
         cols = self._materialize()
         mask = cols["ts"] <= ts
-        flat = self._tombstones_flat()
-        if flat is not None:
-            eff = ops.eff_tombstones(flat[0], flat[1], ts)
+        tombstones = self._tombstone_set()
+        if tombstones is not None:
+            eff, _outcome = tombstones.effective(ts)
             if eff is not None:
                 mask &= ~ops.tombstone_mask(cols["pk"], cols["ts"], eff[0], eff[1])
         return mask
@@ -288,12 +333,10 @@ class Segment:
         return len(self._deleted) / max(1, self.num_rows)
 
     def min_ts(self) -> int:
-        ts = self.timestamps()
-        return int(ts.min()) if len(ts) else 0
+        return self._ts_range[0]
 
     def max_ts(self) -> int:
-        ts = self.timestamps()
-        return int(ts.max()) if len(ts) else 0
+        return self._ts_range[1]
 
     # -------------------------------------------------------------- slices
     def full_slices(self) -> list[int]:
@@ -315,9 +358,11 @@ class Segment:
         The object store's per-column layout is ``binlog.py``'s."""
         cols = {k: (v.cpu().numpy() if torch.is_tensor(v) else v)
                 for k, v in self._materialize().items()}
-        flat = self._tombstones_flat()
-        if flat is not None:
-            cols["__deleted_pks"], cols["__deleted_ts"] = (t.cpu().numpy() for t in flat)
+        tombstones = self._tombstone_set()
+        if tombstones is not None:
+            cols["__deleted_pks"], cols["__deleted_ts"] = (
+                t.cpu().numpy() for t in (tombstones.pks, tombstones.dts)
+            )
         else:
             cols["__deleted_pks"] = np.empty(0, cols["pk"].dtype)
             cols["__deleted_ts"] = np.empty(0, np.int64)
