@@ -1,9 +1,10 @@
 """The embedder's whole step against the card's peak: model FLOPs of the
-tokens embedded in the window (from the shapes, ``yardstick.
-decoder_flops_per_token``) over the seconds from the window's start to the
-last micro-batch's end inside it, times the dense bf16 peak, in percent."""
+tokens embedded in the window (from the shapes, the ``flops_per_token`` of
+the reference module the configuration names) over the seconds from the
+window's start to the last micro-batch's end inside it, times the dense
+bf16 peak, in percent."""
 
-from bench.lib import yardstick
+from bench.lib import spec, yardstick
 
 
 def read(rec: dict) -> float | None:
@@ -12,7 +13,8 @@ def read(rec: dict) -> float | None:
     if not done or rec["device"] is None:
         return None
     seq = rec["traffic"]["ingest"]["doc_tokens"]
-    per_token = yardstick.decoder_flops_per_token(rec["config"]["model"], seq)
+    config = rec["config"]
+    per_token = spec.reference(config["reference"]).flops_per_token(config["model"], seq)
     tokens = sum(e["tokens"] for e in done)
     last = max(e["t1"] for e in done)
     return 100.0 * tokens * per_token / ((last - rec["t0"]) * yardstick.PEAK_BF16_FLOPS)

@@ -16,7 +16,8 @@ under its limit and no call failed.
   the request was bound to see k rows.
 - ``embed_gap`` (sampled documents): the largest L2 distance between an
   embedding the program made in the window and the plain float32
-  reference's embedding of the same document.
+  reference's embedding of the same document (the reference module the
+  configuration names).
 - ``readback_bad``: of a sample of the rows acknowledged in the window, the
   ones a STRONG top-1 search by their own vector does not answer with
   their own pk and, hydrated, exactly the vector that was inserted.
@@ -31,9 +32,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bench.reference import decoder, exact_search
+from bench.reference import exact_search
 
-from . import inputs
+from . import inputs, spec
 
 
 def _sample(n: int, want: int, seed: int, name: str, always=()) -> list[int]:
@@ -125,7 +126,8 @@ def embeddings(rec, config: dict, seed: int, want: int, device, control: bool = 
     picks = _sample(len(docs), want, seed, "embed", (len(docs) - 1,))
     got = torch.cat(rec.embeddings)[torch.tensor(picks, device=rec.embeddings[0].device)].float()
     tokens = torch.as_tensor(docs[picks])
-    ref = decoder.embed(tokens, config["model"], seed, device)
+    reference = spec.reference(config["reference"])
+    ref = reference.embed(tokens, config["model"], seed, device)
     if control:
-        got = decoder.embed(tokens, config["model"], seed, device, precision="fp8")
+        got = reference.embed(tokens, config["model"], seed, device, precision="fp8")
     return {"embed_gap": float(torch.linalg.vector_norm(got.to(ref.device) - ref, dim=1).max())}

@@ -69,52 +69,50 @@ def synth_docs(rng: np.random.Generator, n: int, seq_len: int, vocab: int, n_top
     return rng.integers(lo[:, None], hi[:, None], (n, seq_len))
 
 
-# --------------------------------------------------------- decoder weights
-def layer_shapes(model: dict) -> list[tuple[str, tuple[int, ...], float]]:
-    """(name, shape, scale) of one dense decoder layer's matrices, in the
-    order they are drawn: normal draws times 1/sqrt(fan-in), the port's and
-    the reference's initial distribution."""
-    d = model["hidden_size"]
-    hd = model.get("head_dim") or d // model["num_attention_heads"]
-    q, kv, f = model["num_attention_heads"] * hd, model["num_key_value_heads"] * hd, model["intermediate_size"]
-    return [
-        ("attn.w_q", (d, q), 1 / math.sqrt(d)),
-        ("attn.w_k", (d, kv), 1 / math.sqrt(d)),
-        ("attn.w_v", (d, kv), 1 / math.sqrt(d)),
-        ("attn.w_o", (q, d), 1 / math.sqrt(q)),
-        ("mlp.w_gate", (d, f), 1 / math.sqrt(d)),
-        ("mlp.w_up", (d, f), 1 / math.sqrt(d)),
-        ("mlp.w_down", (f, d), 1 / math.sqrt(f)),
-    ]
-
-
-def norm_scales(model: dict, n: int, device, seed: int, *stream, dtype=torch.bfloat16) -> torch.Tensor:
-    """``n`` RMSNorm scales [n, d]: 1 + 0.1 times a normal draw, so a
-    program that skips or misplaces a norm's weight reads apart from the
-    reference."""
-    gen = generator(device, seed, "norms", *stream)
-    return torch.randn((n, model["hidden_size"]), generator=gen, device=device, dtype=dtype).mul_(0.1).add_(1.0)
-
-
-def layer_weights(model: dict, layer: int, device, seed: int, dtype=torch.bfloat16) -> dict:
-    """Layer ``layer``'s matrices, drawn in one call into one buffer of
-    ``dtype`` (bf16, the type they are served in) and scaled in place, and
-    its two RMSNorm scales (``norm_scales``)."""
-    shapes = layer_shapes(model)
-    flat = torch.randn(sum(math.prod(s) for _n, s, _c in shapes), generator=generator(
-        device, seed, "layer", layer), device=device, dtype=dtype)
-    out, lo = {}, 0
-    for name, shape, scale in shapes:
-        n = math.prod(shape)
-        out[name] = flat[lo:lo + n].view(shape).mul_(scale)
-        lo += n
-    out["ln_attn"], out["ln_mlp"] = norm_scales(model, 2, device, seed, layer, dtype=dtype)
+# ----------------------------------------------------------- model weights
+def layer_weights(parameters, layer: int, device, seed: int, dtype=torch.bfloat16) -> dict:
+    """Layer ``layer``'s parameters as a reference's ``layer_parameters``
+    lists them, ``(name, shape, init)``, in ``dtype`` (bf16, the type they
+    are served in).  Those whose ``init`` is a scale are drawn in list
+    order into one buffer from the stream ``("layer", layer)`` and scaled in
+    place (normal draws times the scale: 1/sqrt(fan-in), the port's and the
+    references' initial distribution); those whose ``init`` is ``"norm"``
+    are drawn in list order into one buffer from ``("norms", layer)`` as
+    1 + 0.1 times a normal draw, so a program that skips or misplaces a
+    norm's weight reads apart from the reference."""
+    out = {}
+    for stream, norm in (("layer", False), ("norms", True)):
+        picked = [(n, s, i) for n, s, i in parameters if (i == "norm") == norm]
+        if not picked:
+            continue
+        flat = torch.randn(sum(math.prod(s) for _n, s, _i in picked), generator=generator(
+            device, seed, stream, layer), device=device, dtype=dtype)
+        lo = 0
+        for name, shape, init in picked:
+            n = math.prod(shape)
+            w = flat[lo:lo + n].view(shape)
+            out[name] = w.mul_(0.1).add_(1.0) if norm else w.mul_(init)
+            lo += n
     return out
 
 
+def model_weights(model: dict, layer_parameters, num_layers: int, device, seed: int) -> dict:
+    """Every parameter of an embedder by the port's state-dict names: the
+    token embedding (``embed``), ``layers.<i>.<name>`` for each of
+    ``num_layers`` layers as ``layer_parameters(model, i)`` lists them
+    (``layer_weights``), and the final norm (``ln_final``)."""
+    state = {"embed": embedding_table(model, device, seed), "ln_final": final_norm(model, device, seed)}
+    for layer in range(num_layers):
+        for name, w in layer_weights(layer_parameters(model, layer), layer, device, seed).items():
+            state[f"layers.{layer}.{name}"] = w
+    return state
+
+
 def final_norm(model: dict, device, seed: int, dtype=torch.bfloat16) -> torch.Tensor:
-    """The final RMSNorm's scale [d] (``norm_scales``)."""
-    return norm_scales(model, 1, device, seed, "final", dtype=dtype)[0]
+    """The final RMSNorm's scale [d]: 1 + 0.1 times a normal draw from the
+    stream ``("norms", "final")``."""
+    gen = generator(device, seed, "norms", "final")
+    return torch.randn(model["hidden_size"], generator=gen, device=device, dtype=dtype).mul_(0.1).add_(1.0)
 
 
 def embedding_table(model: dict, device, seed: int, dtype=torch.bfloat16) -> torch.Tensor:

@@ -9,14 +9,18 @@ by that name alone:
 - a metric: ``bench/layer_metrics/<metric>.py`` (per-layer) or
   ``bench/end_to_end/<metric>.py``, whose ``read(rec)`` returns the
   metric's value from the run's records, or None where the run has
-  nothing for it to read.
+  nothing for it to read;
+- an embedder configuration's plain reference: the module
+  ``bench/reference/<reference>.py`` its ``reference`` key names.
 
-A later change adds a cell, a mix or a metric as new files and new entries;
+A later change adds a cell, a mix, a metric, a configuration or the
+reference of another architecture as new files and new entries;
 no file here needs an edit for it.  An unknown name raises ``KeyError``.
 """
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 import re
@@ -99,3 +103,14 @@ def metric_reader(name: str, kind: str = "per_layer", root: Path = ROOT):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module.read
+
+
+def reference(name: str):
+    """The plain reference module ``bench/reference/<name>.py``: for an
+    embedder, its ``layer_parameters(model, layer)``, ``embed(tokens, model,
+    seed, device, precision, block)`` and ``flops_per_token(model,
+    seq_len)``."""
+    path = BENCH_DIR / "reference" / f"{_checked(name)}.py"
+    if not path.is_file():
+        raise KeyError(f"unknown reference {name!r}: no {path.relative_to(ROOT)}")
+    return importlib.import_module(f"bench.reference.{name}")

@@ -8,9 +8,10 @@ drives:
 - ``"kind": "vectors"``: a threaded ``ManuSystem`` holding one collection
   of ``rows`` mixture vectors inserted through ``ManuCollection.insert``
   and flushed, with ``delete_fraction`` of the pks deleted after the flush;
-- ``"kind": "embedder"``: a dense decoder (the configuration's ``model``,
-  weights drawn by the benchmark) as the port's ``Embedder``, feeding an
-  empty collection of a threaded ``ManuSystem``.
+- ``"kind": "embedder"``: the port's model of the configuration's
+  ``port_model`` (``ModelConfig``'s keyword arguments), with the weights
+  its ``reference`` module lists drawn by the benchmark, as the port's
+  ``Embedder``, feeding an empty collection of a threaded ``ManuSystem``.
 
 Each set-up step's seconds go into ``phases``.
 """
@@ -23,7 +24,7 @@ import time
 import numpy as np
 import torch
 
-from . import inputs
+from . import inputs, spec
 from .spec import ROOT
 
 COLLECTION = "bench"
@@ -39,6 +40,32 @@ def import_port():
     )
     return dict(ConsistencyLevel=ConsistencyLevel, InsertRequest=InsertRequest, ManuConfig=ManuConfig,
                 ManuSystem=ManuSystem, Metric=Metric, SearchRequest=SearchRequest)
+
+
+def model_config(name: str, port_model: dict):
+    """The port's ``ModelConfig(name=name, **port_model)``, a JSON list read
+    as the tuple it stands for (``layer_pattern``)."""
+    from repro_torch.models.config import ModelConfig  # noqa: PLC0415
+
+    return ModelConfig(name=name, **{k: tuple(v) if isinstance(v, list) else v for k, v in port_model.items()})
+
+
+def load_weights(model: torch.nn.Module, state: dict) -> None:
+    """Load the drawn ``state`` into the port's ``model`` (built on the meta
+    device) strictly: every parameter but the LM head drawn (an embedder
+    stops at the final norm), nothing the model lacks, every shape the
+    model's; each tensor cast to the dtype of the model's parameter of that
+    name.  Raises ``ValueError`` naming the parameters that do not fit."""
+    want = model.state_dict(keep_vars=True)
+    faults = [f"{what} {names}" for what, names in (
+        ("missing", sorted(set(want) - set(state) - {"lm_head"})),
+        ("not in the port's model", sorted(set(state) - set(want))),
+        ("of another shape", [f"{n} {tuple(t.shape)} (port {tuple(want[n].shape)})" for n, t in state.items()
+                              if n in want and t.shape != want[n].shape]),
+    ) if names]
+    if faults:
+        raise ValueError("the drawn weights do not fit the port's model: " + "; ".join(faults))
+    model.load_state_dict({n: t.to(want[n].dtype) for n, t in state.items()}, strict=False, assign=True)
 
 
 class Deployment:
@@ -134,31 +161,22 @@ class Deployment:
             time.sleep(0.01)
 
     def load_embedder(self, max_batch: int) -> None:
-        """The configuration's decoder with the benchmark's weights, as the
-        port's ``Embedder``."""
+        """The configuration's model as the port's ``Embedder``: the port's
+        ``ModelConfig`` of its ``port_model``, with the weights its
+        ``reference`` module lists drawn by the benchmark."""
         from repro_torch.models import model as M  # noqa: PLC0415
-        from repro_torch.models.config import ModelConfig  # noqa: PLC0415
         from repro_torch.models.embedder import Embedder  # noqa: PLC0415
 
-        m = self.config["model"]
+        c = self.config
+        for key in ("reference", "port_model"):
+            if key not in c:
+                raise KeyError(f"embedder configuration {c['name']!r} has no {key!r} key")
+        ref = spec.reference(c["reference"])
         t = time.perf_counter()
-        cfg = ModelConfig(
-            name=self.config["name"], family="dense", num_layers=m["num_hidden_layers"],
-            d_model=m["hidden_size"], num_heads=m["num_attention_heads"],
-            num_kv_heads=m["num_key_value_heads"], head_dim=m["head_dim"], d_ff=m["intermediate_size"],
-            vocab_size=m["vocab_size"], rope_theta=m["rope_theta"], norm_eps=m["rms_norm_eps"],
-        )
-        state = {"embed": inputs.embedding_table(m, self.device, self.seed),
-                 "ln_final": inputs.final_norm(m, self.device, self.seed)}
-        for layer in range(m["num_hidden_layers"]):
-            for name, w in inputs.layer_weights(m, layer, self.device, self.seed).items():
-                state[f"layers.{layer}.{name}"] = w
+        cfg = model_config(c["name"], c["port_model"])
         model = M.params_shape(cfg)
-        missing, unexpected = model.load_state_dict(state, strict=False, assign=True)
-        # An embedder stops at the final norm: the LM head is never read.
-        if missing != ["lm_head"] or unexpected:
-            raise AssertionError(f"weights do not fit the port's model: missing {missing}, "
-                                 f"unexpected {unexpected}")
+        load_weights(model, inputs.model_weights(c["model"], ref.layer_parameters, cfg.num_layers,
+                                                 self.device, self.seed))
         self.model_cfg = cfg
         self.embedder = Embedder(cfg, model, max_batch=max_batch)
         if self.device.type == "cuda":

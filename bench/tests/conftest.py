@@ -16,6 +16,9 @@ for p in (str(ROOT), str(ROOT / "src")):
 # same code paths, the plain PyTorch kernels of the port.
 TINY_MODEL = dict(num_hidden_layers=2, hidden_size=64, num_attention_heads=4, num_key_value_heads=2,
                   head_dim=16, intermediate_size=128, vocab_size=512)
+# The same sizes as the port's ``ModelConfig`` keywords (``port_model``).
+TINY_PORT_MODEL = dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128,
+                       vocab_size=512)
 
 
 def tiny(cell):
@@ -26,6 +29,7 @@ def tiny(cell):
         cfg["data"]["centers"] = 16
     else:
         cfg["model"].update(TINY_MODEL)
+        cfg["port_model"].update(TINY_PORT_MODEL)
         cfg["dim"] = TINY_MODEL["hidden_size"]
         cfg["index"]["params"] = {"nlist": 8, "nprobe": 4}
     mix = copy.deepcopy(cell.traffic)

@@ -5,6 +5,7 @@ import pytest
 import torch
 
 from bench.lib import inputs
+from bench.reference import decoder
 
 SEEDS = (2**31 + 5, 2**33 + 11)
 DATA = {"centers": 8, "noise": 0.5, "normalize": True}
@@ -47,10 +48,11 @@ def test_deletes_repeat_and_differ():
 
 @pytest.mark.parametrize("layer", [0, 1])
 def test_layer_weights_repeat_and_differ(layer):
-    a = inputs.layer_weights(MODEL, layer, "cpu", SEEDS[0])
-    b = inputs.layer_weights(MODEL, layer, "cpu", SEEDS[0])
-    c = inputs.layer_weights(MODEL, layer, "cpu", SEEDS[1])
+    def draw(seed, at=layer):
+        return inputs.layer_weights(decoder.layer_parameters(MODEL, at), at, "cpu", seed)
+
+    a, b, c = draw(SEEDS[0]), draw(SEEDS[0]), draw(SEEDS[1])
     assert all(torch.equal(a[n], b[n]) for n in a)
     assert not torch.equal(a["attn.w_q"], c["attn.w_q"])
     assert a["attn.w_q"].dtype == torch.bfloat16 and a["mlp.w_down"].shape == (64, 32)
-    assert not torch.equal(a["attn.w_q"], inputs.layer_weights(MODEL, 1 - layer, "cpu", SEEDS[0])["attn.w_q"])
+    assert not torch.equal(a["attn.w_q"], draw(SEEDS[0], 1 - layer)["attn.w_q"])

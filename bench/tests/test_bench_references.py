@@ -57,7 +57,7 @@ def _port_embeddings(tokens, model):
     state = {"embed": inputs.embedding_table(model, "cpu", SEED),
              "ln_final": inputs.final_norm(model, "cpu", SEED)}
     for layer in range(model["num_hidden_layers"]):
-        for n, w in inputs.layer_weights(model, layer, "cpu", SEED).items():
+        for n, w in inputs.layer_weights(decoder.layer_parameters(model, layer), layer, "cpu", SEED).items():
             state[f"layers.{layer}.{n}"] = w
     m = M.params_shape(cfg)
     m.load_state_dict(state, strict=False, assign=True)
