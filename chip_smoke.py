@@ -175,7 +175,18 @@
    ``torch_serve_embedder.py`` on the card, each with its wall time and its
    own check (``l2_topk``, ``merge_topk`` and ``kmeans_assign`` launches
    counted toward the kernel line).
-13. Each path runs with every launch counter at 0 and fails unless each of
+13. Dropless MoE phase (``moe.expert_mlp``, DeepSeek-V2-Lite's routed
+   experts, a ``torch._grouped_mm`` a projection) at the
+   ``dsv2lite-rag-ingest-512`` cell's micro-batch: 98,304 slots of d
+   2,048 over 64 experts of 1,408, under a random router's load, every
+   slot on one expert, and every other expert empty, each held to a
+   per-expert loop within two bf16 ulps of its largest output, three
+   grouped products a call, its device kernels counted (the same count
+   under every load the profiler recorded) and run with every readback
+   refused; timed beside the loop, the three grouped
+   products alone and the bound; then one whole dropless layer at that
+   width, its grouped products counted and every readback refused.
+14. Each path runs with every launch counter at 0 and fails unless each of
    its kernels was launched; ``kmeans_assign``'s launches are also counted
    per (N, C, D), ``merge_topk``'s per (nq, M, k) and ``sq_decode``'s per
    (n, d), each adding up to the wrapper's count, and the three kernels are
@@ -417,6 +428,10 @@ DRYRUN_FLOPS_RATIO = (0.93, 0.96)
 EXAMPLES = ("torch_quickstart", "torch_elastic_failover", "torch_serve_embedder")
 # Dense bf16 peak of one H100 SXM at 700 W (NVIDIA data sheet).
 PEAK_BF16_FLOPS = 989e12
+# DeepSeek-V2-Lite's routed experts at the dsv2lite-rag-ingest-512 cell's
+# micro-batch (32 documents of 512 tokens, 6 of 64 experts a token).
+MOE_TOKENS, MOE_D, MOE_F, MOE_EXPERTS, MOE_TOP_K = 16_384, 2_048, 1_408, 64, 6
+MOE_LOADS = ("router", "one_expert", "half_empty")
 # Matmul kernels by name in a profile: cuBLAS / cuBLASLt / CUTLASS.
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
 
@@ -2660,14 +2675,14 @@ def serve_path(torch, dev, phases, counts, testing, seed: int) -> None:
     tally = {"on": True, "drops": [], "routes": [], "slots_dropped": 0}
     moe_block = M.moe_block
 
-    def counted_moe_block(cfg, p, x):
+    def counted_moe_block(cfg, p, x, probe=None):
         if tally["on"]:
             _gate, experts, _pos, kept = moe_mod.route(cfg, p, x)
             b, s = x.shape[:2]
             tally["drops"].append((~kept).reshape(b, s, -1).any(-1))  # [B, S]: a token lost a slot
             tally["slots_dropped"] += int((~kept).sum())
             tally["routes"].append(experts.reshape(b, s, -1).sort(-1).values)
-        return moe_block(cfg, p, x)
+        return moe_block(cfg, p, x, probe)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 20)
@@ -3568,6 +3583,137 @@ def assign_crossover(torch, km_mod, gen, dev) -> dict:
     return out
 
 
+def expert_mlp_plain(torch, rows, offsets, w_gate, w_up, w_down, row_scale):
+    """``moe.expert_mlp`` one expert at a time: float32 products of the bf16
+    operands, each step rounded to bf16 where the grouped path rounds."""
+    F = torch.nn.functional
+    y = torch.empty((rows.shape[0], w_down.shape[2]), dtype=rows.dtype, device=rows.device)
+    bounds = offsets.tolist()
+    for e in range(w_gate.shape[0]):
+        lo, hi = bounds[e], bounds[e + 1]
+        if hi > lo:
+            r = rows[lo:hi].float()
+            h = F.silu((r @ w_gate[e].float()).bfloat16()) * (r @ w_up[e].float()).bfloat16()
+            y[lo:hi] = ((h * row_scale[lo:hi, None].bfloat16()).float() @ w_down[e].float()).bfloat16()
+    return y
+
+
+def dropless_moe_phase(torch, dev, gen) -> dict:
+    """The dropless MoE layer's expert products at the main path's shapes
+    (module docstring, item 13): its row of the kernel line."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.config import ModelConfig
+
+    t, d, f, e = MOE_TOKENS * MOE_TOP_K, MOE_D, MOE_F, MOE_EXPERTS
+    w_gate, w_up = ((torch.randn(e, d, f, device=dev, generator=gen) / d ** 0.5).bfloat16() for _ in range(2))
+    w_down = (torch.randn(e, f, d, device=dev, generator=gen) / f ** 0.5).bfloat16()
+    rows = torch.randn(t, d, device=dev, generator=gen).bfloat16()
+    scale = torch.rand(t, device=dev, generator=gen)
+    grouped = {"calls": 0}
+    library = torch._grouped_mm
+
+    def counted(a, b, **kw):
+        grouped["calls"] += 1
+        return library(a, b, **kw)
+
+    def offsets_of(load):
+        if load == "router":
+            tokens = torch.randn(MOE_TOKENS, d, device=dev, generator=gen)
+            router = torch.randn(d, e, device=dev, generator=gen) / d ** 0.5
+            idx = torch.topk(torch.softmax(tokens @ router, -1), MOE_TOP_K, -1).indices.reshape(-1)
+        elif load == "one_expert":
+            idx = torch.full((t,), 13, device=dev)
+        else:
+            idx = torch.randint(0, e // 2, (t,), device=dev, generator=gen) * 2
+        return torch.searchsorted(torch.sort(idx).values, torch.arange(e + 1, device=dev))
+
+    def run(offsets):
+        return moe_mod.expert_mlp(rows, offsets, w_gate, w_up, w_down, scale)
+
+    def kernels_of(offsets) -> collections.Counter:
+        # torch.profiler drops a window's kernel records now and then in a
+        # long process (``device_ms``): up to three tries, else none
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run(offsets)
+                torch.cuda.synchronize()
+            names = collections.Counter(ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA)
+            if names:
+                break
+        return names
+
+    max_err, kernel_counts = 0.0, {}
+    torch._grouped_mm = counted
+    try:
+        for load in MOE_LOADS:
+            offsets = offsets_of(load)
+            run(offsets)
+            torch.cuda.synchronize()
+            grouped["calls"] = 0
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                y = run(offsets)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            grouped_calls = grouped["calls"]
+            names = kernels_of(offsets)
+            kernel_counts[load] = sum(names.values())
+            want = expert_mlp_plain(torch, rows, offsets, w_gate, w_up, w_down, scale)
+            err = float((y.float() - want.float()).abs().max())
+            top = float(want.float().abs().max())
+            counts = offsets[1:] - offsets[:-1]
+            log(f"dropless moe {load}: slots an expert max {int(counts.max())} min {int(counts.min())}; "
+                f"|y - plain| max {err:.3e} (|y| max {top:.3e}); {grouped_calls} grouped products, "
+                f"{kernel_counts[load]} kernels: " + "; ".join(f"{n[:90]} x{c}" for n, c in names.items()))
+            assert grouped_calls == 3, f"dropless moe {load}: {grouped_calls} grouped products, not 3"
+            assert err <= 2 * 2**-7 * top, f"dropless moe {load}: |y - plain| {err} over two bf16 ulps of {top}"
+            max_err = max(max_err, err)
+        recorded = {n for n in kernel_counts.values() if n}
+        assert len(recorded) == 1, f"dropless moe: kernels per call vary with the load: {kernel_counts}"
+
+        offsets = offsets_of("router")
+        ends = offsets[1:].to(torch.int32)
+        h = rows[:, :f].contiguous()
+        ms = cuda_ms(torch, lambda: run(offsets), 20)
+        library_ms = cuda_ms(torch, lambda: (library(rows, w_gate, offs=ends), library(rows, w_up, offs=ends),
+                                             library(h, w_down, offs=ends)), 20)
+        plain_ms = cuda_ms(torch, lambda: expert_mlp_plain(torch, rows, offsets, w_gate, w_up, w_down, scale), 3, 1)
+        bound_ms = 3 * 2 * t * d * f / PEAK_BF16_FLOPS * 1e3
+
+        # one whole layer at DeepSeek-V2-Lite's width
+        port = json.loads((ROOT / "bench" / "configs" / "dsv2lite-embed-rag.json").read_text())["port_model"]
+        cfg = ModelConfig(name="dsv2lite-smoke", **dict(port, num_layers=2))
+        layer = moe_mod.MoE(cfg, gen, dev)
+        x = torch.randn(32, 512, d, device=dev, generator=gen).bfloat16()
+        with torch.no_grad():
+            warm = moe_mod.moe_block(cfg, layer, x)
+            torch.cuda.synchronize()
+            grouped["calls"] = 0
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = moe_mod.moe_block(cfg, layer, x)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            layer_products = grouped["calls"]
+            layer_ms = cuda_ms(torch, lambda: moe_mod.moe_block(cfg, layer, x), 10)
+    finally:
+        torch._grouped_mm = library
+    assert layer_products == 3 and torch.equal(out, warm), \
+        f"dropless moe: one layer made {layer_products} grouped products or changed its output"
+    row = {"name": "expert_mlp", "route": "library (torch._grouped_mm)", "source": "src/repro_torch/models/moe.py",
+           "replaces": None, "grouped_products_per_layer": 3, "kernels_per_call": recorded.pop(),
+           "max_abs_err": max_err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "operations",
+           "library_ms": library_ms}
+    log(f"dropless moe at {t} slots: expert_mlp {ms:.4f} ms ({bound_ms / ms:.3f} of its bound {bound_ms:.4f} ms), "
+        f"the three grouped products alone {library_ms:.4f} ms, the per-expert loop {plain_ms:.3f} ms; one "
+        f"layer of 32 x 512 tokens {layer_ms:.3f} ms, 3 grouped products, no readback")
+    return row
+
+
 def card_info(torch) -> dict:
     """SM count and the largest SM clock (``nvidia-smi``), for the shared
     memory lookup rate."""
@@ -4020,6 +4166,12 @@ def main() -> int:
     del emb["model"]
     gc.collect()
     torch.cuda.empty_cache()
+    # ------------------------------------------------------ dropless MoE
+    t0 = time.perf_counter()
+    moe_row = dropless_moe_phase(torch, dev, gen)
+    phases["dropless_moe_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
     # --------------------------------------------------------- serve path
     serve_path(torch, dev, phases, counts, testing, args.seed)
     # --------------------------------------------------------- train path
@@ -4100,9 +4252,11 @@ def main() -> int:
         index_row("pq_adc_topk", "pq_adc_topk nq=100", "src/repro/kernels/pq_adc.py:84",
                   "pq_adc.cu"),
     ]
+    loss_rows = list(kernels)
+    kernels.append(moe_row)
     # Where the main path loses most to the bounds: launches x (time - bound)
     # per kernel, kmeans_assign summed over its shapes.
-    loss = {row["name"]: row["launches"] * (row["ms"] - row["bound_ms"]) for row in kernels}
+    loss = {row["name"]: row["launches"] * (row["ms"] - row["bound_ms"]) for row in loss_rows}
     for kname, rows in (("kmeans_assign", assign_rows), ("merge_topk", merge_rows),
                         ("sq_decode", decode_rows)):
         loss[kname] = sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in rows.values())

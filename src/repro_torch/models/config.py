@@ -5,6 +5,13 @@ One frozen dataclass describes every assigned architecture: dense GQA/MQA
 transformers, MLA, MoE, pure-SSM (Mamba2/SSD), hybrids (Jamba), and the
 VLM/audio stub-frontend variants.  ``layer_pattern`` gives the repeating
 per-layer kind sequence; ``moe_every`` marks which layers carry MoE FFNs.
+
+The port adds fields the reference lacks, each defaulting to the
+reference's behaviour: ``first_k_dense_replace`` leading layers with the
+dense ``d_ff`` MLP (DeepSeek-V2's layer 0), YaRN rope scaling as flat
+``rope_yarn_*`` scalars (a frozen dataclass holds no dict; factor 0 is
+plain RoPE), and ``moe_dropless`` routing (every routed slot computed, no
+capacity).
 """
 
 from __future__ import annotations
@@ -29,6 +36,13 @@ class ModelConfig:
     qk_norm: bool = False
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
+    # YaRN (DeepSeek-V2's ``rope_scaling``); factor 0: plain RoPE
+    rope_yarn_factor: float = 0.0
+    rope_yarn_original_max_positions: int = 0
+    rope_yarn_beta_fast: float = 32.0
+    rope_yarn_beta_slow: float = 1.0
+    rope_yarn_mscale: float = 1.0
+    rope_yarn_mscale_all_dim: float = 0.0
 
     # MLA (multi-head latent attention)
     q_lora_rank: int = 0
@@ -45,6 +59,8 @@ class ModelConfig:
     moe_every: int = 1  # layer l has MoE FFN iff (l % moe_every) == moe_every-1
     moe_capacity_factor: float = 1.25
     moe_norm_topk: bool = True
+    moe_dropless: bool = False  # every routed slot computed (grouped GEMMs), no capacity
+    first_k_dense_replace: int = 0  # leading layers with the d_ff MLP, before the MoE pattern
 
     # SSM (Mamba2 / SSD)
     ssm_state: int = 0
@@ -93,7 +109,7 @@ class ModelConfig:
         return [pat[l % len(pat)] for l in range(self.num_layers)]
 
     def is_moe_layer(self, layer_idx: int) -> bool:
-        if self.moe_num_experts == 0:
+        if self.moe_num_experts == 0 or layer_idx < self.first_k_dense_replace:
             return False
         return (layer_idx % self.moe_every) == (self.moe_every - 1)
 
@@ -112,10 +128,9 @@ class ModelConfig:
             total += 2 * d  # norms
             if kind == "attn":
                 if self.attn_type == "mla":
-                    qr = self.q_lora_rank or d
-                    total += d * qr + qr * self.num_heads * (
-                        self.qk_nope_head_dim + self.qk_rope_head_dim
-                    )
+                    q_out = self.num_heads * (self.qk_nope_head_dim + self.qk_rope_head_dim)
+                    qr = self.q_lora_rank
+                    total += d * qr + qr * q_out if qr else d * q_out  # factored or direct query
                     total += d * (self.kv_lora_rank + self.qk_rope_head_dim)
                     total += self.kv_lora_rank * self.num_heads * (
                         self.qk_nope_head_dim + self.v_head_dim

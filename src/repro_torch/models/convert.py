@@ -15,7 +15,9 @@ row ``period`` of ``layers/slot<slot>``; nested dicts (``attn``, ``ssm``,
 ``state_dict`` names (the parameters, or the optimizer's float32 ``m`` /
 ``v``) becomes the reference's stacked tree of float32 numpy arrays (bf16
 widened, exactly).  ``state_from_jax`` is the unstacking alone: such a tree
-to a dict of numpy arrays keyed by ``state_dict`` names.
+to a dict of numpy arrays keyed by ``state_dict`` names.  The reference's
+layout has no leading dense layers: a configuration with
+``first_k_dense_replace`` raises ``ValueError`` in both directions.
 """
 
 from __future__ import annotations
@@ -36,9 +38,15 @@ def _flatten(tree: dict, prefix: str, out: dict, row=None) -> None:
             out[prefix + name] = leaf if row is None else leaf[row]
 
 
+def _stacked_layout(cfg: ModelConfig) -> None:
+    if cfg.first_k_dense_replace:
+        raise ValueError(f"{cfg.name}: the reference's stacked layout has no leading dense layers")
+
+
 def state_from_jax(cfg: ModelConfig, tree: dict) -> dict:
     """A reference tree's leaves keyed by ``state_dict`` names, each
     period's row of the stacked layers apart."""
+    _stacked_layout(cfg)
     pattern = effective_pattern(cfg)
     leaves: dict = {}
     _flatten({k: v for k, v in tree.items() if k != "layers"}, "", leaves)
@@ -52,6 +60,7 @@ def state_from_jax(cfg: ModelConfig, tree: dict) -> dict:
 def params_to_jax(cfg: ModelConfig, state: dict) -> dict:
     """The reference's tree (``init_params``'s layout, layers stacked per
     slot over periods) of ``state``'s tensors as float32 numpy arrays."""
+    _stacked_layout(cfg)
     period = len(effective_pattern(cfg))
     tree: dict = {}
     stacks: dict = {}

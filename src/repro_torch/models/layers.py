@@ -69,14 +69,68 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exponents)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: [..., S, H, hd]; positions: [..., S] (int)."""
-    freqs = rope_freqs(x.shape[-1], theta, device=x.device)  # [hd/2]
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               freqs: torch.Tensor | None = None, cos_scale: float = 1.0) -> torch.Tensor:
+    """x: [..., S, H, hd]; positions: [..., S] (int).  Rotate-half RoPE at
+    ``rope_freqs(hd, theta)``, or at the inverse frequencies ``freqs``
+    [hd/2] with cos and sin scaled by ``cos_scale`` (YaRN)."""
+    if freqs is None:
+        freqs = rope_freqs(x.shape[-1], theta, device=x.device)  # [hd/2]
     angles = positions[..., :, None].float() * freqs[None, :]  # [..., S, hd/2]
     cos = torch.cos(angles)[..., :, None, :]
     sin = torch.sin(angles)[..., :, None, :]
+    if cos_scale != 1.0:
+        cos, sin = cos * cos_scale, sin * cos_scale
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def yarn_mscale(scale: float, mscale: float) -> float:
+    """DeepSeek-V2's ``yarn_get_mscale``: 0.1 * mscale * ln(scale) + 1,
+    and 1 where the scale does not stretch."""
+    return 1.0 if scale <= 1.0 else 0.1 * mscale * math.log(scale) + 1.0
+
+
+def yarn_ramp_bounds(cfg: ModelConfig, dim: int) -> tuple[int, int]:
+    """(low, high): the dimensions where YaRN's ramp starts and ends,
+    floor / ceil of dim * ln(L / (2 pi r)) / (2 ln theta) at r = beta_fast /
+    beta_slow rotations over the original L positions, kept in [0, dim-1]."""
+    def correction(rotations: float) -> float:
+        return dim * math.log(cfg.rope_yarn_original_max_positions / (rotations * 2 * math.pi)) \
+            / (2 * math.log(cfg.rope_theta))
+
+    return (max(math.floor(correction(cfg.rope_yarn_beta_fast)), 0),
+            min(math.ceil(correction(cfg.rope_yarn_beta_slow)), dim - 1))
+
+
+def yarn_inv_freqs(cfg: ModelConfig, dim: int, device=None) -> torch.Tensor:
+    """YaRN's inverse frequencies [dim/2], as DeepSeek-V2 publishes them:
+    theta^(-2i/dim) (1 - ramp_i) + theta^(-2i/dim) / factor * ramp_i, the
+    ramp linear from 0 at ``low`` to 1 at ``high`` (``yarn_ramp_bounds``)."""
+    low, high = yarn_ramp_bounds(cfg, dim)
+    extra = rope_freqs(dim, cfg.rope_theta, device=device)
+    ramp = (torch.arange(dim // 2, dtype=torch.float32, device=device) - low) / max(high - low, 1e-3)
+    ramp = ramp.clamp(0.0, 1.0)
+    return extra * (1.0 - ramp) + extra / cfg.rope_yarn_factor * ramp
+
+
+def rope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """``apply_rope`` at the configuration's theta, YaRN-scaled where it
+    has a YaRN factor (cos and sin then scaled by mscale / mscale_all_dim)."""
+    if not cfg.rope_yarn_factor:
+        return apply_rope(x, positions, cfg.rope_theta)
+    f = cfg.rope_yarn_factor
+    return apply_rope(x, positions, cfg.rope_theta, yarn_inv_freqs(cfg, x.shape[-1], x.device),
+                      yarn_mscale(f, cfg.rope_yarn_mscale) / yarn_mscale(f, cfg.rope_yarn_mscale_all_dim))
+
+
+def softmax_scale(cfg: ModelConfig, head_dim: int) -> float | None:
+    """The attention softmax's scale where it is not 1/sqrt(head_dim):
+    DeepSeek-V2's YaRN multiplies it by mscale(factor, mscale_all_dim)^2.
+    None for the default."""
+    if not (cfg.rope_yarn_factor and cfg.rope_yarn_mscale_all_dim):
+        return None
+    return head_dim ** -0.5 * yarn_mscale(cfg.rope_yarn_factor, cfg.rope_yarn_mscale_all_dim) ** 2
 
 
 # -------------------------------------------------------- flash attention --
@@ -91,20 +145,23 @@ def flash_attention(
     causal_offset: int | None = 0,
     kv_block: int = DEFAULT_KV_BLOCK,
     q_block: int = DEFAULT_Q_BLOCK,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Online-softmax attention over KV blocks, O(Sq * blk) live memory.
 
     Queries are grouped [B, qb, KVH, G, hd] and contracted against the raw
     KV heads, which are never repeated to H.  Both sequences are padded to
     whole blocks; padded keys are masked.  ``causal_offset``: query i
-    attends to keys j <= i + offset; None disables the causal mask.  Scores,
+    attends to keys j <= i + offset; None disables the causal mask.
+    ``scale`` is the softmax's (default 1/sqrt(hd)).  Scores,
     the running (max, denominator, accumulator) and the value product are
     float32; the output takes ``q``'s dtype."""
     b, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     vd = v.shape[-1]
     g = h // kvh
-    scale = 1.0 / math.sqrt(hd)
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
     if _COST_TILES:
         kv_block = max(kv_block, -(-sk // 8))
         q_block = max(q_block, -(-sq // 4))
@@ -160,7 +217,11 @@ def model_device(device="cuda") -> torch.device:
 
 def _normal(shape, scale: float, generator, device, dtype=PARAM_DTYPE) -> nn.Parameter:
     """A normal draw times ``scale``, both in ``dtype`` (bf16 by default,
-    as the reference)."""
+    as the reference).  On the meta device (``model.params_shape``) an
+    empty tensor: a draw there has no values and its first call imports
+    sympy (seconds of set-up)."""
+    if torch.device(device).type == "meta":
+        return nn.Parameter(torch.empty(shape, device=device, dtype=dtype), requires_grad=False)
     w = torch.randn(shape, generator=generator, device=device, dtype=dtype)
     return nn.Parameter(w.mul_(scale), requires_grad=False)
 
@@ -171,7 +232,10 @@ def _const(n: int, value: float, device, dtype=PARAM_DTYPE) -> nn.Parameter:
 
 class Attention(nn.Module):
     """Self-attention weights (``init_attention_params``): GQA / MQA, or
-    MLA's low-rank query and key-value projections."""
+    MLA's low-rank key-value projection with a low-rank query (``w_dq``,
+    ``q_norm``, ``w_uq``) or, where ``q_lora_rank`` is 0, one direct query
+    projection ``w_q`` (DeepSeek-V2-Lite's ``q_proj``; the reference has
+    no such path)."""
 
     def __init__(self, cfg: ModelConfig, generator=None, device="cuda"):
         super().__init__()
@@ -179,12 +243,15 @@ class Attention(nn.Module):
         d = cfg.d_model
         s = 1.0 / math.sqrt(d)
         if cfg.attn_type == "mla":
-            qr = cfg.q_lora_rank or d
+            qr = cfg.q_lora_rank
             qhd = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
             r, h = cfg.kv_lora_rank, cfg.num_heads
-            self.w_dq = _normal((d, qr), s, generator, device)
-            self.q_norm = _const(qr, 1.0, device)
-            self.w_uq = _normal((qr, h * qhd), 1.0 / math.sqrt(qr), generator, device)
+            if qr:
+                self.w_dq = _normal((d, qr), s, generator, device)
+                self.q_norm = _const(qr, 1.0, device)
+                self.w_uq = _normal((qr, h * qhd), 1.0 / math.sqrt(qr), generator, device)
+            else:
+                self.w_q = _normal((d, h * qhd), s, generator, device)
             self.w_dkv = _normal((d, r + cfg.qk_rope_head_dim), s, generator, device)
             self.kv_norm = _const(r, 1.0, device)
             self.w_ukv = _normal((r, h * (cfg.qk_nope_head_dim + cfg.v_head_dim)),
@@ -246,9 +313,19 @@ def gqa_qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor, positions: torch.Te
         norm_mode = "sum" if tp > 1 else "slice"  # a replicated scale on this rank's heads
         q = rms_norm(q, shd.weight(p, "q_head_norm", norm_mode), cfg.norm_eps)
         k = rms_norm(k, shd.weight(p, "k_head_norm", norm_mode), cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q = rope(cfg, q, positions)
+    k = rope(cfg, k, positions)
     return q, k, v
+
+
+def mla_query(cfg: ModelConfig, p: Attention, x: torch.Tensor, tp: int) -> torch.Tensor:
+    """MLA's query [B, S, heads * (nope+rope)] before RoPE: the low-rank
+    ``w_dq`` -> ``q_norm`` -> ``w_uq``, or the direct ``w_q``."""
+    keep = "keep" if tp > 1 else "slice"
+    if cfg.q_lora_rank:
+        cq = rms_norm(x @ shd.weight(p, "w_dq"), p.q_norm, cfg.norm_eps)
+        return _split_in(cq, tp) @ shd.weight(p, "w_uq", keep)
+    return _split_in(x, tp) @ shd.weight(p, "w_q", keep)
 
 
 def mla_qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor, positions: torch.Tensor):
@@ -265,12 +342,11 @@ def mla_qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor, positions: torch.Te
     keep = "keep" if tp > 1 else "slice"
     h = cfg.num_heads // tp
     nope, rope_d, vd, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
-    cq = rms_norm(x @ shd.weight(p, "w_dq"), p.q_norm, cfg.norm_eps)
-    q = (_split_in(cq, tp) @ shd.weight(p, "w_uq", keep)).reshape(b, s, h, nope + rope_d)
-    q = torch.cat([q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)], -1)
+    q = mla_query(cfg, p, x, tp).reshape(b, s, h, nope + rope_d)
+    q = torch.cat([q[..., :nope], rope(cfg, q[..., nope:], positions)], -1)
     dkv = x @ shd.weight(p, "w_dkv")  # [B,S,r+rope]
     c_kv = rms_norm(dkv[..., :r], p.kv_norm, cfg.norm_eps)
-    k_rope = apply_rope(dkv[..., r:].reshape(b, s, 1, rope_d), positions, cfg.rope_theta)
+    k_rope = rope(cfg, dkv[..., r:].reshape(b, s, 1, rope_d), positions)
     ukv = (_split_in(c_kv, tp) @ shd.weight(p, "w_ukv", keep)).reshape(b, s, h, nope + vd)
     k = torch.cat([ukv[..., :nope], _split_in(k_rope, tp).expand(b, s, h, rope_d)], -1)
     return q, k, ukv[..., nope:], torch.cat([c_kv, k_rope[:, :, 0]], -1)
@@ -286,7 +362,7 @@ def attention_block(
         q, k, v, _payload = mla_qkv(cfg, p, x, positions)
     else:
         q, k, v = gqa_qkv(cfg, p, x, positions)
-    out = flash_attention(q, k, v, causal_offset=0, kv_block=kv_block)
+    out = flash_attention(q, k, v, causal_offset=0, kv_block=kv_block, scale=softmax_scale(cfg, q.shape[-1]))
     return attention_out(cfg, p, out.reshape(b, s, -1))
 
 

@@ -3,10 +3,13 @@
 
 Layer kinds come from ``cfg.layer_pattern`` (attn / ssm) repeated over
 depth, with MoE FFNs on the layers ``cfg.is_moe_layer`` picks and no MLP
-where ``d_ff == 0`` (mamba2).  The reference stacks equal-structure layers
-along a ``periods`` axis and scans over it; here each layer is an
-``nn.Module`` in an ``nn.ModuleList`` and the passes are loops over it
-(``models/convert.py`` unstacks a reference parameter tree into it).
+where ``d_ff == 0`` (mamba2).  The ``cfg.first_k_dense_replace`` leading
+layers (the port's own field; 0 in every configuration the reference has)
+carry the dense MLP and stand before the first period.  The reference
+stacks equal-structure layers along a ``periods`` axis and scans over it;
+here each layer is an ``nn.Module`` in an ``nn.ModuleList`` and the passes
+are loops over it (``models/convert.py`` unstacks a reference parameter
+tree into it).
 Parameters are bf16 (the reference's ``PARAM_DTYPE``; the MoE router and
 the SSM's ``a_log`` / ``d_skip`` / ``dt_bias`` float32, as there) on an
 explicit device, drawn from an explicit ``torch.Generator`` at the
@@ -64,17 +67,20 @@ from .layers import (
     PARAM_DTYPE,
     Attention,
     _normal,
-    apply_rope,
     attention_block,
     attention_out,
     flash_attention,
     gqa_qkv,
+    mla_query,
     mla_qkv,
     mlp_block,
     model_device,
     rms_norm,
+    rope,
+    softmax_scale,
 )
 from .moe import MoE, moe_block
+from .probe import span as _span
 from .ssm import SSM, init_ssm_state, ssm_block, ssm_block_with_state, ssm_decode_step
 
 def _lcm(a: int, b: int) -> int:
@@ -82,23 +88,28 @@ def _lcm(a: int, b: int) -> int:
 
 
 def effective_pattern(cfg: ModelConfig) -> list[tuple[str, bool]]:
-    """Per-slot (kind, is_moe) over one effective period."""
+    """Per-slot (kind, is_moe) over one effective period of the layers
+    after the leading dense ones."""
     pat = cfg.pattern()
+    lead = cfg.first_k_dense_replace
     period = _lcm(len(pat), cfg.moe_every if cfg.moe_num_experts else 1)
-    if cfg.num_layers % period != 0:
+    if (cfg.num_layers - lead) % period != 0:
         raise ValueError(
-            f"{cfg.name}: layers {cfg.num_layers} not divisible by period {period}"
+            f"{cfg.name}: layers {cfg.num_layers} after {lead} leading not divisible by period {period}"
         )
-    return [(pat[s % len(pat)], cfg.is_moe_layer(s)) for s in range(period)]
+    return [(pat[(lead + s) % len(pat)], cfg.is_moe_layer(lead + s)) for s in range(period)]
 
 
 def num_periods(cfg: ModelConfig) -> int:
-    return cfg.num_layers // len(effective_pattern(cfg))
+    return (cfg.num_layers - cfg.first_k_dense_replace) // len(effective_pattern(cfg))
 
 
 def layer_kinds(cfg: ModelConfig) -> list[tuple[str, bool]]:
-    """(kind, is_moe) of every layer: the effective pattern over depth."""
-    return effective_pattern(cfg) * num_periods(cfg)
+    """(kind, is_moe) of every layer: the leading dense layers, then the
+    effective pattern over the rest of the depth."""
+    pat = cfg.pattern()
+    lead = [(pat[l % len(pat)], False) for l in range(cfg.first_k_dense_replace)]
+    return lead + effective_pattern(cfg) * num_periods(cfg)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -134,21 +145,29 @@ class DecoderLayer(nn.Module):
         elif cfg.d_ff > 0:
             self.mlp = MLP(cfg.d_model, cfg.d_ff, generator, device)
 
-    def ffn(self, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    def ffn(self, cfg: ModelConfig, x: torch.Tensor, probe=None) -> torch.Tensor:
         """The residual FFN sublayer (identity without one)."""
         if not self.has_ffn:
             return x
         h = rms_norm(x, self.ln_mlp, cfg.norm_eps)
-        return x + (moe_block(cfg, self.moe, h) if self.is_moe else mlp_block(self.mlp, h))
+        if self.is_moe:
+            return x + moe_block(cfg, self.moe, h, probe)
+        with _span(probe, "mlp"):
+            return x + mlp_block(self.mlp, h)
 
-    def forward(self, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        """``repro.models.model._layer_forward``."""
+    def forward(self, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, probe=None) -> torch.Tensor:
+        """``repro.models.model._layer_forward``.  ``probe`` (a
+        ``probe.ForwardProbe``, or None) times the sublayers and counts the
+        routing."""
+        if probe is not None:
+            probe.next_layer()
         h = rms_norm(x, self.ln_attn, cfg.norm_eps)
         if self.kind == "attn":
-            x = x + attention_block(cfg, self.attn, h, positions)
+            with _span(probe, "attention"):
+                x = x + attention_block(cfg, self.attn, h, positions)
         else:
             x = x + ssm_block(cfg, self.ssm, h)
-        return self.ffn(cfg, x)
+        return self.ffn(cfg, x, probe)
 
 
 class Transformer(nn.Module):
@@ -242,27 +261,32 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device).expand(b, s)
 
 
-def _period_forward(cfg: ModelConfig, layers, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+def _period_forward(cfg: ModelConfig, layers, x: torch.Tensor, positions: torch.Tensor,
+                    probe=None) -> torch.Tensor:
     for layer in layers:
-        x = layer(cfg, x, positions)
+        x = layer(cfg, x, positions, probe)
     return x
 
 
 def hidden_states(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
-                  prefix_embeds: torch.Tensor | None = None, remat: bool = True) -> torch.Tensor:
+                  prefix_embeds: torch.Tensor | None = None, remat: bool = True,
+                  probe=None) -> torch.Tensor:
     """Final-norm hidden states [B, S_total, D] (no LM head).  With
-    ``remat`` and autograd recording, each effective period keeps only its
-    input and is recomputed in the backward pass."""
+    ``remat`` and autograd recording, the leading dense layers and then
+    each effective period keep only their input and are recomputed in the
+    backward pass.  ``probe``: see ``DecoderLayer.forward``."""
     x = embed_inputs(cfg, params, tokens, prefix_embeds)
     positions = _positions(x.shape[0], x.shape[1], x.device)
     period = len(effective_pattern(cfg))
+    lead = cfg.first_k_dense_replace
+    groups = ([params.layers[:lead]] if lead else []) + [
+        params.layers[lo:lo + period] for lo in range(lead, len(params.layers), period)]
     recompute = remat and torch.is_grad_enabled()
-    for lo in range(0, len(params.layers), period):
-        layers = params.layers[lo:lo + period]
+    for layers in groups:
         if recompute:
-            x = shd.checkpoint(_period_forward, cfg, layers, x, positions)
+            x = shd.checkpoint(_period_forward, cfg, layers, x, positions, probe)
         else:
-            x = _period_forward(cfg, layers, x, positions)
+            x = _period_forward(cfg, layers, x, positions, probe)
     return rms_norm(x, params.ln_final, cfg.norm_eps)
 
 
@@ -344,7 +368,7 @@ def _attn_prefill(cfg: ModelConfig, p: Attention, h: torch.Tensor, positions: to
         q, k, v = gqa_qkv(cfg, p, h, positions)
         _cache_write(slot_cache["k"], _all_kv_heads(cfg, k), offset)
         _cache_write(slot_cache["v"], _all_kv_heads(cfg, v), offset)
-    out = flash_attention(q, k, v, causal_offset=0)
+    out = flash_attention(q, k, v, causal_offset=0, scale=softmax_scale(cfg, q.shape[-1]))
     return attention_out(cfg, p, out.reshape(b, s, -1))
 
 
@@ -411,10 +435,12 @@ def dense_gqa_decode_attn(q, k_new, v_new, k_cache, v_cache, pos: int):
     return out.reshape(b, 1, h, hd).to(q.dtype), k_cache, v_cache
 
 
-def dense_mla_decode_attn(q_c, q_rope, payload, c_cache, pos: int, r: int, scale_dim: int):
+def dense_mla_decode_attn(q_c, q_rope, payload, c_cache, pos: int, r: int, scale_dim: float):
     """Absorbed MLA decode over the compressed cache: writes row ``pos`` in
     place, scores q_c · c_kv + q_rope · k_rope at 1/sqrt(scale_dim) in
-    float32, -1e30 past ``pos``; returns the context in the latent space."""
+    float32 (``scale_dim`` the query head width, or 1 / scale^2 where the
+    softmax's scale is not the default: YaRN), -1e30 past ``pos``; returns
+    the context in the latent space."""
     c_cache[:, pos:pos + 1] = payload
     s = c_cache.shape[1]
     c_kv = c_cache[..., :r].float()
@@ -438,21 +464,20 @@ def _attn_decode(cfg: ModelConfig, p: Attention, h: torch.Tensor, slot_cache: di
         nope, rope_d, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
         vd, hn = cfg.v_head_dim, cfg.num_heads // tp
         keep = "keep" if tp > 1 else "slice"
-        cq = rms_norm(h @ shd.weight(p, "w_dq"), p.q_norm, cfg.norm_eps)
-        q = (cq @ shd.weight(p, "w_uq", keep)).reshape(b, 1, hn, nope + rope_d)
-        q_nope, q_rope = q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)
+        q = mla_query(cfg, p, h, tp).reshape(b, 1, hn, nope + rope_d)
+        q_nope, q_rope = q[..., :nope], rope(cfg, q[..., nope:], positions)
         dkv = h @ shd.weight(p, "w_dkv")  # [B,1,r+rope]
         c_kv = rms_norm(dkv[..., :r], p.kv_norm, cfg.norm_eps)
-        k_rope = apply_rope(dkv[..., r:].reshape(b, 1, 1, rope_d), positions,
-                            cfg.rope_theta).reshape(b, 1, rope_d)
+        k_rope = rope(cfg, dkv[..., r:].reshape(b, 1, 1, rope_d), positions).reshape(b, 1, rope_d)
         # Absorbed query / value projections: score and read in the
         # compressed space.
         w_ukv = shd.weight(p, "w_ukv", keep).reshape(r, hn, nope + vd)
         q_c = torch.einsum("bqhn,rhn->bqhr", q_nope.float(), w_ukv[..., :nope].float()).to(h.dtype)
         if tp > 1:
             q_c, q_rope = shd.gather_nograd(q_c, "model", 2), shd.gather_nograd(q_rope, "model", 2)
-        ctx, slot_cache["c"] = mla_attn_impl(q_c, q_rope, torch.cat([c_kv, k_rope], -1),
-                                             slot_cache["c"], pos, r, nope + rope_d)
+        scale = softmax_scale(cfg, nope + rope_d)
+        ctx, slot_cache["c"] = mla_attn_impl(q_c, q_rope, torch.cat([c_kv, k_rope], -1), slot_cache["c"],
+                                             pos, r, nope + rope_d if scale is None else scale ** -2)
         if tp > 1:
             ctx = shd.local_block(ctx, "model", 2)
         out = torch.einsum("bqhr,rhv->bqhv", ctx.float(), w_ukv[..., nope:].float()).to(h.dtype)
